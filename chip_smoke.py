@@ -16,8 +16,14 @@ raises and the run exits non-zero:
   4. the main path at the bench size: ``MonteCarloAnalyzer.run_monte_carlo``
      with 262,144 lanes and ``SimConfig(max_time=6.0)``, launch count from
      that run, then the kernel against its plain version at that shape,
-     compared (float32 bars) and timed;
+     compared (float32 bars) and timed, beside its bound (the least time an
+     H100 could take for those flights, ``flight_summary.bound_ms``), the
+     share of it the kernel reaches, its registers, spills and warps per SM;
   5. the README quick start: full flights to landing, 16,384 lanes.
+
+Phases 2, 4 and 5 also print a ``digest`` line: the SHA-256 of the kernel's
+outputs with NaN made canonical (``kernels/measure.py digest``). A change
+to the kernel that moves no bit leaves every digest as it was.
 
 The line before the last is the kernel report (JSON), the last line the
 device record (JSON).
@@ -30,12 +36,14 @@ import json
 import math
 import os
 import shutil
-import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
+
+from erpl_monte_carlo_sim_tpu_torch.kernels.measure import (
+    card_line, cuda_ms, digest, occupancy, ptxas_usage, sample_batch)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 KERNEL_SOURCE = "erpl_monte_carlo_sim_tpu_torch/csrc/flight_summary.cu"
@@ -54,13 +62,6 @@ ATOL = 1e-6
 
 def phase(name: str, **numbers) -> None:
     print(f"[{name}] " + " ".join(f"{k}={v}" for k, v in numbers.items()), flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def leaves(obj, path=""):
@@ -125,18 +126,6 @@ def compare(ref_out: dict, got_out: dict, dtype) -> float:
     return worst
 
 
-def sample_batch(n, dtype, seed=0):
-    from erpl_monte_carlo_sim_tpu_torch.engine import InitialConditions
-    from erpl_monte_carlo_sim_tpu_torch.mc import sample_dispersions
-    from erpl_monte_carlo_sim_tpu_torch.models import liquid_motor, nominal_scene
-
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-    return sample_dispersions(gen, nominal_scene(liquid_motor(dev, dtype)),
-                              InitialConditions.vertical_launch(dev, dtype), n=n)[:2]
-
-
 def kernel_and_plain(scene_b, ic_b, cfg):
     """Both versions on the same prepared inputs: ``(plain, kernel)``
     output dicts."""
@@ -149,17 +138,6 @@ def kernel_and_plain(scene_b, ic_b, cfg):
     ref = fs.flight_summary_reference(scene_nw, cfg, table_wind_fn(grid, wind), ics)
     torch.cuda.synchronize()
     return ref, got
-
-
-def cuda_ms(fn, reps=1):
-    """Mean ms per call of ``fn`` by CUDA events, and its last result."""
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        out = fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps, out
 
 
 def main() -> int:
@@ -189,20 +167,16 @@ def main() -> int:
     t0 = time.time()
     _, log = fs.build(verbose=True)
     build_s = time.time() - t0
-    regs = [l.strip() for l in log.splitlines() if "registers" in l or "spill" in l]
-    phase("1 build", seconds=f"{build_s:.2f}", ptxas=json.dumps(regs))
+    usage = ptxas_usage(log)
+    phase("1 build", seconds=f"{build_s:.2f}", ptxas=json.dumps(usage))
 
     # ---------------------------------------------------------------- 2
     cfg = SimConfig(max_time=WINDOW)
     for dtype, n in ((torch.float32, 1024), (torch.float64, 256)):
-        scene_b, ic_b = sample_batch(n, dtype)
-        if dtype == torch.float64:
-            # one lane with a non-finite wind table above 2 km: it must
-            # diverge at the same step in both versions
-            wind = scene_b.wind.wind.clone()
-            wind[7, scene_b.wind.altitudes > 2000.0] = float("nan")
-            scene_b = dataclasses.replace(
-                scene_b, wind=dataclasses.replace(scene_b.wind, wind=wind))
+        # in float64, one lane with a non-finite wind table above 2 km: it
+        # must diverge at the same step in both versions
+        scene_b, ic_b = sample_batch(n, dtype,
+                                     nan_lane=7 if dtype == torch.float64 else None)
         t0 = time.time()
         ref, got = kernel_and_plain(scene_b, ic_b, cfg)
         secs = time.time() - t0
@@ -213,6 +187,7 @@ def main() -> int:
         phase(f"2 kernel=plain {str(dtype).split('.')[-1]}", lanes=n,
               max_abs_err=err, rtol=RTOL[dtype], atol=ATOL, both_seconds=f"{secs:.2f}",
               n_steps_max=int(got["n_steps"].max()), diverged=int(got["diverged"].sum()))
+        phase(f"2 digest {str(dtype).split('.')[-1]}", lanes=n, sha256=digest(got))
 
     # ---------------------------------------------------------------- 3
     from erpl_monte_carlo_sim_tpu_torch.engine import simulate_summary_batch
@@ -284,9 +259,17 @@ def main() -> int:
     plain_ms, ref = cuda_ms(lambda: fs.flight_summary_reference(
         scene_nw, cfg, table_wind_fn(grid, wind), ics))
     main_err = compare(ref, got, torch.float32)
+    bound = fs.bound_ms(got, cfg, torch.float32, fs.input_bytes(scene_nw, grid, wind, ics))
+    threads, blocks = occupancy(fs, "f32", scene_nw, grid)
+    f32 = usage["f32"]
+    costs = {"bound_ms": bound.ms, "bound_by": bound.by, "lane_steps": bound.lane_steps,
+             "share_of_bound": bound.ms / kernel_ms, "regs": f32["regs"],
+             "spill_bytes": f32["spill_stores"] + f32["spill_loads"],
+             "warps_per_sm": blocks * threads // 32}
     phase("4 kernel vs plain", lanes=BENCH_LANES, max_abs_err=main_err,
           rtol=RTOL[torch.float32], atol=ATOL, kernel_ms=f"{kernel_ms:.3f}",
-          plain_ms=f"{plain_ms:.3f}", speedup=f"{plain_ms / kernel_ms:.1f}")
+          plain_ms=f"{plain_ms:.3f}", speedup=f"{plain_ms / kernel_ms:.1f}", **costs)
+    phase("4 digest f32", lanes=BENCH_LANES, sha256=digest(got))
 
     # ---------------------------------------------------------------- 5
     mc_full = MonteCarloAnalyzer(motor=liquid_motor(dev), sim_config=SimConfig())
@@ -300,11 +283,15 @@ def main() -> int:
           n_outliers=full["n_outliers"], apogee_mean=full["apogee_altitude"]["mean"],
           flight_time_mean=full["flight_time"]["mean"],
           max_steps=int(np.max(full["summary"].n_steps)))
+    # the kernel's own outputs for full flights, for the digest
+    scene_b, ic_b = sample_batch(FULL_FLIGHT_LANES, torch.float32)
+    phase("5 digest f32", lanes=FULL_FLIGHT_LANES,
+          sha256=digest(fs.flight_summary(*prepare_batch(scene_b, ic_b), SimConfig())))
 
     report = {"kernels": [
         {"name": f"flight_summary ({name})", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": where, "launches": launches, "max_abs_err": main_err,
-         "ms": kernel_ms, "plain_ms": plain_ms}
+         "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None, **costs}
         for name, where in REPLACES
     ]}
     print(card, flush=True)

@@ -11,24 +11,50 @@
 // kernel writes every output of that function (the 31 keys of its summary
 // dict, which cover every FlightSummary leaf of the second kernel).
 //
-// What bounds it on this card: per-lane register pressure (14 state values,
-// the event carry, the lane's parameters and the RK4 stage temporaries) and
-// divergent, data-dependent loop lengths (each thread runs to its own
-// termination, so a warp runs as long as its longest lane). The memory
-// traffic is small: two knots x three components of the lane's wind table
-// per wind evaluation, and the shared Mach/thrust tables, which stay cached.
-// Design: one thread runs one lane's whole flight in registers; no shared
-// memory, no inter-thread communication. The TPU kernels' block-wide
-// "while any lane active" loop is gone, and so is their B % tile rule.
+// What bounds it: operations. A lane-step (one RK4 step: four dynamics
+// evaluations, the stage sums, the events) needs about 1,620 arithmetic
+// operations, counted as this kernel evaluates them, and moves no memory
+// but the lane's wind values per evaluation (kernels/flight_summary.py
+// OPS_PER_STEP, bound_ms). The main path (B = 262,144, float32, 6 s
+// window, about 2.9e8 lane-steps) needs at least 6.5 ms at the H100's
+// published 67 TFLOP/s, which counts a fused multiply-add as two
+// operations; built with -fmad=false, the kernel executes one add or
+// multiply per instruction, so its own ceiling is half that rate. Its
+// bytes (about 0.4 GB) need 0.1 ms. The kernel reaches a few per cent of
+// that bound: its chains of divisions, square roots, pow and atan2 wait on
+// latency, which only more warps per SM hide, and every register the lane
+// keeps costs warps.
+// Design, against that:
+//   * table lookups sum the four knots around the query's segment, not
+//     every knot, where the wrapper found that exact (window-exact tables,
+//     see knot_range); inside a segment each knot's tent weight needs one
+//     division, not two (window_weight); cd0 and cda share their weights;
+//   * each block stages the shared tables and the wind grid in shared
+//     memory once, with every knot's support precomputed; the wind segment
+//     starts from a direct index;
+//   * the per-lane wind table is lane-minor [N,3,B], so a warp's loads of
+//     one knot are contiguous;
+//   * the lane's constants live in shared memory ([field][thread]), the RK4
+//     stages keep one running sum, and the four stages are one loop around
+//     one copy of dynamics (half the instructions of four inlined copies);
+//   * __launch_bounds__(128, 4): 128 registers, 16 warps per SM, the
+//     fastest point of a sweep over 64-256 threads and 3-8 blocks per SM
+//     (PERF.md).
+// The TPU kernels' block-wide "while any lane active" loop is gone, and so
+// is their B % tile rule.
 //
-// Numerics follow the JAX package expression for expression:
+// Numerics follow the JAX package expression for expression, and every
+// shortcut above returns the bits the full expression would:
 //   * max/min/clip propagate NaN (jnp semantics), unlike fmax/fmin;
 //   * sign(0) == 0;
-//   * table lookups evaluate the JAX tent-basis weights, not a lerp;
-//   * a lane whose wind table holds a non-finite value evaluates that
-//     component over all knots, so NaN poisons it as it does in JAX;
+//   * table lookups evaluate the JAX tent-basis weights, not a lerp, and
+//     sum from +0 in knot order;
+//   * a table that is not window-exact (non-finite, knots not strictly
+//     increasing) and a lane whose wind table holds a non-finite value are
+//     summed over all knots, so NaN poisons them as it does in JAX;
 //   * time is rail_time + step * dt, from the step counter, rounded as
 //     engine/component.py step_time rounds it;
+//   * built with -fmad=false: no multiply-add contraction;
 //   * every literal is T(...), so the float build does no double math.
 
 #include <cuda_runtime.h>
@@ -40,6 +66,11 @@
 #endif
 
 namespace {
+
+// launch bounds: threads per block, and the blocks per SM the register
+// budget must allow (128 registers a thread)
+constexpr int kThreads = 128;
+constexpr int kMinBlocks = 4;
 
 #if FS_F32
 typedef float T;
@@ -138,12 +169,27 @@ struct Leaves {
   int stride[N_LEAVES];
 };
 
+// A shared table's place in the block's shared memory: array a (KnotArray)
+// of it is smem()[base + a * k + j], j < k.
+struct Knots { int base, k; };
+enum KnotArray { A_X, A_LO, A_HI, A_LEFT, A_RIGHT, A_Y0, A_Y1 };
+
 struct Tables {
-  const T* cd_mach; const T* cd0; const T* cda; int k_cd;
-  const T* cp_mach; const T* cp_shift; int k_cp;
-  const T* curve_t; const T* curve_f; int k_th;
-  const T* grid; const T* wind; int n_wind; long long wind_lane_stride;
+  const T* cd_mach; const T* cd0; const T* cda;
+  const T* cp_mach; const T* cp_shift;
+  const T* curve_t; const T* curve_f;
+  // the wind table, lane-minor [N,3,B] (lane stride 1, knot-component
+  // stride B) or shared [N,3] (lane stride 0, knot-component stride 1)
+  const T* grid; const T* wind; long long wind_lane_stride, wind_comp_stride;
+  const int* flags;   // [N_FLAGS], from the wrapper
+  Knots cd, cp, th, g;  // the Mach (cd0, cda), CP, thrust tables and wind grid
+  int lane_base;        // the lane constants' place in shared memory
 };
+
+// table flags (kernels/flight_summary.py _table_flags): 1 where the Mach,
+// CP or thrust table is window-exact; where the wind grid is non-decreasing
+// with finite knot supports; where it is finite
+enum Flag { F_CD, F_CP, F_TH, F_GRID_WINDOW, F_GRID_FINITE, N_FLAGS };
 
 // SimConfig numbers, in the order of the wrapper's cfg array (the opt-in
 // flags are checked by the wrapper)
@@ -166,75 +212,182 @@ enum OutI { O_PARA, O_DIV, O_NSTEPS, N_OUT_I };
 
 // Per-lane parameters (constant over the flight) plus lane-constant
 // sub-expressions the JAX code recomputes on every call; the values are
-// the same expressions, evaluated once.
-struct Lane {
-  T diameter, fin_root, fin_tip, fin_span, dry_mass, prop_mass, com_dry, ixx_dry, iyy_dry,
-    ref_area, ref_diam, cp_location, chute_area, chute_cd, chute_alt, power_off;
-  T nozzle_area, burn_time, mdot, thrust_scale;
-  T P0, T0, L, R, g0, gamma, h_trop, h_strat, Ts, density_scale;
-  T pow_exp, p11, p20, p25, exp_2532;
-  T aspect_ratio, cos_sweep;
-  const T* wind;
-  bool wind_bad[3];
+// the same expressions, evaluated once. They live in the block's shared
+// memory, field-major ([field][thread]: a warp's reads of one field hit 32
+// banks), so that the registers are left to the state, the stage sum and
+// the event carry.
+enum LaneField {
+  LF_DIAMETER, LF_DRY_MASS, LF_PROP_MASS, LF_COM_DRY, LF_IXX_DRY, LF_IYY_DRY, LF_REF_AREA,
+  LF_REF_DIAM, LF_CP_LOCATION, LF_CHUTE_AREA, LF_CHUTE_CD, LF_CHUTE_ALT, LF_POWER_OFF,
+  LF_NOZZLE_AREA, LF_BURN_TIME, LF_MDOT, LF_THRUST_SCALE,
+  LF_P0, LF_T0, LF_L, LF_R, LF_G0, LF_GAMMA, LF_H_TROP, LF_H_STRAT, LF_TS, LF_DENSITY_SCALE,
+  LF_POW_EXP, LF_P11, LF_P20, LF_P25, LF_EXP_2532, LF_ASPECT_RATIO, LF_COS_SWEEP,
+  N_LANE_FIELDS
 };
 
-// ------------------------------------------------------------ models
-// ops/interp.py interpolate_1d: the tent weight of every knot
-__device__ T interp_table(T x, const T* xt, const T* yt, int k) {
-  T xc = nclip(x, xt[0], xt[k - 1]);
-  T acc = T(0);
-  for (int j = 0; j < k; ++j) {
-    T xj = xt[j];
-    T left = j == 0 ? T(1) : nmax(xj - xt[j - 1], T(1e-30));
-    T right = j == k - 1 ? T(1) : nmax(xt[j + 1] - xj, T(1e-30));
-    T up = (xc - (xj - left)) / left;
-    T down = ((xj + right) - xc) / right;
-    acc = acc + nclip(nmin(up, down), T(0), T(1)) * yt[j];
+struct Lane {
+  T* field;  // this thread's column of the block's [N_LANE_FIELDS][kThreads] array
+  const T* wind;
+  bool wind_bad[3];
+  __device__ __forceinline__ T& operator[](int f) const { return field[f * kThreads]; }
+};
+
+// ------------------------------------------------------------ shared tables
+// Each block copies the shared tables and the wind grid into shared memory
+// once, with each knot's tent support: lo = x_j - left_j, hi = x_j +
+// right_j, left_j and right_j, the expressions ops/interp.py evaluates on
+// every query, evaluated once.
+__device__ __forceinline__ T* smem() {
+  extern __shared__ T fs_smem[];
+  return fs_smem;
+}
+__shared__ int s_flags[N_FLAGS];
+__shared__ T s_grid_inv_h;  // (n - 1) / (g[n-1] - g[0]): the wind segment guess
+
+__device__ __forceinline__ T knot(const Knots& t, int a, int j) {
+  return smem()[t.base + a * t.k + j];
+}
+
+__device__ void stage_knots(const Knots& t, const T* x, const T* y0, const T* y1) {
+  T* sm = smem() + t.base;
+  for (int j = threadIdx.x; j < t.k; j += blockDim.x) {
+    T xj = x[j];
+    T left = j == 0 ? T(1) : nmax(xj - x[j - 1], T(1e-30));
+    T right = j == t.k - 1 ? T(1) : nmax(x[j + 1] - xj, T(1e-30));
+    sm[A_X * t.k + j] = xj;
+    sm[A_LO * t.k + j] = xj - left;
+    sm[A_HI * t.k + j] = xj + right;
+    sm[A_LEFT * t.k + j] = left;
+    sm[A_RIGHT * t.k + j] = right;
+    if (y0) sm[A_Y0 * t.k + j] = y0[j];
+    if (y1) sm[A_Y1 * t.k + j] = y1[j];
   }
+}
+
+// ------------------------------------------------------------ models
+// Tent weight of knot j at the clamped query xc (ops/interp.py):
+// clip(min((xc - lo) / left, (hi - xc) / right), 0, 1).
+__device__ __forceinline__ T tent_weight(const Knots& t, int j, T xc) {
+  T up = (xc - knot(t, A_LO, j)) / knot(t, A_LEFT, j);
+  T down = (knot(t, A_HI, j) - xc) / knot(t, A_RIGHT, j);
+  return nclip(nmin(up, down), T(0), T(1));
+}
+
+// tent_weight's value where lo, hi, left and right are finite and left,
+// right > 0 (a window-exact table), with a division only where the value
+// needs one: a numerator <= 0 makes the weight +0; up >= 1 (its numerator
+// >= left) leaves clip(down, 0, 1), and down >= 1 leaves clip(up, 0, 1).
+// Inside a segment a knot is one of these, so a window of four costs two
+// divisions, not eight. A NaN xc fails every test and takes both.
+__device__ __forceinline__ T window_weight(const Knots& t, int j, T xc) {
+  const T nu = xc - knot(t, A_LO, j), nd = knot(t, A_HI, j) - xc;
+  const T left = knot(t, A_LEFT, j), right = knot(t, A_RIGHT, j);
+  if (nu <= T(0) || nd <= T(0)) return T(0);
+  if (nu >= left) return nclip(nd / right, T(0), T(1));
+  if (nd >= right) return nclip(nu / left, T(0), T(1));
+  return nclip(nmin(nu / left, nd / right), T(0), T(1));
+}
+
+__device__ __forceinline__ T weight(const Knots& t, int j, T xc, bool window) {
+  return window ? window_weight(t, j, xc) : tent_weight(t, j, xc);
+}
+
+// The knots that can carry weight at xc: all of them, or, where the
+// wrapper found the table window-exact (kernels/flight_summary.py
+// _window_exact), the four around the segment [x_i, x_i+1] holding xc,
+// i the largest index <= k-2 with x_i <= xc. Every knot outside that
+// window has weight +0 there, and a sum that starts at +0 is unchanged by
+// +0 terms, so the window sum is the full sum bit for bit. A NaN xc gives
+// NaN weights in either range.
+__device__ __forceinline__ void knot_range(const Knots& t, T xc, bool window, int& j0,
+                                           int& j1) {
+  j0 = 0;
+  j1 = t.k - 1;
+  if (!window) return;
+  int i = 0;
+  for (int j = 1; j <= t.k - 2; ++j) i += knot(t, A_X, j) <= xc;
+  j0 = i > 0 ? i - 1 : 0;
+  j1 = i + 2 < t.k - 1 ? i + 2 : t.k - 1;
+}
+
+// ops/interp.py interpolate_1d of the table's A_Y0 values
+__device__ T interp_table(T x, const Knots& t, bool window) {
+  T xc = nclip(x, knot(t, A_X, 0), knot(t, A_X, t.k - 1));
+  int j0, j1;
+  knot_range(t, xc, window, j0, j1);
+  T acc = T(0);
+  for (int j = j0; j <= j1; ++j) acc = acc + weight(t, j, xc, window) * knot(t, A_Y0, j);
   return acc;
 }
 
-// tent weight of wind knot j at the clamped altitude xc
-__device__ __forceinline__ T wind_weight(const T* g, int n, int j, T xc) {
-  T gj = g[j];
-  T left = j == 0 ? T(1) : nmax(gj - g[j - 1], T(1e-30));
-  T right = j == n - 1 ? T(1) : nmax(g[j + 1] - gj, T(1e-30));
-  T up = (xc - (gj - left)) / left;
-  T down = ((gj + right) - xc) / right;
-  return nclip(nmin(up, down), T(0), T(1));
+// both value arrays of one knot vector (cd0 and cda on the Mach knots): the
+// same weights, each sum in its own order
+__device__ void interp_pair(T x, const Knots& t, bool window, T& a0, T& a1) {
+  T xc = nclip(x, knot(t, A_X, 0), knot(t, A_X, t.k - 1));
+  int j0, j1;
+  knot_range(t, xc, window, j0, j1);
+  a0 = T(0);
+  a1 = T(0);
+  for (int j = j0; j <= j1; ++j) {
+    T w = weight(t, j, xc, window);
+    a0 = a0 + w * knot(t, A_Y0, j);
+    a1 = a1 + w * knot(t, A_Y1, j);
+  }
+}
+
+// The wind segment holding xc (not NaN, g[0] <= xc): the largest lo <= n-2
+// with g[lo] <= xc, which is what a binary search finds on a non-decreasing
+// grid. There, start from the uniform-grid index and walk to it; on any
+// other grid, run that binary search.
+__device__ __forceinline__ int wind_segment(const Knots& g, T xc, bool sorted) {
+  const int n = g.k;
+  int lo = 0;
+  if (sorted) {
+    const int top = n > 2 ? n - 2 : 0;
+    T guess = (xc - knot(g, A_X, 0)) * s_grid_inv_h;
+    if (guess > T(0)) lo = guess < T(top) ? static_cast<int>(guess) : top;
+    while (lo > 0 && knot(g, A_X, lo) > xc) --lo;
+    while (lo < n - 2 && knot(g, A_X, lo + 1) <= xc) ++lo;
+  } else {
+    int hi = n - 1;
+    while (hi - lo > 1) {
+      int mid = (lo + hi) >> 1;
+      if (knot(g, A_X, mid) <= xc) lo = mid; else hi = mid;
+    }
+  }
+  return lo;
 }
 
 // The lane's wind at altitude alt. Only knots i-1..i+2 around the segment
 // [g_i, g_i+1] holding xc can carry weight; a component whose table holds
 // a non-finite value is summed over every knot (0 * NaN = NaN, as in JAX).
 __device__ void wind_at(const Tables& tb, const Lane& ln, T alt, T out[3]) {
-  const T* g = tb.grid;
-  const int n = tb.n_wind;
+  const Knots& g = tb.g;
+  const int n = g.k;
   const T* w = ln.wind;
-  T xc = nclip(alt, g[0], g[n - 1]);
+  const long long cs = tb.wind_comp_stride;
+  T xc = nclip(alt, knot(g, A_X, 0), knot(g, A_X, n - 1));
   if (xc != xc) {
     out[0] = out[1] = out[2] = xc;
     return;
   }
-  int lo = 0, hi = n - 1;
-  while (hi - lo > 1) {
-    int mid = (lo + hi) >> 1;
-    if (g[mid] <= xc) lo = mid; else hi = mid;
-  }
+  const bool window = s_flags[F_GRID_WINDOW] != 0;
+  const int lo = wind_segment(g, xc, window);
   int j0 = lo > 0 ? lo - 1 : 0;
   int j1 = lo + 2 < n - 1 ? lo + 2 : n - 1;
   T a0 = T(0), a1 = T(0), a2 = T(0);
   for (int j = j0; j <= j1; ++j) {
-    T wj = wind_weight(g, n, j, xc);
-    a0 = a0 + wj * w[3 * j + 0];
-    a1 = a1 + wj * w[3 * j + 1];
-    a2 = a2 + wj * w[3 * j + 2];
+    T wj = weight(g, j, xc, window);
+    const T* wk = w + 3 * j * cs;
+    a0 = a0 + wj * wk[0];
+    a1 = a1 + wj * wk[cs];
+    a2 = a2 + wj * wk[2 * cs];
   }
   out[0] = a0; out[1] = a1; out[2] = a2;
   for (int c = 0; c < 3; ++c) {
     if (!ln.wind_bad[c]) continue;
     T acc = T(0);
-    for (int j = 0; j < n; ++j) acc = acc + wind_weight(g, n, j, xc) * w[3 * j + c];
+    for (int j = 0; j < n; ++j) acc = acc + tent_weight(g, j, xc) * w[(3 * j + c) * cs];
     out[c] = acc;
   }
 }
@@ -245,59 +398,59 @@ struct Atm { T temperature, pressure, density, sound; };
 // evaluated (each regime is a pure function of h, so the value is the same)
 __device__ Atm atmosphere(const Lane& ln, T h) {
   T temperature, pressure;
-  if (h <= ln.h_trop) {
-    temperature = ln.T0 - ln.L * h;
-    pressure = ln.P0 * m_pow(nmax(temperature, T(1)) / ln.T0, ln.pow_exp);
-  } else if (h <= ln.h_strat) {
-    temperature = ln.Ts;
-    pressure = ln.p11 * m_exp(-ln.g0 * (h - ln.h_trop) / (ln.R * ln.Ts));
+  if (h <= ln[LF_H_TROP]) {
+    temperature = ln[LF_T0] - ln[LF_L] * h;
+    pressure = ln[LF_P0] * m_pow(nmax(temperature, T(1)) / ln[LF_T0], ln[LF_POW_EXP]);
+  } else if (h <= ln[LF_H_STRAT]) {
+    temperature = ln[LF_TS];
+    pressure = ln[LF_P11] * m_exp(-ln[LF_G0] * (h - ln[LF_H_TROP]) / (ln[LF_R] * ln[LF_TS]));
   } else if (h <= T(25000)) {
-    temperature = nmin(ln.Ts + T(0.001) * (h - ln.h_strat), T(228.65));
-    pressure = ln.p20 * m_exp(-ln.g0 * (h - ln.h_strat) / (ln.R * ln.Ts));
+    temperature = nmin(ln[LF_TS] + T(0.001) * (h - ln[LF_H_STRAT]), T(228.65));
+    pressure = ln[LF_P20] * m_exp(-ln[LF_G0] * (h - ln[LF_H_STRAT]) / (ln[LF_R] * ln[LF_TS]));
   } else if (h <= T(32000)) {
-    temperature = nmin(ln.Ts + T(0.001) * (h - ln.h_strat), T(228.65));
-    pressure = ln.p25 * m_pow(nmax(temperature, T(1)) / ln.Ts, ln.exp_2532);
+    temperature = nmin(ln[LF_TS] + T(0.001) * (h - ln[LF_H_STRAT]), T(228.65));
+    pressure = ln[LF_P25] * m_pow(nmax(temperature, T(1)) / ln[LF_TS], ln[LF_EXP_2532]);
   } else {
     temperature = nmax(T(228.65) - T(0.0028) * (h - T(32000)), T(180));
-    T scale_height = ln.R * temperature / ln.g0;
+    T scale_height = ln[LF_R] * temperature / ln[LF_G0];
     pressure = T(868.02) * m_exp(-(h - T(32000)) / scale_height);
   }
   Atm a;
   a.temperature = temperature;
   a.pressure = pressure;
-  a.density = pressure / (ln.R * temperature) * ln.density_scale;
-  a.sound = m_sqrt(ln.gamma * ln.R * temperature);
+  a.density = pressure / (ln[LF_R] * temperature) * ln[LF_DENSITY_SCALE];
+  a.sound = m_sqrt(ln[LF_GAMMA] * ln[LF_R] * temperature);
   return a;
 }
 
 __device__ __forceinline__ T gravity(const Lane& ln, T h) {
   T r = T(kEarthRadius) / (T(kEarthRadius) + h);
-  return ln.g0 * (r * r);
+  return ln[LF_G0] * (r * r);
 }
 
 struct Mass { T mass, cg, ixx, iyy; };
 
 // models/rocket.py mass_properties (Izz := Iyy)
 __device__ __forceinline__ Mass mass_props(const Lane& ln, T frac) {
-  T cur = ln.prop_mass * frac;
-  T total = ln.dry_mass + cur;
-  T prop_cg = ln.com_dry - T(0.5);
-  T cg = (ln.dry_mass * ln.com_dry + cur * prop_cg) / total;
-  T r = ln.diameter / T(4);
+  T cur = ln[LF_PROP_MASS] * frac;
+  T total = ln[LF_DRY_MASS] + cur;
+  T prop_cg = ln[LF_COM_DRY] - T(0.5);
+  T cg = (ln[LF_DRY_MASS] * ln[LF_COM_DRY] + cur * prop_cg) / total;
+  T r = ln[LF_DIAMETER] / T(4);
   T dcg = prop_cg - cg;
   Mass m;
   m.mass = total;
   m.cg = cg;
-  m.ixx = ln.ixx_dry + cur * (r * r);
-  m.iyy = ln.iyy_dry + cur * (T(4.0 / 12.0) + dcg * dcg);
+  m.ixx = ln[LF_IXX_DRY] + cur * (r * r);
+  m.iyy = ln[LF_IYY_DRY] + cur * (T(4.0 / 12.0) + dcg * dcg);
   return m;
 }
 
 __device__ __forceinline__ T thrust_at(const Tables& tb, const Lane& ln, T t, T p) {
-  if (!((t >= T(0)) && (t <= ln.burn_time))) return T(0);
-  T base = interp_table(t, tb.curve_t, tb.curve_f, tb.k_th);
-  T correction = ln.nozzle_area * (T(kPsl) - p);
-  return ln.thrust_scale * (base + correction);
+  if (!((t >= T(0)) && (t <= ln[LF_BURN_TIME]))) return T(0);
+  T base = interp_table(t, tb.th, s_flags[F_TH] != 0);
+  T correction = ln[LF_NOZZLE_AREA] * (T(kPsl) - p);
+  return ln[LF_THRUST_SCALE] * (base + correction);
 }
 
 struct Aero { T cd, cl, cy, cpitch, cyaw; };
@@ -305,22 +458,22 @@ struct Aero { T cd, cl, cy, cpitch, cyaw; };
 // models/rocket.py aero_coefficients
 __device__ Aero aero(const Tables& tb, const Lane& ln, T mach, T alpha, T beta, T cg,
                      bool power_on) {
-  T cd0 = interp_table(mach, tb.cd_mach, tb.cd0, tb.k_cd);
-  T cda = interp_table(mach, tb.cd_mach, tb.cda, tb.k_cd);
+  T cd0, cda;
+  interp_pair(mach, tb.cd, s_flags[F_CD] != 0, cd0, cda);
   T cd = cd0 + cda * (alpha * alpha);
-  if (!power_on) cd = cd * ln.power_off;
+  if (!power_on) cd = cd * ln[LF_POWER_OFF];
   T abs_alpha = m_abs(alpha);
   bool stalled = abs_alpha > T(kStall);
   T stall_factor = nmax(T(0), T(1) - (abs_alpha - T(kStall)) / T(kStallRange));
   T beta_m = m_sqrt(m_abs(T(1) - mach * mach));
-  T kk = ln.aspect_ratio * beta_m / nmax(ln.cos_sweep, T(1e-6));
+  T kk = ln[LF_ASPECT_RATIO] * beta_m / nmax(ln[LF_COS_SWEEP], T(1e-6));
   T denom = T(2) + m_sqrt(T(4) + kk * kk);
-  T cl_alpha = (T(kTwoPi) * ln.aspect_ratio / denom) * ln.cos_sweep;
+  T cl_alpha = (T(kTwoPi) * ln[LF_ASPECT_RATIO] / denom) * ln[LF_COS_SWEEP];
   T cl_stalled = cl_alpha * T(kStall) * stall_factor * nsign(alpha);
   Aero a;
   a.cl = stalled ? cl_stalled : cl_alpha * alpha;
   a.cd = stalled ? cd * (T(1) + T(0.5) * (abs_alpha - T(kStall)) / T(kStallRange)) : cd;
-  T cp = ln.cp_location + interp_table(mach, tb.cp_mach, tb.cp_shift, tb.k_cp);
+  T cp = ln[LF_CP_LOCATION] + interp_table(mach, tb.cp, s_flags[F_CP] != 0);
   T sm = cp - cg;
   a.cpitch = -cl_alpha * sm * alpha;
   a.cy = stalled ? cl_alpha * beta * stall_factor : cl_alpha * beta;
@@ -389,21 +542,21 @@ __device__ void dynamics(const Tables& tb, const Lane& ln, const Cfg& cfg, T t,
   aero_angles(ub, vb, wb, alpha, beta);
   T q_dyn = T(0.5) * atm.density * rel_sq;
 
-  bool burning = (frac > T(0)) && (t <= ln.burn_time);
+  bool burning = (frac > T(0)) && (t <= ln[LF_BURN_TIME]);
   T thrust = burning ? thrust_at(tb, ln, t, atm.pressure) : T(0);
 
-  bool deploy = (pz <= ln.chute_alt) && (vz < T(0));
+  bool deploy = (pz <= ln[LF_CHUTE_ALT]) && (vz < T(0));
   para = para > (int)deploy ? para : (int)deploy;
   bool is_chute = para > 0;
 
   T body_speed = safe_sqrt(ub * ub + vb * vb + wb * wb);
   T chute_coef = body_speed > T(0)
-      ? T(-0.5) * atm.density * body_speed * ln.chute_cd * ln.chute_area : T(0);
+      ? T(-0.5) * atm.density * body_speed * ln[LF_CHUTE_CD] * ln[LF_CHUTE_AREA] : T(0);
 
   Aero co = aero(tb, ln, mach, alpha, beta, mp.cg, frac > T(0));
-  T drag = q_dyn * co.cd * ln.ref_area;
-  T lift = q_dyn * co.cl * ln.ref_area;
-  T side = q_dyn * co.cy * ln.ref_area;
+  T drag = q_dyn * co.cd * ln[LF_REF_AREA];
+  T lift = q_dyn * co.cl * ln[LF_REF_AREA];
+  T side = q_dyn * co.cy * ln[LF_REF_AREA];
   T ca, sa, cb, sb;
   m_sincos(alpha, sa, ca);
   m_sincos(beta, sb, cb);
@@ -416,7 +569,7 @@ __device__ void dynamics(const Tables& tb, const Lane& ln, const Cfg& cfg, T t,
   T fy = is_chute ? chute_coef * vb : afy;
   T fz = is_chute ? chute_coef * wb : afz;
 
-  T mscale = q_dyn * ln.ref_area * ln.ref_diam;
+  T mscale = q_dyn * ln[LF_REF_AREA] * ln[LF_REF_DIAM];
   bool no_moment = is_chute || !has_q;
   T mx = T(0);
   T my = (no_moment ? T(0) : mscale * co.cpitch) - cfg.pitch_damping * oy;
@@ -449,8 +602,8 @@ __device__ void dynamics(const Tables& tb, const Lane& ln, const Cfg& cfg, T t,
   d[S_QZ] = dz - T(0.5) * err * qz;
 
   // propellant with the 10 ms burnout ramp
-  T mdot = ((t >= T(0)) && (t <= ln.burn_time)) ? ln.mdot : T(0);
-  T nominal = -mdot / ln.prop_mass;
+  T mdot = ((t >= T(0)) && (t <= ln[LF_BURN_TIME])) ? ln[LF_MDOT] : T(0);
+  T nominal = -mdot / ln[LF_PROP_MASS];
   bool nz = nominal != T(0);
   T safe = nz ? nominal : T(-1);
   T remaining = nz ? frac / m_abs(safe) : T(INFINITY);
@@ -462,62 +615,64 @@ __device__ __forceinline__ T leaf(const Leaves& lv, int k, long long lane) {
   return lv.p[k][lane * lv.stride[k]];
 }
 
-__global__ void __launch_bounds__(128)
-flight_summary_kernel(Leaves lv, Tables tb, Cfg cfg, T* __restrict__ out_f,
-                      int32_t* __restrict__ out_i, int n_lanes) {
-  const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n_lanes) return;
+// one lane's whole flight
+__device__ __forceinline__ void fly(const Leaves& lv, const Tables& tb, const Cfg& cfg,
+                                    T* __restrict__ out_f, int32_t* __restrict__ out_i,
+                                    int n_lanes, long long lane) {
 
   Lane ln;
-  ln.diameter = leaf(lv, L_DIAMETER, lane);
-  ln.fin_span = leaf(lv, L_FIN_SPAN, lane);
-  ln.fin_root = leaf(lv, L_FIN_ROOT, lane);
-  ln.fin_tip = leaf(lv, L_FIN_TIP, lane);
+  ln.field = smem() + tb.lane_base + threadIdx.x;
+  ln[LF_DIAMETER] = leaf(lv, L_DIAMETER, lane);
+  const T fin_span = leaf(lv, L_FIN_SPAN, lane);
+  const T fin_root = leaf(lv, L_FIN_ROOT, lane);
+  const T fin_tip = leaf(lv, L_FIN_TIP, lane);
   T fin_sweep = leaf(lv, L_FIN_SWEEP, lane);
-  ln.dry_mass = leaf(lv, L_DRY_MASS, lane);
-  ln.prop_mass = leaf(lv, L_PROP_MASS, lane);
-  ln.com_dry = leaf(lv, L_COM_DRY, lane);
-  ln.ixx_dry = leaf(lv, L_IXX_DRY, lane);
-  ln.iyy_dry = leaf(lv, L_IYY_DRY, lane);
-  ln.ref_area = leaf(lv, L_REF_AREA, lane);
-  ln.ref_diam = leaf(lv, L_REF_DIAM, lane);
-  ln.cp_location = leaf(lv, L_CP_LOCATION, lane);
-  ln.chute_area = leaf(lv, L_CHUTE_AREA, lane);
-  ln.chute_cd = leaf(lv, L_CHUTE_CD, lane);
-  ln.chute_alt = leaf(lv, L_CHUTE_ALT, lane);
-  ln.power_off = leaf(lv, L_POWER_OFF, lane);
-  ln.nozzle_area = leaf(lv, L_NOZZLE_AREA, lane);
-  ln.burn_time = leaf(lv, L_BURN_TIME, lane);
-  ln.mdot = leaf(lv, L_MDOT, lane);
-  ln.thrust_scale = leaf(lv, L_THRUST_SCALE, lane);
-  ln.P0 = leaf(lv, L_P0, lane);
-  ln.T0 = leaf(lv, L_T0, lane);
-  ln.L = leaf(lv, L_LAPSE, lane);
-  ln.R = leaf(lv, L_GAS_R, lane);
-  ln.g0 = leaf(lv, L_G0, lane);
-  ln.gamma = leaf(lv, L_GAMMA, lane);
-  ln.h_trop = leaf(lv, L_H_TROP, lane);
-  ln.h_strat = leaf(lv, L_H_STRAT, lane);
-  ln.Ts = leaf(lv, L_TS, lane);
-  ln.density_scale = leaf(lv, L_DENSITY_SCALE, lane);
+  ln[LF_DRY_MASS] = leaf(lv, L_DRY_MASS, lane);
+  ln[LF_PROP_MASS] = leaf(lv, L_PROP_MASS, lane);
+  ln[LF_COM_DRY] = leaf(lv, L_COM_DRY, lane);
+  ln[LF_IXX_DRY] = leaf(lv, L_IXX_DRY, lane);
+  ln[LF_IYY_DRY] = leaf(lv, L_IYY_DRY, lane);
+  ln[LF_REF_AREA] = leaf(lv, L_REF_AREA, lane);
+  ln[LF_REF_DIAM] = leaf(lv, L_REF_DIAM, lane);
+  ln[LF_CP_LOCATION] = leaf(lv, L_CP_LOCATION, lane);
+  ln[LF_CHUTE_AREA] = leaf(lv, L_CHUTE_AREA, lane);
+  ln[LF_CHUTE_CD] = leaf(lv, L_CHUTE_CD, lane);
+  ln[LF_CHUTE_ALT] = leaf(lv, L_CHUTE_ALT, lane);
+  ln[LF_POWER_OFF] = leaf(lv, L_POWER_OFF, lane);
+  ln[LF_NOZZLE_AREA] = leaf(lv, L_NOZZLE_AREA, lane);
+  ln[LF_BURN_TIME] = leaf(lv, L_BURN_TIME, lane);
+  ln[LF_MDOT] = leaf(lv, L_MDOT, lane);
+  ln[LF_THRUST_SCALE] = leaf(lv, L_THRUST_SCALE, lane);
+  ln[LF_P0] = leaf(lv, L_P0, lane);
+  ln[LF_T0] = leaf(lv, L_T0, lane);
+  ln[LF_L] = leaf(lv, L_LAPSE, lane);
+  ln[LF_R] = leaf(lv, L_GAS_R, lane);
+  ln[LF_G0] = leaf(lv, L_G0, lane);
+  ln[LF_GAMMA] = leaf(lv, L_GAMMA, lane);
+  ln[LF_H_TROP] = leaf(lv, L_H_TROP, lane);
+  ln[LF_H_STRAT] = leaf(lv, L_H_STRAT, lane);
+  ln[LF_TS] = leaf(lv, L_TS, lane);
+  ln[LF_DENSITY_SCALE] = leaf(lv, L_DENSITY_SCALE, lane);
 
   // lane-constant parts of atmosphere_properties and aero_coefficients
-  ln.pow_exp = ln.g0 / (ln.R * ln.L);
-  ln.p11 = ln.P0 * m_pow(ln.Ts / ln.T0, ln.pow_exp);
-  ln.p20 = ln.p11 * m_exp(-ln.g0 * (ln.h_strat - ln.h_trop) / (ln.R * ln.Ts));
-  ln.p25 = ln.p20 * m_exp(-ln.g0 * T(5000) / (ln.R * ln.Ts));
-  ln.exp_2532 = ln.g0 / (ln.R * T(0.0028));
-  T fin_area = T(0.5) * (ln.fin_root + ln.fin_tip) * ln.fin_span;
-  ln.aspect_ratio = T(2) * (ln.fin_span * ln.fin_span) / fin_area;
-  T sin_sweep;
-  m_sincos(fin_sweep, sin_sweep, ln.cos_sweep);
+  ln[LF_POW_EXP] = ln[LF_G0] / (ln[LF_R] * ln[LF_L]);
+  ln[LF_P11] = ln[LF_P0] * m_pow(ln[LF_TS] / ln[LF_T0], ln[LF_POW_EXP]);
+  ln[LF_P20] = ln[LF_P11] *
+               m_exp(-ln[LF_G0] * (ln[LF_H_STRAT] - ln[LF_H_TROP]) / (ln[LF_R] * ln[LF_TS]));
+  ln[LF_P25] = ln[LF_P20] * m_exp(-ln[LF_G0] * T(5000) / (ln[LF_R] * ln[LF_TS]));
+  ln[LF_EXP_2532] = ln[LF_G0] / (ln[LF_R] * T(0.0028));
+  T fin_area = T(0.5) * (fin_root + fin_tip) * fin_span;
+  ln[LF_ASPECT_RATIO] = T(2) * (fin_span * fin_span) / fin_area;
+  T sin_sweep, cos_sweep;
+  m_sincos(fin_sweep, sin_sweep, cos_sweep);
+  ln[LF_COS_SWEEP] = cos_sweep;
 
   ln.wind = tb.wind + lane * tb.wind_lane_stride;
-  bool grid_bad = false;
-  for (int j = 0; j < tb.n_wind; ++j) grid_bad |= !m_finite(tb.grid[j]);
+  const bool grid_bad = s_flags[F_GRID_FINITE] == 0;
   for (int c = 0; c < 3; ++c) {
     bool bad = grid_bad;
-    for (int j = 0; j < tb.n_wind; ++j) bad |= !m_finite(ln.wind[3 * j + c]);
+    for (int j = 0; j < tb.g.k; ++j)
+      bad |= !m_finite(ln.wind[(3 * j + c) * tb.wind_comp_stride]);
     ln.wind_bad[c] = bad;
   }
 
@@ -541,7 +696,7 @@ flight_summary_kernel(Leaves lv, Tables tb, Cfg cfg, T* __restrict__ out_f,
   T dist = T(0), frac = T(1);
   int stp = 0;
   const T rdt = cfg.rail_dt;
-  while ((dist < cfg.rail_length) && (T(stp) * rdt < ln.burn_time) &&
+  while ((dist < cfg.rail_length) && (T(stp) * rdt < ln[LF_BURN_TIME]) &&
          (stp < cfg.max_rail_steps)) {
     T t = T(stp) * rdt;
     Mass mp = mass_props(ln, frac);
@@ -551,10 +706,10 @@ flight_summary_kernel(Leaves lv, Tables tb, Cfg cfg, T* __restrict__ out_f,
     T rvx = dxr * spd - wnd[0], rvy = dyr * spd - wnd[1], rvz = dzr * spd - wnd[2];
     T rel_axial = rvx * dxr + rvy * dyr + rvz * dzr;
     T mach = safe_sqrt(rvx * rvx + rvy * rvy + rvz * rvz) / atm.sound;
-    T cd0 = interp_table(mach, tb.cd_mach, tb.cd0, tb.k_cd);
-    T cda = interp_table(mach, tb.cd_mach, tb.cda, tb.k_cd);
+    T cd0, cda;
+    interp_pair(mach, tb.cd, s_flags[F_CD] != 0, cd0, cda);
     T cd = cd0 + cda * (T(0) * T(0));  // alpha = 0, power on
-    T drag = T(0.5) * atm.density * (rel_axial * rel_axial) * cd * ln.ref_area;
+    T drag = T(0.5) * atm.density * (rel_axial * rel_axial) * cd * ln[LF_REF_AREA];
     T thrust = thrust_at(tb, ln, t, atm.pressure);
     T g = gravity(ln, rpz);
     T accel = (thrust - mp.mass * g - drag) / mp.mass;
@@ -564,7 +719,7 @@ flight_summary_kernel(Leaves lv, Tables tb, Cfg cfg, T* __restrict__ out_f,
     rpy = rpy + dyr * nspd * rdt;
     rpz = rpz + dzr * nspd * rdt;
     dist = dist + nspd * rdt;
-    frac = nclip(T(1) - (T(nstp) * rdt) / ln.burn_time, T(0), T(1));
+    frac = nclip(T(1) - (T(nstp) * rdt) / ln[LF_BURN_TIME], T(0), T(1));
     spd = nspd;
     stp = nstp;
   }
@@ -594,21 +749,28 @@ flight_summary_kernel(Leaves lv, Tables tb, Cfg cfg, T* __restrict__ out_f,
   while (done == 0 && (step_time(rail_time, step, cfg.dt) < cfg.max_time) &&
          step < cfg.max_steps) {
     const T t = step_time(rail_time, step, cfg.dt);
-    T k1[N_STATE], k2[N_STATE], k3[N_STATE], k4[N_STATE], tmp[N_STATE];
+    // RK4 with one running stage sum: acc = (k1 + 2 k2) + 2 k3, then
+    // s + dt/6 (acc + k4), the order and rounding of
+    // s + dt/6 (k1 + 2 k2 + 2 k3 + k4). The four stages are one loop, so
+    // the kernel holds one copy of dynamics, not four.
+    T acc[N_STATE], k[N_STATE], tmp[N_STATE];
     int p = para;
-    dynamics(tb, ln, cfg, t, s, p, k1);
 #pragma unroll
-    for (int i = 0; i < N_STATE; ++i) tmp[i] = s[i] + cfg.half_dt * k1[i];
-    dynamics(tb, ln, cfg, t + cfg.half_dt, tmp, p, k2);
+    for (int i = 0; i < N_STATE; ++i) tmp[i] = s[i];
+#pragma unroll 1
+    for (int stage = 0; stage < 4; ++stage) {
+      const T ts = stage == 0 ? t : (stage == 3 ? t + cfg.dt : t + cfg.half_dt);
+      dynamics(tb, ln, cfg, ts, tmp, p, k);
+      if (stage == 3) break;
+      const T h = stage == 2 ? cfg.dt : cfg.half_dt;
 #pragma unroll
-    for (int i = 0; i < N_STATE; ++i) tmp[i] = s[i] + cfg.half_dt * k2[i];
-    dynamics(tb, ln, cfg, t + cfg.half_dt, tmp, p, k3);
+      for (int i = 0; i < N_STATE; ++i) {
+        acc[i] = stage == 0 ? k[i] : acc[i] + T(2) * k[i];
+        tmp[i] = s[i] + h * k[i];
+      }
+    }
 #pragma unroll
-    for (int i = 0; i < N_STATE; ++i) tmp[i] = s[i] + cfg.dt * k3[i];
-    dynamics(tb, ln, cfg, t + cfg.dt, tmp, p, k4);
-#pragma unroll
-    for (int i = 0; i < N_STATE; ++i)
-      s[i] = s[i] + cfg.dt6 * (k1[i] + T(2) * k2[i] + T(2) * k3[i] + k4[i]);
+    for (int i = 0; i < N_STATE; ++i) s[i] = s[i] + cfg.dt6 * (acc[i] + k[i]);
     quat_normalize(s[S_QW], s[S_QX], s[S_QY], s[S_QZ]);
     para = p;
 
@@ -673,6 +835,33 @@ flight_summary_kernel(Leaves lv, Tables tb, Cfg cfg, T* __restrict__ out_f,
   oi[O_NSTEPS * B] = step;
 }
 
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+flight_summary_kernel(Leaves lv, Tables tb, Cfg cfg, T* __restrict__ out_f,
+                      int32_t* __restrict__ out_i, int n_lanes) {
+  stage_knots(tb.cd, tb.cd_mach, tb.cd0, tb.cda);
+  stage_knots(tb.cp, tb.cp_mach, tb.cp_shift, nullptr);
+  stage_knots(tb.th, tb.curve_t, tb.curve_f, nullptr);
+  stage_knots(tb.g, tb.grid, nullptr, nullptr);
+  if (threadIdx.x < N_FLAGS) s_flags[threadIdx.x] = tb.flags[threadIdx.x];
+  if (threadIdx.x == 0) s_grid_inv_h = T(tb.g.k - 1) / (tb.grid[tb.g.k - 1] - tb.grid[0]);
+  // every thread of the block reaches this barrier: the ragged last block's
+  // idle threads skip only the flight
+  __syncthreads();
+  const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane < n_lanes) fly(lv, tb, cfg, out_f, out_i, n_lanes, lane);
+}
+
+// the places of the shared tables and the lane constants in the block's
+// shared memory, and its bytes
+__host__ int layout(Tables& tb, int k_cd, int k_cp, int k_th, int n_wind) {
+  tb.cd = Knots{0, k_cd};
+  tb.cp = Knots{tb.cd.base + 7 * k_cd, k_cp};
+  tb.th = Knots{tb.cp.base + 6 * k_cp, k_th};
+  tb.g = Knots{tb.th.base + 6 * k_th, n_wind};
+  tb.lane_base = tb.g.base + 5 * n_wind;
+  return static_cast<int>((tb.lane_base + N_LANE_FIELDS * kThreads) * sizeof(T));
+}
+
 }  // namespace
 
 #define FS_CAT2(a, b) a##b
@@ -680,8 +869,11 @@ flight_summary_kernel(Leaves lv, Tables tb, Cfg cfg, T* __restrict__ out_f,
 
 // C entry: flight_summary_f32 (FS_F32=1) / flight_summary_f64 (FS_F32=0). All pointers are device
 // pointers except leaf_ptrs, leaf_strides, table_ptrs, table_sizes and cfg,
-// which are host arrays. Launches on `stream`, allocates nothing, returns
-// cudaGetLastError() after the launch.
+// which are host arrays. table_ptrs holds the seven tables (Tables order),
+// the wind grid, the wind table (lane-minor [N,3,B] when wind_lane_stride
+// is 1, shared [N,3] when it is 0) and the int flags; table_sizes the
+// knots of the Mach, CP and thrust tables and of the grid. Launches on
+// `stream`, allocates nothing, returns cudaGetLastError() after the launch.
 extern "C" int FS_CAT(flight_summary_, FS_SUFFIX)(
     const void* const* leaf_ptrs, const int* leaf_strides, int n_leaves,
     const void* const* table_ptrs, const int* table_sizes,
@@ -698,17 +890,21 @@ extern "C" int FS_CAT(flight_summary_, FS_SUFFIX)(
   tb.cd_mach = static_cast<const T*>(table_ptrs[0]);
   tb.cd0 = static_cast<const T*>(table_ptrs[1]);
   tb.cda = static_cast<const T*>(table_ptrs[2]);
-  tb.k_cd = table_sizes[0];
   tb.cp_mach = static_cast<const T*>(table_ptrs[3]);
   tb.cp_shift = static_cast<const T*>(table_ptrs[4]);
-  tb.k_cp = table_sizes[1];
   tb.curve_t = static_cast<const T*>(table_ptrs[5]);
   tb.curve_f = static_cast<const T*>(table_ptrs[6]);
-  tb.k_th = table_sizes[2];
   tb.grid = static_cast<const T*>(table_ptrs[7]);
   tb.wind = static_cast<const T*>(table_ptrs[8]);
-  tb.n_wind = table_sizes[3];
   tb.wind_lane_stride = wind_lane_stride;
+  tb.wind_comp_stride = wind_lane_stride == 0 ? 1 : n_lanes;
+  tb.flags = static_cast<const int*>(table_ptrs[9]);
+  const int smem = layout(tb, table_sizes[0], table_sizes[1], table_sizes[2], table_sizes[3]);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        flight_summary_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   Cfg cfg;
   cfg.dt = static_cast<T>(cfg_in[0]);
   cfg.half_dt = static_cast<T>(cfg_in[1]);
@@ -728,9 +924,21 @@ extern "C" int FS_CAT(flight_summary_, FS_SUFFIX)(
   cfg.coast_time_lo = static_cast<T>(cfg_in[15]);
   cfg.max_steps = max_steps;
   cfg.max_rail_steps = max_rail_steps;
-  const int threads = 128;
-  const int blocks = (n_lanes + threads - 1) / threads;
-  flight_summary_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const int blocks = (n_lanes + kThreads - 1) / kThreads;
+  flight_summary_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       lv, tb, cfg, static_cast<T*>(out_f), static_cast<int32_t*>(out_i), n_lanes);
   return static_cast<int>(cudaGetLastError());
+}
+
+// C entry: flight_summary_occupancy_f32 / _f64. The kernel's threads per
+// block and the blocks of it one SM holds at once, for tables of
+// table_sizes knots (as in the launch); returns the CUDA error of the query.
+extern "C" int FS_CAT(flight_summary_occupancy_, FS_SUFFIX)(const int* table_sizes,
+                                                            int* threads,
+                                                            int* blocks_per_sm) {
+  Tables tb;
+  const int smem = layout(tb, table_sizes[0], table_sizes[1], table_sizes[2], table_sizes[3]);
+  *threads = kThreads;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, flight_summary_kernel, kThreads, smem));
 }

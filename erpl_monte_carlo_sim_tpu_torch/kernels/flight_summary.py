@@ -15,6 +15,13 @@ The kernel is built at first use with ``nvcc`` for ``sm_90a`` into
 ``erpl_monte_carlo_sim_tpu_torch/_build/`` (a content hash of the source and
 flags names the library, so an edited source rebuilds) and bound with
 ``ctypes``. ``launches`` counts kernel launches.
+
+Besides the inputs, the wrapper hands the kernel a lane-minor ``[N, 3, B]``
+copy of a per-lane wind table (a warp's loads of one knot are then
+contiguous) and the table flags of ``_table_flags``, which say where the
+kernel's shortcuts return the full expressions' bits. ``bound_ms`` is the
+least time an H100 could take for the flights of a result, from the
+operation count ``OPS_PER_STEP``.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from typing import NamedTuple
 
 import torch
 
@@ -32,7 +40,7 @@ from ..engine.component import flight_components as flight_summary_reference
 from ..engine.config import SimConfig, require_parity_flags
 
 __all__ = ["flight_summary", "flight_summary_reference", "build", "launches",
-           "SOURCE"]
+           "SOURCE", "bound_ms", "input_bytes"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "flight_summary.cu")
@@ -144,6 +152,10 @@ def _load():
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
             ]
             fn.restype = ctypes.c_int
+            occ = getattr(lib, f"flight_summary_occupancy_{suffix}")
+            occ.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+                            ctypes.POINTER(ctypes.c_int)]
+            occ.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -157,13 +169,77 @@ def _check(t: torch.Tensor, name: str, dtype, device) -> torch.Tensor:
     return t
 
 
-def _kernel_args(scene_nw, grid, wind, ics, cfg: SimConfig) -> tuple:
+def _supports(x: torch.Tensor):
+    """Each knot's tent support as the kernel rounds it: ``(gaps, lo, hi)``
+    with ``lo_j = x_j - left_j``, ``hi_j = x_j + right_j``, ``left_j`` and
+    ``right_j`` the gaps to the neighbours floored at 1e-30 (1 past either
+    end)."""
+    d = x[1:] - x[:-1]
+    gap = torch.clamp_min(d, 1e-30)
+    one = torch.ones_like(x[:1])
+    return d, x - torch.cat([one, gap]), x + torch.cat([gap, one])
+
+
+def _window_exact(x: torch.Tensor, *ys: torch.Tensor) -> torch.Tensor:
+    """Whether the kernel may sum a table on knots ``x [K]`` over the four
+    knots ``i-1..i+2`` around the segment ``[x_i, x_i+1]`` that holds the
+    clamped query, and get the full tent sum bit for bit (a 0-d bool tensor,
+    computed on the tables' device without a sync).
+
+    Knot ``j``'s weight is ``clip(min(up, down), 0, 1)`` with
+    ``up = (xc - lo_j) / left_j`` and ``down = (hi_j - xc) / right_j``
+    (``_supports``). It is +0, never -0, unless ``lo_j < xc < hi_j``. If
+    every ``lo_j >= x_{j-2}`` and ``hi_j <= x_{j+2}``, no knot outside the
+    window has that, and a sum that starts at +0 (and so is never -0) is
+    unchanged by the +0 terms (``+0 * y`` is a signed zero for finite ``y``).
+    The table and the supports must also be finite and the knots strictly
+    increasing, so that the largest ``i <= K-2`` with ``x_i <= xc`` is the
+    segment. In exact arithmetic ``lo_j = x_{j-1}``; the check only fails for
+    knots a few ulps apart, or for gaps that overflow. Finite supports with
+    ``left_j, right_j > 0`` are also what the kernel's one-division weight
+    (``window_weight``) needs."""
+    finite = torch.isfinite(x).all()
+    for y in ys:
+        finite = finite & torch.isfinite(y).all()
+    d, lo, hi = _supports(x)
+    return (finite & torch.isfinite(lo).all() & torch.isfinite(hi).all() & (d > 0).all()
+            & (lo[2:] >= x[:-2]).all() & (hi[:-2] <= x[2:]).all())
+
+
+def _table_flags(tables, grid: torch.Tensor) -> torch.Tensor:
+    """The kernel's table flags, int32 ``[5]`` in its ``Flag`` order: the
+    Mach (cd0, cda), CP and thrust tables window-exact; the wind grid
+    non-decreasing with finite supports (its segment search may start from a
+    direct index, and its window's weights skip the divisions they do not
+    need); the wind grid finite."""
+    cd_mach, cd0, cda, cp_mach, cp_shift, curve_t, curve_f = tables
+    d, lo, hi = _supports(grid)
+    return torch.stack([
+        _window_exact(cd_mach, cd0, cda), _window_exact(cp_mach, cp_shift),
+        _window_exact(curve_t, curve_f),
+        (d >= 0).all() & torch.isfinite(lo).all() & torch.isfinite(hi).all(),
+        torch.isfinite(grid).all(),
+    ]).to(torch.int32)
+
+
+class KernelArgs(NamedTuple):
+    """The kernel's inputs as its C entry takes them."""
+    n: int                 # lanes
+    ptrs: list             # scalar leaves (``_SCENE_LEAVES``, then the 12 ICs)
+    strides: list          # their lane strides: 0 shared, 1 per lane
+    table_ptrs: list       # ``_TABLES``, the grid, the wind table, the flags
+    sizes: list            # knots of the Mach, CP, thrust tables and the grid
+    wind: torch.Tensor     # the wind table as the kernel reads it
+    wind_lane_stride: int
+    flags: torch.Tensor    # ``_table_flags``
+    cfg_vals: list         # SimConfig numbers in the kernel's Cfg order
+
+
+def _kernel_args(scene_nw, grid, wind, ics, cfg: SimConfig) -> KernelArgs:
     """Check the inputs against what the kernel takes and lay them out as its
-    C entry wants them: ``(lanes, leaf pointers, leaf strides, table
-    pointers, table sizes, wind lane stride, SimConfig numbers)``. A scalar
-    leaf's stride is 0 when it is shared and 1 when it is per lane; the
-    tables are the fixed ``_TABLES`` list, always shared, whatever their
-    length."""
+    C entry wants them. A scalar leaf's stride is 0 when it is shared and 1
+    when it is per lane; the tables are the fixed ``_TABLES`` list, always
+    shared, whatever their length."""
     require_parity_flags(cfg)
     if scene_nw.rocket.stall_limited_moments:
         raise NotImplementedError("stall_limited_moments is not ported yet (ROADMAP P7)")
@@ -209,10 +285,13 @@ def _kernel_args(scene_nw, grid, wind, ics, cfg: SimConfig) -> tuple:
     if wind.ndim == 2:
         wind_stride = 0
     elif wind.ndim == 3 and wind.shape[0] == n:
-        wind_stride = n_wind * 3
+        # lane-minor [N, 3, B]: a warp's lanes read neighbouring addresses
+        wind, wind_stride = wind.permute(1, 2, 0).contiguous(), 1
     else:
         raise ValueError(f"wind table must be shared or per lane, got {tuple(wind.shape)}")
-    table_ptrs = [t.data_ptr() for t in tables] + [grid.data_ptr(), wind.data_ptr()]
+    flags = _table_flags(tables, grid)
+    table_ptrs = [t.data_ptr() for t in tables] + [grid.data_ptr(), wind.data_ptr(),
+                                                   flags.data_ptr()]
     sizes.append(n_wind)
 
     cfg_vals = [cfg.dt, 0.5 * cfg.dt, cfg.dt / 6.0, cfg.rail_dt, cfg.max_time,
@@ -220,24 +299,26 @@ def _kernel_args(scene_nw, grid, wind, ics, cfg: SimConfig) -> tuple:
                 cfg.ground_altitude, cfg.excessive_altitude, cfg.apogee_min_altitude,
                 cfg.coast_alt_hi, cfg.coast_alt_mid, cfg.coast_time_hi,
                 cfg.coast_time_mid, cfg.coast_time_lo]
-    return n, ptrs, strides, table_ptrs, sizes, wind_stride, cfg_vals
+    return KernelArgs(n, ptrs, strides, table_ptrs, sizes, wind, wind_stride, flags,
+                      cfg_vals)
 
 
 def _launch(scene_nw, grid, wind, ics, cfg: SimConfig) -> dict:
-    n, ptrs, strides, table_ptrs, sizes, wind_stride, cfg_vals = _kernel_args(
-        scene_nw, grid, wind, ics, cfg)
+    a = _kernel_args(scene_nw, grid, wind, ics, cfg)
     dtype, device = ics[0].dtype, ics[0].device
-    out_f = torch.empty((len(_FLOAT_KEYS), n), dtype=dtype, device=device)
-    out_i = torch.empty((len(INT_KEYS), n), dtype=torch.int32, device=device)
+    out_f = torch.empty((len(_FLOAT_KEYS), a.n), dtype=dtype, device=device)
+    out_i = torch.empty((len(INT_KEYS), a.n), dtype=torch.int32, device=device)
 
     fn = getattr(_load(), f"flight_summary_{_PRECISIONS[dtype][1]}")
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn((ctypes.c_void_p * _N_LEAVES)(*ptrs), (ctypes.c_int * _N_LEAVES)(*strides),
-                _N_LEAVES, (ctypes.c_void_p * 9)(*table_ptrs), (ctypes.c_int * 4)(*sizes),
-                wind_stride, (ctypes.c_double * len(cfg_vals))(*cfg_vals),
+        rc = fn((ctypes.c_void_p * _N_LEAVES)(*a.ptrs),
+                (ctypes.c_int * _N_LEAVES)(*a.strides), _N_LEAVES,
+                (ctypes.c_void_p * len(a.table_ptrs))(*a.table_ptrs),
+                (ctypes.c_int * len(a.sizes))(*a.sizes), a.wind_lane_stride,
+                (ctypes.c_double * len(a.cfg_vals))(*a.cfg_vals),
                 cfg.max_steps, cfg.max_rail_steps, out_f.data_ptr(), out_i.data_ptr(),
-                n, stream)
+                a.n, stream)
     if rc != 0:
         raise RuntimeError(f"flight_summary kernel launch failed (CUDA error {rc})")
     global launches
@@ -260,3 +341,107 @@ def flight_summary(scene_nw, grid: torch.Tensor, wind: torch.Tensor, ics,
     if device.type != "cuda":
         raise ValueError(f"flight_summary runs on cpu or cuda, not {device}")
     return _launch(scene_nw, grid, wind, ics, cfg)
+
+
+# ------------------------------------------------------------------ the bound
+# The least arithmetic the flight needs, per lane-step, counted as the
+# kernel evaluates it (tables read through the knot window, lane constants
+# hoisted). One operation per +, -, *, /, sqrt, min, max and transcendental
+# (exp, pow, atan2, sin, cos); negations, comparisons and selects are free.
+# Left out, so that the bound stays a least time: the thrust lookup and
+# propellant ramp (burning lanes only), the parachute, stall and
+# upper-atmosphere branches, and each lane's one-time set-up and epilogue.
+# A table lookup counts as window_weight evaluates it: the clamp (2), then
+# for each knot of the window its two numerators (2 -), and for the two
+# knots of the query's segment, the only ones with a nonzero weight, one
+# division and the clip (3); the zero-weight knots stop at the numerators.
+# The window holds three knots in a table's first and last segments and
+# four elsewhere; the count takes three, so a lookup costs 2 + 3 x 2 + 2 x 3
+# = 14 before its products, and 2 x (*, +) fewer per value array than an
+# interior one.
+DYNAMICS_OPS = {  # one evaluation of csrc/flight_summary.cu dynamics
+    "propellant fraction: max(frac, 0)": 1,
+    "normalize the quaternion: 4 squares, 3 adds, sqrt, 1/n, 4 scales": 13,
+    "rotation matrix: a second normalize (13), 3 diagonal x 5, 6 others x 4": 52,
+    "mass, cg, Ixx, Iyy (lane-constant parts hoisted)": 12,
+    "troposphere: temperature 2, pressure (max, /, pow, *) 4, density 3, sound 2": 11,
+    "wind: window 14, segment guess 2, 3 components x 3 knots x (*, +) 18": 34,
+    "air-relative velocity 3, body frame 15, |v|^2 5, Mach (sqrt, /) 2": 25,
+    "angle of attack and sideslip: 2 abs, 2 atan2, 3 + sqrt": 8,
+    "dynamic pressure": 2,
+    "aero: Mach window 14, cd0 and cda sums 12, cd 3, |alpha| 1, stall factor 4, "
+    "sqrt|1-M^2| 4, k 2, denominator 4, cl_alpha 2, cl 1, CP window and sum "
+    "20 + 1, margin 1, pitch 3, side 1, yaw 3": 76,
+    "drag, lift, side force": 6,
+    "sin and cos of alpha and beta": 4,
+    "aero force in the body frame": 17,
+    "pitch and yaw moments with damping": 8,
+    "body force to the inertial frame": 15,
+    "gravity at altitude": 4,
+    "linear accelerations: 1/m, 3 scales, weight 2": 6,
+    "angular accelerations (Izz := Iyy): 3 x 5": 15,
+    "quaternion derivative 24, norm error 8, correction 12": 44,
+}
+RK4_OPS = {  # the rest of one main-loop step
+    "stage times": 2,
+    "three stage inputs: 14 x (*, +) each": 84,
+    "combine: 14 x (2*k2, 2*k3, 3 adds, *dt/6, +s)": 98,
+    "renormalize the quaternion": 13,
+    "events: step time (fused, 2), speed 6, max speed 1, coast time 1": 10,
+}
+RAIL_OPS = {  # one forward-Euler rail step
+    "time": 1,
+    "mass properties": 12,
+    "troposphere": 11,
+    "wind": 34,
+    "air-relative velocity 6, axial speed 5, Mach 7": 18,
+    "Mach window and cd0, cda sums 26, cd 3, drag 5": 34,
+    "thrust on a 2-knot curve (clamp 2, 2 knots x (2 -, /, clip 2, *, +)), "
+    "nozzle correction 2, scale 2": 20,
+    "gravity 4, acceleration 4, speed 2, position 9, distance 2, fraction 5": 26,
+}
+OPS_PER_STEP = 4 * sum(DYNAMICS_OPS.values()) + sum(RK4_OPS.values())
+OPS_PER_RAIL_STEP = sum(RAIL_OPS.values())
+
+# NVIDIA H100 SXM data sheet, 700 W: HBM3 bytes/s; FP32 and FP64 FLOP/s
+# outside the tensor cores. Those peaks count a fused multiply-add as two
+# operations. The kernel is built with -fmad=false, so its adds and
+# multiplies take one instruction each and its own ceiling is half these
+# rates: against that ceiling the bound doubles. The published peak is kept,
+# so that the bound is the least time any code could take for this work.
+H100_BYTES_PER_S = 3.35e12
+H100_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+
+
+class Bound(NamedTuple):
+    ms: float          # the larger of the two times below
+    by: str            # "operations" or "bytes"
+    lane_steps: int    # RK4 steps plus rail steps, summed over lanes
+    ops: float
+    bytes: int
+
+
+def input_bytes(scene_nw, grid, wind, ics) -> int:
+    """Bytes of every input of one call, each counted once: the scalar
+    leaves, the tables, the wind grid and table and the initial
+    conditions."""
+    leaves = [getattr(getattr(scene_nw, part), field)
+              for part, field in _SCENE_LEAVES + _TABLES]
+    return sum(t.numel() * t.element_size() for t in (*leaves, grid, wind, *ics))
+
+
+def bound_ms(out: dict, cfg: SimConfig, dtype, in_bytes: int) -> Bound:
+    """The least time an H100 SXM at 700 W could take for the flights in
+    ``out`` (a ``flight_summary`` result): the larger of their operations
+    (``n_steps`` RK4 steps at ``OPS_PER_STEP``, plus
+    ``round(rail_exit_time / rail_dt)`` rail steps at ``OPS_PER_RAIL_STEP``)
+    over the FP32 or FP64 peak, and of ``in_bytes`` read once plus the
+    outputs written once over the memory rate."""
+    steps = int(out["n_steps"].to(torch.int64).sum())
+    rail = int(torch.round(out["rail_exit_time"].double() / cfg.rail_dt).sum())
+    ops = float(steps * OPS_PER_STEP + rail * OPS_PER_RAIL_STEP)
+    nbytes = in_bytes + sum(t.numel() * t.element_size() for t in out.values())
+    t_ops = ops / H100_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    return Bound(max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
+                 steps + rail, ops, nbytes)

@@ -49,8 +49,9 @@ def test_kernel_args_layout():
     leaf)."""
     scene_nw, grid, wind, ics = cpu_batch(8)
     assert scene_nw.rocket.cd_mach.shape == (8,)
-    n, ptrs, strides, table_ptrs, sizes, wind_stride, cfg_vals = fs._kernel_args(
-        scene_nw, grid, wind, ics, WINDOW)
+    a = fs._kernel_args(scene_nw, grid, wind, ics, WINDOW)
+    n, ptrs, strides, table_ptrs, sizes, cfg_vals = (a.n, a.ptrs, a.strides, a.table_ptrs,
+                                                     a.sizes, a.cfg_vals)
     assert n == 8 and len(ptrs) == len(strides) == fs._N_LEAVES
     stride = dict(zip([f"{p}.{f}" for p, f in fs._SCENE_LEAVES], strides))
     assert stride["rocket.dry_mass"] == 1 and stride["motor.burn_time"] == 1
@@ -59,13 +60,13 @@ def test_kernel_args_layout():
     assert strides[len(fs._SCENE_LEAVES):] == [1] * 12
     assert sizes == [8, scene_nw.rocket.cp_shift_mach.numel(),
                      scene_nw.motor.curve_time.numel(), grid.numel()]
-    assert len(table_ptrs) == 9 and wind_stride == grid.numel() * 3
+    # the seven tables, the grid, the (lane-minor) wind table, the flags
+    assert len(table_ptrs) == 10 and a.wind_lane_stride == 1
     assert cfg_vals[:3] == [WINDOW.dt, 0.5 * WINDOW.dt, WINDOW.dt / 6.0]
 
     # a shared [N, 3] wind table has lane stride 0
-    *_, shared_stride, _ = fs._kernel_args(scene_nw, grid, wind[0].contiguous(), ics,
-                                           WINDOW)
-    assert shared_stride == 0
+    shared = fs._kernel_args(scene_nw, grid, wind[0].contiguous(), ics, WINDOW)
+    assert shared.wind_lane_stride == 0
 
 
 @pytest.mark.parametrize("case,error,match", [
@@ -110,12 +111,7 @@ def test_kernel_matches_plain_version_on_cuda(dtype, n):
     block of 128 threads."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc; the CPU runs the plain version only")
-    scene_b, ic_b = sample_batch(n, dtype)
-    if dtype == torch.float64:
-        table = scene_b.wind.wind.clone()
-        table[7, scene_b.wind.altitudes > 2000.0] = float("nan")
-        scene_b = dataclasses.replace(
-            scene_b, wind=dataclasses.replace(scene_b.wind, wind=table))
+    scene_b, ic_b = sample_batch(n, dtype, nan_lane=7 if dtype == torch.float64 else None)
     before = fs.launches
     ref, got = kernel_and_plain(scene_b, ic_b, WINDOW)
     assert fs.launches == before + 1
@@ -123,3 +119,38 @@ def test_kernel_matches_plain_version_on_cuda(dtype, n):
     assert (got["n_steps"][got["diverged"] == 0] > 1000).all()
     if dtype == torch.float64:
         assert bool(got["diverged"][7]) and int(got["n_steps"][7]) == int(ref["n_steps"][7])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged-845", "nan-mach", "unsorted-mach", "shared-wind"])
+def test_kernel_paths_match_plain_version_on_cuda(case):
+    """The kernel's other paths against the plain version, in float32: 845
+    lanes (a multiple of no block size the kernel is built for) leave a
+    ragged last block, whose idle threads still reach the block's barrier; a
+    NaN in the cd0 table (every lane diverges at its first step) and a Mach
+    table whose knots do not increase take the full-knot sum instead of the
+    window; a shared [N, 3] wind table is read at lane stride 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc; the CPU runs the plain version only")
+    n = 845 if case == "ragged-845" else 256
+    scene_b, ic_b = sample_batch(n, torch.float32)
+    rocket, wind = scene_b.rocket, scene_b.wind
+    if case == "nan-mach":
+        cd0 = rocket.cd0_table.clone()
+        cd0[3] = float("nan")
+        scene_b = dataclasses.replace(scene_b, rocket=dataclasses.replace(rocket, cd0_table=cd0))
+    elif case == "unsorted-mach":
+        mach = rocket.cd_mach.clone()
+        mach[[2, 3]] = mach[[3, 2]]
+        scene_b = dataclasses.replace(scene_b, rocket=dataclasses.replace(rocket, cd_mach=mach))
+    elif case == "shared-wind":
+        scene_b = dataclasses.replace(
+            scene_b, wind=dataclasses.replace(wind, wind=wind.wind[0].contiguous()))
+    before = fs.launches
+    ref, got = kernel_and_plain(scene_b, ic_b, WINDOW)
+    assert fs.launches == before + 1
+    compare(ref, got, torch.float32)
+    if case == "nan-mach":
+        assert bool(got["diverged"].all()) and bool((got["n_steps"] == 1).all())
+    else:
+        assert (got["n_steps"] > 1000).all()

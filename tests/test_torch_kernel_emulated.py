@@ -1,0 +1,212 @@
+"""PyTorch port: the CUDA kernel's own source, built and run on the CPU.
+
+``csrc/flight_summary.cu`` is C++ apart from CUDA's launch syntax, thread
+indices, shared memory and one barrier. The shim below maps those onto the
+host: each CUDA thread a ``std::thread``, one block at a time,
+``__syncthreads`` a barrier, shared memory static storage. g++
+builds the unchanged source against it (the launch rewritten as a call,
+``-ffp-contract=off`` for the kernel's ``-fmad=false``), and the tests hold
+what it computes to the plain PyTorch version with chip_smoke's bars, on the
+kernel's paths: window and full-knot table sums, a ragged last block whose
+idle threads must still reach the barrier, a shared wind table, the solid
+motor's 10-knot thrust curve, float32 and float64. The CPU's math library
+stands in for CUDA's, so this checks the kernel's logic and order of
+operations, not its last bits on the card (chip_smoke.py does that). It
+skips without g++. This file imports no JAX.
+"""
+
+import ctypes
+import dataclasses
+import re
+import shutil
+import subprocess
+
+import pytest
+import torch
+
+from chip_smoke import compare
+from erpl_monte_carlo_sim_tpu_torch.engine import InitialConditions, SimConfig
+from erpl_monte_carlo_sim_tpu_torch.engine.batch import prepare_batch
+from erpl_monte_carlo_sim_tpu_torch.engine.component import INT_KEYS, table_wind_fn
+from erpl_monte_carlo_sim_tpu_torch.kernels import flight_summary as fs
+from erpl_monte_carlo_sim_tpu_torch.mc import sample_dispersions
+from erpl_monte_carlo_sim_tpu_torch.models import liquid_motor, nominal_scene, solid_motor
+
+torch.set_num_threads(1)
+
+# a short window: the rail phase and about 230 RK4 steps per lane
+WINDOW = SimConfig(max_time=2.0)
+
+SHIM = r"""
+#pragma once
+#include <math.h>
+#include <stddef.h>
+#include <stdio.h>
+#include <stdlib.h>
+#include <chrono>
+#include <condition_variable>
+#include <mutex>
+#include <thread>
+#include <vector>
+#define __device__
+#define __global__
+#define __host__
+#define __forceinline__ inline
+#define __restrict__
+#define __launch_bounds__(...)
+struct emu_dim3 { unsigned x = 0, y = 0, z = 0; };
+inline thread_local emu_dim3 threadIdx, blockIdx;
+inline emu_dim3 blockDim, gridDim;
+// a block barrier that aborts, rather than hangs, when a thread of the
+// block never arrives (a thread that returns before __syncthreads)
+struct EmuBarrier {
+  std::mutex m;
+  std::condition_variable cv;
+  int n, count = 0, phase = 0;
+  explicit EmuBarrier(int threads) : n(threads) {}
+  void wait() {
+    std::unique_lock<std::mutex> lk(m);
+    const int ph = phase;
+    if (++count == n) {
+      count = 0;
+      ++phase;
+      cv.notify_all();
+      return;
+    }
+    if (!cv.wait_for(lk, std::chrono::seconds(60), [&] { return phase != ph; })) {
+      fprintf(stderr, "__syncthreads: a thread of the block never arrived\n");
+      abort();
+    }
+  }
+};
+inline EmuBarrier* emu_bar = nullptr;
+alignas(16) inline char emu_dyn_smem[256 * 1024];
+inline void __syncthreads() { emu_bar->wait(); }
+typedef int cudaError_t;
+typedef void* cudaStream_t;
+constexpr int cudaSuccess = 0;
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+inline cudaError_t cudaGetLastError() { return 0; }
+template <class F> cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
+template <class F>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* b, F, int, size_t) {
+  *b = 1;
+  return 0;
+}
+struct EmuCfg { long long blocks; int threads; long long smem; void* stream; };
+#define EMU_CFG(...) EmuCfg{__VA_ARGS__}
+template <class F, class... A> void emu_launch(EmuCfg c, F f, A... a) {
+  blockDim.x = c.threads;
+  gridDim.x = static_cast<unsigned>(c.blocks);
+  for (long long b = 0; b < c.blocks; ++b) {
+    EmuBarrier bar(c.threads);
+    emu_bar = &bar;
+    std::vector<std::thread> ts;
+    for (int t = 0; t < c.threads; ++t)
+      ts.emplace_back([&, t, b] {
+        threadIdx.x = t;
+        blockIdx.x = static_cast<unsigned>(b);
+        f(a...);
+      });
+    for (auto& th : ts) th.join();
+  }
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    """The kernel's two C entries, built from its source for the CPU."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to build the kernel's source for the CPU")
+    d = tmp_path_factory.mktemp("emulated_kernel")
+    (d / "cuda_runtime.h").write_text(SHIM)
+    with open(fs.SOURCE) as f:
+        src = f.read()
+    src = re.sub(r"(\w+)<<<(.*?)>>>\(", r"emu_launch(EMU_CFG(\2), \1, ", src, flags=re.S)
+    src = re.sub(r"extern __shared__ (\w+) (\w+)\[\];",
+                 r"\1* \2 = reinterpret_cast<\1*>(emu_dyn_smem);", src)
+    src = src.replace("__shared__", "static")
+    (d / "kernel.cpp").write_text(src)
+    libs = {}
+    for dtype, (f32, suffix) in fs._PRECISIONS.items():
+        lib = d / f"kernel_{suffix}.so"
+        subprocess.run([gxx, "-std=c++17", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
+                        f"-I{d}", f"-DFS_F32={f32}", str(d / "kernel.cpp"), "-o", str(lib),
+                        "-lpthread"], check=True, capture_output=True, timeout=600)
+        fn = getattr(ctypes.CDLL(str(lib)), f"flight_summary_{suffix}")
+        fn.restype = ctypes.c_int
+        libs[dtype] = fn
+    return libs
+
+
+def run_emulated(fn, scene_nw, grid, wind, ics, cfg) -> dict:
+    """``flight_summary`` through the emulated kernel: the wrapper's own
+    argument layout, host pointers for device ones."""
+    a = fs._kernel_args(scene_nw, grid, wind, ics, cfg)
+    out_f = torch.empty((len(fs._FLOAT_KEYS), a.n), dtype=ics[0].dtype)
+    out_i = torch.empty((len(INT_KEYS), a.n), dtype=torch.int32)
+    rc = fn((ctypes.c_void_p * len(a.ptrs))(*a.ptrs), (ctypes.c_int * len(a.strides))(*a.strides),
+            len(a.ptrs), (ctypes.c_void_p * len(a.table_ptrs))(*a.table_ptrs),
+            (ctypes.c_int * len(a.sizes))(*a.sizes), ctypes.c_int64(a.wind_lane_stride),
+            (ctypes.c_double * len(a.cfg_vals))(*a.cfg_vals), cfg.max_steps,
+            cfg.max_rail_steps, ctypes.c_void_p(out_f.data_ptr()),
+            ctypes.c_void_p(out_i.data_ptr()), a.n, None)
+    assert rc == 0
+    res = {k: out_f[i] for i, k in enumerate(fs._FLOAT_KEYS)}
+    res.update({k: out_i[i] for i, k in enumerate(INT_KEYS)})
+    return res
+
+
+def batch(n, dtype, motor=liquid_motor, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    scene_b, ic_b, _ = sample_dispersions(
+        gen, nominal_scene(motor("cpu", dtype)),
+        InitialConditions.vertical_launch("cpu", dtype), n=n)
+    return scene_b, ic_b
+
+
+CASES = {
+    # name: (lanes, dtype, motor)
+    "f64-nan-wind-lane": (64, torch.float64, liquid_motor),
+    "f32": (256, torch.float32, liquid_motor),
+    "f32-ragged-845": (845, torch.float32, liquid_motor),
+    "f32-nan-mach": (64, torch.float32, liquid_motor),
+    "f32-unsorted-mach": (64, torch.float32, liquid_motor),
+    "f32-shared-wind": (64, torch.float32, liquid_motor),
+    "f64-solid": (64, torch.float64, solid_motor),
+    "f32-solid": (64, torch.float32, solid_motor),
+}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_emulated_kernel_matches_plain_version(emulated, case):
+    n, dtype, motor = CASES[case]
+    scene_b, ic_b = batch(n, dtype, motor, seed=len(case))
+    rocket, wind = scene_b.rocket, scene_b.wind
+    if case == "f64-nan-wind-lane":
+        table = wind.wind.clone()
+        table[7, wind.altitudes > 2000.0] = float("nan")
+        scene_b = dataclasses.replace(scene_b, wind=dataclasses.replace(wind, wind=table))
+    elif case == "f32-nan-mach":
+        cd0 = rocket.cd0_table.clone()
+        cd0[3] = float("nan")
+        scene_b = dataclasses.replace(scene_b, rocket=dataclasses.replace(rocket, cd0_table=cd0))
+    elif case == "f32-unsorted-mach":
+        mach = rocket.cd_mach.clone()
+        mach[[2, 3]] = mach[[3, 2]]
+        scene_b = dataclasses.replace(scene_b, rocket=dataclasses.replace(rocket, cd_mach=mach))
+    elif case == "f32-shared-wind":
+        scene_b = dataclasses.replace(
+            scene_b, wind=dataclasses.replace(wind, wind=wind.wind[0].contiguous()))
+    scene_nw, grid, table, ics = prepare_batch(scene_b, ic_b)
+    got = run_emulated(emulated[dtype], scene_nw, grid, table, ics, WINDOW)
+    ref = fs.flight_summary_reference(scene_nw, WINDOW, table_wind_fn(grid, table), ics)
+    compare(ref, got, dtype)
+    if case == "f64-nan-wind-lane":
+        assert bool(got["diverged"][7]) and int(got["n_steps"][7]) == 1
+    elif case == "f32-nan-mach":
+        assert bool(got["diverged"].all())
+    else:
+        assert not bool(got["diverged"].any()) and bool((got["n_steps"] > 200).all())
