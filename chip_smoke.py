@@ -19,11 +19,37 @@ raises and the run exits non-zero:
      compared (float32 bars) and timed, beside its bound (the least time an
      H100 could take for those flights, ``flight_summary.bound_ms``), the
      share of it the kernel reaches, its registers, spills and warps per SM;
-  5. the README quick start: full flights to landing, 16,384 lanes.
+  5. the README quick start: full flights to landing, 16,384 lanes;
+  6. the SimConfig opt-ins: for each flag set of ``kernels/measure.py
+     FLAG_SETS`` (each opt-in alone, scripts/full_flights.py's set, that set
+     with rk2), the kernel against its plain version, both on the card: in
+     float32 at the main path's shape (262,144 lanes, ``max_time=6.0``),
+     where the kernel is then timed beside its bound; in float64 on 256
+     lanes, the kernel then timed at B=65,536; registers and spills of each
+     build. The two tiered sets also fly the low-apogee scenes of
+     tests/test_descent.py to landing, in both precisions. A lane that the
+     speed guard stops a step apart in the two versions, at a speed within
+     the bar of the guard, is a tie of the last bits (``guard_ties``): it
+     is counted and left out of the comparison;
+  7. stabilized full flights: ``run_monte_carlo`` with 262,144 float32
+     lanes to landing under scripts/full_flights.py's set, then under
+     ``energy_consistent_aero`` alone; walls, outliers (at most 1% with the
+     tiered timestep), median steps (the tiered run's at least 2.5 times
+     fewer), launches, the kernel's time on the run's own lanes and its
+     bound. Under the tiered set the kernel is also held to its plain
+     version on the run's first 1024 lanes, flown to landing: in float32 up
+     to the landing ties of ``landing_ties`` (lanes that land a step apart
+     after thousands of steps of last-bit drift), and the same flights
+     widened to float64 on every lane;
+  8. the golden-lane certificates of tests/test_mc_distribution_parity.py,
+     float64, through the kernel: the 500 calm lanes lane-matched to the
+     executed reference, and the 220 forecast lanes, whose pass count in
+     parity physics matches the reference's and which all stay valid with
+     ``energy_consistent_aero``.
 
-Phases 2, 4 and 5 also print a ``digest`` line: the SHA-256 of the kernel's
-outputs with NaN made canonical (``kernels/measure.py digest``). A change
-to the kernel that moves no bit leaves every digest as it was.
+Phases 2, 4, 5 and 6 also print ``digest`` lines: the SHA-256 of the
+kernel's outputs with NaN made canonical (``kernels/measure.py digest``). A
+change to the kernel that moves no bit leaves every digest as it was.
 
 The line before the last is the kernel report (JSON), the last line the
 device record (JSON).
@@ -43,7 +69,8 @@ import numpy as np
 import torch
 
 from erpl_monte_carlo_sim_tpu_torch.kernels.measure import (
-    card_line, cuda_ms, digest, occupancy, ptxas_usage, sample_batch)
+    FLAG_SETS, card_line, cuda_ms, digest, flag_set, low_apogee_batch, occupancy, ptxas_usage,
+    sample_batch, time_kernel, with_stall)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 KERNEL_SOURCE = "erpl_monte_carlo_sim_tpu_torch/csrc/flight_summary.cu"
@@ -56,6 +83,17 @@ REPLACES = (
 WINDOW = 6.0
 BENCH_LANES = 262_144
 FULL_FLIGHT_LANES = 16_384
+# phase 6: each flag set's window is compared and timed at the main path's
+# shape in float32; float64 is compared on 256 lanes and timed at B=65,536.
+# The tiered sets also fly the low-apogee scenes to landing (about 3k
+# steps) in both precisions.
+FLAG_LANES = {torch.float32: BENCH_LANES, torch.float64: 256}
+F64_TIMED_LANES = 65_536
+TO_LANDING = ("full_flights", "full_flights+rk2")
+# phase 7: lanes of the tiered run held to the plain version to landing
+# (about 5-8k steps; the plain version's step costs about the same for
+# any lane count up to some thousands)
+SLICE_LANES = 1024
 RTOL = {torch.float32: 2e-5, torch.float64: 5e-7}
 ATOL = 1e-6
 
@@ -126,18 +164,262 @@ def compare(ref_out: dict, got_out: dict, dtype) -> float:
     return worst
 
 
+def golden_lanes(config: str):
+    """The executed-reference Monte Carlo golden ``tests/golden/mc_{config}.jsonl``
+    as ``(params, grid, wind, metrics)`` of NumPy arrays, the form
+    ``inject_reference_lanes`` takes. ``density_mult`` is 1: the reference's
+    density perturbation does not act (tests/test_mc_distribution_parity.py)."""
+    with open(os.path.join(ROOT, "tests", "golden", f"mc_{config}.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    if any(r["failed"] for r in recs):
+        raise ValueError(f"mc_{config}.jsonl holds failed reference runs")
+    params = {k: np.array([r["params"][k] for r in recs])
+              for k in ("mass_mult", "motor_thrust_mult", "motor_mdot_mult",
+                        "pos_off", "vel_off", "att_off", "omg_off")}
+    params["density_mult"] = np.ones(len(recs))
+    metrics = {k: np.array([r["metrics"][k] for r in recs]) for k in recs[0]["metrics"]}
+    return (params, np.array(recs[0]["wind_grid"]),
+            np.array([r["wind_profile"] for r in recs]), metrics)
+
+
 def kernel_and_plain(scene_b, ic_b, cfg):
     """Both versions on the same prepared inputs: ``(plain, kernel)``
     output dicts."""
     from erpl_monte_carlo_sim_tpu_torch.engine.batch import prepare_batch
-    from erpl_monte_carlo_sim_tpu_torch.engine.component import table_wind_fn
     from erpl_monte_carlo_sim_tpu_torch.kernels import flight_summary as fs
 
     scene_nw, grid, wind, ics = prepare_batch(scene_b, ic_b)
     got = fs.flight_summary(scene_nw, grid, wind, ics, cfg)
-    ref = fs.flight_summary_reference(scene_nw, cfg, table_wind_fn(grid, wind), ics)
+    ref = fs.flight_summary_reference(scene_nw, grid, wind, ics, cfg)
     torch.cuda.synchronize()
     return ref, got
+
+
+def map_tensors(fn, x):
+    """``fn`` applied to every tensor of prepared inputs or an output dict."""
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{f.name: map_tensors(fn, getattr(x, f.name))
+                                         for f in dataclasses.fields(x)})
+    if isinstance(x, (tuple, list)):
+        return type(x)(map_tensors(fn, v) for v in x)
+    if isinstance(x, dict):
+        return {k: map_tensors(fn, v) for k, v in x.items()}
+    return fn(x) if isinstance(x, torch.Tensor) else x
+
+
+def head(x, lanes: int, n: int):
+    """The first ``n`` of ``lanes`` lanes of prepared inputs or of an output
+    dict: every tensor whose first dimension is ``lanes`` is cut; shared
+    leaves (tables, the grid, shared scalars) stay."""
+    return map_tensors(
+        lambda t: t[:n].contiguous() if t.ndim >= 1 and t.shape[0] == lanes else t, x)
+
+
+def plain_on_head(args, got, cfg, n=None):
+    """The plain version on the first ``n`` lanes (all by default) of the
+    prepared inputs ``args``, whose kernel outputs are ``got``: ``(plain
+    out, kernel out on those lanes, plain ms)``."""
+    from erpl_monte_carlo_sim_tpu_torch.kernels import flight_summary as fs
+
+    lanes = args[3][0].shape[0]
+    n = n or lanes
+    part = head(args, lanes, n)
+    plain_ms, ref = cuda_ms(lambda: fs.flight_summary_reference(*part, cfg))
+    return ref, head(got, lanes, n), plain_ms
+
+
+def drive(scene_b, ic_b, cfg):
+    """One driven run through ``simulate_summary_batch`` (the user's entry
+    point; launches counted from 0 just before it), then the kernel's own
+    output dict on the same prepared inputs (the same launch again, not
+    counted), which must be the driven run's: ``(args, kernel out,
+    launches)``."""
+    from erpl_monte_carlo_sim_tpu_torch.engine import simulate_summary_batch
+    from erpl_monte_carlo_sim_tpu_torch.engine.batch import prepare_batch
+    from erpl_monte_carlo_sim_tpu_torch.kernels import flight_summary as fs
+
+    fs.launches = 0
+    summary = simulate_summary_batch(scene_b, ic_b, cfg)
+    launched = fs.launches
+    if launched < 1:
+        raise AssertionError("simulate_summary_batch did not launch the kernel")
+    args = prepare_batch(scene_b, ic_b)
+    got = fs.flight_summary(*args, cfg)
+    if not torch.equal(got["apogee_altitude"].nan_to_num(-1.0),
+                       summary.apogee_altitude.nan_to_num(-1.0)):
+        raise AssertionError("the driven run and the kernel differ")
+    return args, got, launched
+
+
+# the outputs a flight's landing decides
+LANDING_KEYS = ("range", "flight_time", "final_px", "final_py", "final_pz", "final_vx",
+                "final_vy", "final_vz", "n_steps")
+
+
+def landing_ties(ref, got, dtype):
+    """Lanes on which the two versions disagree, beyond the bars, about the
+    landing: its step (``n_steps``), time, position or velocity. In float32
+    over thousands of steps the state drifts by some of its last bits, and
+    a lane that touches the ground close to a step boundary lands a step
+    earlier in one version than in the other."""
+    rtol = RTOL[dtype]
+    bad = got["n_steps"] != ref["n_steps"]
+    bad |= (got["flight_time"] - ref["flight_time"]).abs() > (
+        ATOL + rtol * ref["flight_time"].abs())
+    for axes in (("final_px", "final_py", "final_pz"), ("final_vx", "final_vy", "final_vz")):
+        norm = torch.linalg.vector_norm(torch.stack([ref[k] for k in axes]), dim=0)
+        for k in axes:
+            bad |= (got[k] - ref[k]).abs() > ATOL + rtol * norm
+    return bad
+
+
+def full_flights_against_plain(args, got, cfg, lanes, n=SLICE_LANES) -> dict:
+    """Phase 7's check: the kernel against its plain version on the first
+    ``n`` lanes of the run (prepared inputs ``args``, kernel outputs
+    ``got``), flown to landing. In float32, every leaf at the bars on every
+    lane but the landing ties (``landing_ties``), at most 2% of the lanes,
+    whose landing times differ by at most two coarse steps and whose other
+    leaves (apogee, maximum speed, rail exit, chute, divergence) stay at the
+    bars. The same flights in float64 (the inputs widened exactly): every
+    leaf at the float64 bars on every lane."""
+    from erpl_monte_carlo_sim_tpu_torch.kernels import flight_summary as fs
+
+    ref, got_n, plain_ms = plain_on_head(args, got, cfg, n)
+    ties = landing_ties(ref, got_n, torch.float32)
+    kept = ~ties
+    err = compare({k: v[kept] for k, v in ref.items()}, {k: v[kept] for k, v in got_n.items()},
+                  torch.float32)
+    compare({k: (got_n if k in LANDING_KEYS else ref)[k][ties] for k in ref},
+            {k: v[ties] for k, v in got_n.items()}, torch.float32)
+    dt_time = (got_n["flight_time"] - ref["flight_time"]).abs()[ties]
+    d_range = (got_n["range"] - ref["range"]).abs()[ties]
+    coarse = cfg.dt * cfg.descent_dt_scale
+    if int(ties.sum()) > 0.02 * n or bool((dt_time > 2.0 * coarse * (1 + 1e-6)).any()):
+        raise AssertionError(f"full flights: {int(ties.sum())} landing ties, landing times "
+                             f"{dt_time.tolist()} apart")
+    part64 = map_tensors(lambda t: t.double() if t.is_floating_point() else t,
+                         head(args, lanes, n))
+    got64 = fs.flight_summary(*part64, cfg)
+    plain64_ms, ref64 = cuda_ms(lambda: fs.flight_summary_reference(*part64, cfg))
+    return {"max_abs_err": err, "max_abs_err_lanes": int(kept.sum()),
+            "landing_ties": int(ties.sum()),
+            "tie_flight_time_diff_max": float(dt_time.max()) if dt_time.numel() else 0.0,
+            "tie_range_diff_max": float(d_range.max()) if d_range.numel() else 0.0,
+            "plain_ms": plain_ms, "compared_n_steps_max": int(got_n["n_steps"].max()),
+            "f64_max_abs_err": compare(ref64, got64, torch.float64), "f64_plain_ms": plain64_ms}
+
+
+def guard_ties(ref, got, guard, dtype):
+    """Lanes that the speed guard stops one step apart in the two versions,
+    with a speed within the bar (``RTOL``) of the guard in either: there
+    the last bits of the state, which the bars allow to differ, decide on
+    which side of the guard a step's speed falls."""
+    near = torch.minimum((got["max_speed"] - guard).abs(),
+                         (ref["max_speed"] - guard).abs()) <= RTOL[dtype] * guard
+    return ((got["n_steps"] - ref["n_steps"]).abs() == 1) & near
+
+
+def check_flag_run(name, what, got, nan_lane):
+    """What each flag set must show beyond kernel = plain."""
+    div = got["diverged"].bool()
+    if name == "speed_guard":  # exactly the lanes that reached the guard stopped
+        ok = bool(div.any()) and torch.equal(div, got["max_speed"] >= FLAG_SETS[name][0][
+            "speed_guard"])
+    elif name == "terminate_nonfinite":
+        ok = not bool(div.any()) and bool(got["apogee_altitude"][nan_lane].isnan())
+    elif name == "stall_limited_moments":
+        ok = not bool(div.any()) and bool(
+            (got["rail_exit_angle_of_attack"].abs() > math.radians(15.0)).any())
+    else:
+        ok = not bool(div.any())
+    if what == "to landing":
+        ok = ok and bool(got["parachute_deployed"].all()) and bool(
+            (got["final_pz"] <= 0.5).all())
+    if not ok:
+        raise AssertionError(f"flag set {name} ({what}): diverged {int(div.sum())}")
+
+
+def reference_filter(metrics):
+    """The reference's physics-outlier bounds (tests/test_mc_distribution_parity.py)."""
+    apo, rng, ft = metrics["apogee_altitude"], metrics["range"], metrics["flight_time"]
+    return ((apo < 80000.0) & (apo > 100.0) & (rng < 200000.0) & (ft < 600.0)
+            & np.isfinite(apo) & np.isfinite(rng) & np.isfinite(ft))
+
+
+def certificates(dev) -> None:
+    """Phase 8: the bars of tests/test_mc_distribution_parity.py's
+    test_calm_lane_matched_parity and test_forecast_divergence_rate_parity,
+    float64, every flight through the kernel."""
+    from erpl_monte_carlo_sim_tpu_torch.engine import (InitialConditions, SimConfig,
+                                                       simulate_summary_batch)
+    from erpl_monte_carlo_sim_tpu_torch.kernels import flight_summary as fs
+    from erpl_monte_carlo_sim_tpu_torch.mc import inject_reference_lanes, outlier_mask
+    from erpl_monte_carlo_sim_tpu_torch.models import liquid_motor, nominal_scene, solid_motor
+
+    f64 = torch.float64
+    ic = InitialConditions.vertical_launch(dev, f64)
+
+    def fly(config, motor, cfg):
+        params, grid, wind, metrics = golden_lanes(config)
+        scene_b, ic_b = inject_reference_lanes(nominal_scene(motor(dev, f64)), ic, params,
+                                               grid, wind)
+        fs.launches = 0
+        s = simulate_summary_batch(scene_b, ic_b, cfg)
+        if fs.launches < 1:
+            raise AssertionError(f"the {config} certificate did not launch the kernel")
+        valid = outlier_mask(s)[0].cpu().numpy()
+        return s, valid, metrics, fs.launches
+
+    s, _, ref, launched = fly("calm", solid_motor, SimConfig())
+    apo = s.apogee_altitude.cpu().numpy()
+    sane = np.isfinite(ref["apogee_altitude"]) & (ref["apogee_altitude"] < 80000.0)
+    a, r = apo[sane], ref["apogee_altitude"][sane]
+    ft, at = s.flight_time.cpu().numpy(), s.apogee_time.cpu().numpy()
+    mft = sane & (ref["flight_time"] < 600.0)
+    calm = {
+        "sane": int(sane.sum()),
+        "lane_rel": float(np.max(np.abs(a - r) / np.abs(r))),
+        "mean_rel": abs(a.mean() / r.mean() - 1), "std_rel": abs(a.std() / r.std() - 1),
+        "pct_rel": max(abs(np.percentile(a, q) / np.percentile(r, q) - 1)
+                       for q in (5, 25, 50, 75, 95)),
+        "apogee_time_abs": float(np.abs(at[sane] - ref["apogee_time"][sane]).max()),
+        "flight_time_mean_rel": abs(ft[mft].mean() / ref["flight_time"][mft].mean() - 1),
+    }
+    ok = (calm["sane"] >= 450 and calm["lane_rel"] <= 1e-4 and calm["mean_rel"] < 1e-4
+          and calm["std_rel"] < 1e-3 and calm["pct_rel"] < 1e-4
+          and calm["apogee_time_abs"] < 0.1 and calm["flight_time_mean_rel"] < 5e-3)
+    phase("8 calm certificate", lanes=apo.size, launches=launched, passed=ok, **calm)
+    if not ok:
+        raise AssertionError(f"calm certificate: {calm}")
+
+    s, mine, ref, launched = fly("forecast", liquid_motor, SimConfig())
+    refpass = reference_filter(ref)
+    both = mine & refpass
+    worst = {}
+    for ch, leaf, tol in (("apogee_altitude", s.apogee_altitude, 1e-8),
+                          ("apogee_time", s.apogee_time, 1e-9),
+                          ("flight_time", s.flight_time, 1e-9),
+                          ("range", s.range, 1e-7), ("max_speed", s.max_speed, 1e-6),
+                          ("rail_exit_speed", s.rail.rail_exit_speed, 1e-9),
+                          ("rail_exit_time", s.rail.rail_exit_time, 1e-9)):
+        v, w = leaf.cpu().numpy()[both], ref[ch][both]
+        worst[ch] = float(np.max(np.abs(v - w) / np.abs(w))) if both.any() else 0.0
+        worst[ch + "_ok"] = bool(np.all(np.abs(v - w) <= tol * np.abs(w)))
+    s2, valid2, _, launched2 = fly("forecast", liquid_motor,
+                                   SimConfig(energy_consistent_aero=True))
+    forecast = {"ref_pass": int(refpass.sum()), "parity_pass": int(mine.sum()),
+                "overlap": int(both.sum()), "energy_valid": int(valid2.sum()),
+                "energy_diverged": int(s2.diverged.sum())}
+    ok = (forecast["ref_pass"] < 0.1 * mine.size
+          and abs(forecast["parity_pass"] - forecast["ref_pass"]) <= 6
+          and forecast["overlap"] >= forecast["ref_pass"] - 3 and forecast["overlap"] >= 5
+          and forecast["energy_valid"] == mine.size and forecast["energy_diverged"] == 0
+          and all(v for k, v in worst.items() if k.endswith("_ok")))
+    phase("8 forecast certificate", lanes=mine.size, launches=launched + launched2,
+          passed=ok, **forecast,
+          **{k: v for k, v in worst.items() if not k.endswith("_ok")})
+    if not ok:
+        raise AssertionError(f"forecast certificate: {forecast} {worst}")
 
 
 def main() -> int:
@@ -147,7 +429,6 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from erpl_monte_carlo_sim_tpu_torch.engine import SimConfig
-    from erpl_monte_carlo_sim_tpu_torch.engine.component import table_wind_fn
     from erpl_monte_carlo_sim_tpu_torch.kernels import flight_summary as fs
     from erpl_monte_carlo_sim_tpu_torch.mc import MonteCarloAnalyzer
     from erpl_monte_carlo_sim_tpu_torch.engine import InitialConditions
@@ -164,11 +445,17 @@ def main() -> int:
     dev = torch.device("cuda")
 
     # ---------------------------------------------------------------- 1
+    # every build the phases run, all compilers started at once
+    builds = {name: flag_set(name)[2] for name in FLAG_SETS}
     t0 = time.time()
-    _, log = fs.build(verbose=True)
+    logs = fs.build_many([fs.PARITY, *builds.values()], verbose=True)
     build_s = time.time() - t0
-    usage = ptxas_usage(log)
-    phase("1 build", seconds=f"{build_s:.2f}", ptxas=json.dumps(usage))
+    usage = ptxas_usage(logs[0][1])
+    set_usage = {name: ptxas_usage(log) for name, (_, log) in zip(builds, logs[1:])}
+    phase("1 build", seconds=f"{build_s:.2f}", libraries=len({lib for lib, _ in logs}),
+          ptxas=json.dumps(usage))
+    for name, use in set_usage.items():
+        phase(f"1 build {name}", build=fs.flags_name(builds[name]), ptxas=json.dumps(use))
 
     # ---------------------------------------------------------------- 2
     cfg = SimConfig(max_time=WINDOW)
@@ -256,8 +543,8 @@ def main() -> int:
     fs.flight_summary(scene_nw, grid, wind, ics, cfg)
     kernel_ms, got = cuda_ms(lambda: fs.flight_summary(scene_nw, grid, wind, ics, cfg),
                              reps=3)
-    plain_ms, ref = cuda_ms(lambda: fs.flight_summary_reference(
-        scene_nw, cfg, table_wind_fn(grid, wind), ics))
+    plain_ms, ref = cuda_ms(lambda: fs.flight_summary_reference(scene_nw, grid, wind, ics,
+                                                                cfg))
     main_err = compare(ref, got, torch.float32)
     bound = fs.bound_ms(got, cfg, torch.float32, fs.input_bytes(scene_nw, grid, wind, ics))
     threads, blocks = occupancy(fs, "f32", scene_nw, grid)
@@ -288,11 +575,134 @@ def main() -> int:
     phase("5 digest f32", lanes=FULL_FLIGHT_LANES,
           sha256=digest(fs.flight_summary(*prepare_batch(scene_b, ic_b), SimConfig())))
 
+    # ---------------------------------------------------------------- 6
+    def timed_row(name, dt, t):
+        use = set_usage[name][dt]
+        row = {k: t[k] for k in ("lanes", "ms", "bound_ms", "bound_by", "share_of_bound",
+                                 "warps_per_sm", "digest")}
+        row.update(regs=use["regs"], spill_bytes=use["spill_stores"] + use["spill_loads"])
+        phase(f"6 timed {name} {dt}", **row)
+        return row
+
+    rows = {name: {"build": fs.flags_name(flags)} for name, flags in builds.items()}
+    for name in FLAG_SETS:
+        row = rows[name]
+        for dtype in (torch.float32, torch.float64):
+            dt = str(dtype).split(".")[-1]
+            cfg6, stall, flags = flag_set(name, max_time=WINDOW)
+            nan_lane = 7 if name == "terminate_nonfinite" else None
+            scene_b, ic_b = sample_batch(FLAG_LANES[dtype], dtype, nan_lane=nan_lane)
+            if stall:  # 4x the wind: lanes leave the rail past the stall angle
+                scene_b = with_stall(dataclasses.replace(scene_b, wind=dataclasses.replace(
+                    scene_b.wind, wind=scene_b.wind.wind * 4.0)))
+            cases = [("window", scene_b, ic_b, cfg6)]
+            if name in TO_LANDING:
+                cases.append(("to landing", *low_apogee_batch(dev, dtype), flag_set(name)[0]))
+            for what, sb, ib, c in cases:
+                args, got, launched = drive(sb, ib, c)
+                check_flag_run(name, what, got, nan_lane)
+                ref, got_n, p_ms = plain_on_head(args, got, c)
+                ties = torch.zeros_like(got_n["diverged"], dtype=torch.bool)
+                if name == "speed_guard":
+                    ties = guard_ties(ref, got_n, c.speed_guard, dtype)
+                    if int(ties.sum()) > 1e-3 * ties.numel():
+                        raise AssertionError(f"speed guard: {int(ties.sum())} lanes stop a "
+                                             "step apart")
+                kept = ~ties
+                err = compare({k: v[kept] for k, v in ref.items()},
+                              {k: v[kept] for k, v in got_n.items()}, dtype)
+                compared = int(kept.sum())
+                del ref
+                phase(f"6 kernel=plain {name} {dt} {what}", build=row["build"],
+                      lanes=int(got["n_steps"].numel()), compared_lanes=compared,
+                      guard_ties=int(ties.sum()), max_time=c.max_time, launches=launched,
+                      max_abs_err=err, plain_ms=f"{p_ms:.1f}",
+                      n_steps_max=int(got["n_steps"].max()),
+                      diverged=int(got["diverged"].sum()))
+                phase(f"6 digest {name} {dt} {what}", sha256=digest(got))
+                if what == "window" and dtype == torch.float32:
+                    # timed on the inputs whose outputs were just compared
+                    row.update(launches=launched, max_abs_err=err,
+                               max_abs_err_lanes=compared, plain_ms=p_ms,
+                               f32=timed_row(name, "f32", time_kernel(
+                                   fs, args, c, dtype, reps=2, flags=flags)))
+                del args, got, got_n
+            del scene_b, ic_b, cases
+            torch.cuda.empty_cache()
+    # float64 timed at B=65,536
+    scene_b, ic_b = sample_batch(F64_TIMED_LANES, torch.float64)
+    for name in FLAG_SETS:
+        cfg6, stall, flags = flag_set(name, max_time=WINDOW)
+        rows[name]["f64"] = timed_row(name, "f64", time_kernel(
+            fs, prepare_batch(with_stall(scene_b, stall), ic_b), cfg6, torch.float64, reps=2,
+            flags=flags))
+    del scene_b, ic_b
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- 7
+    from erpl_monte_carlo_sim_tpu_torch.mc import sample_dispersions
+
+    medians = {}
+    for name in ("full_flights", "energy_consistent_aero"):
+        cfg7, _, flags = flag_set(name)
+        mc7 = MonteCarloAnalyzer(motor=liquid_motor(dev), sim_config=cfg7)
+        mc7.run_monte_carlo(ic, n_samples=1024, seed=0)  # warm-up
+        torch.cuda.synchronize()
+        fs.launches = 0
+        t0 = time.time()
+        a7 = mc7.run_monte_carlo(ic, n_samples=BENCH_LANES, seed=0)
+        wall7 = time.time() - t0
+        launched = fs.launches
+        if launched < 1:
+            raise AssertionError(f"full flights ({name}) did not launch the kernel")
+        medians[name] = float(np.median(a7["summary"].n_steps))
+        # the run's own lanes, drawn as run_monte_carlo draws them
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        args = prepare_batch(*sample_dispersions(
+            gen, mc7.scene, ic, mc7.uncertainty_params, BENCH_LANES,
+            wind_grid_points=mc7.wind_grid_points, wind_grid_top=mc7.wind_grid_top)[:2])
+        got = fs.flight_summary(*args, cfg7)
+        for k in ("n_steps", "apogee_altitude", "flight_time"):
+            if not np.array_equal(got[k].cpu().numpy(), getattr(a7["summary"], k),
+                                  equal_nan=True):
+                raise AssertionError(f"full flights ({name}): {k} is not the run's")
+        t = time_kernel(fs, args, cfg7, torch.float32, reps=1, flags=flags)
+        stats = {"lanes": BENCH_LANES, "launches": launched, "wall_s": wall7,
+                 "n_outliers": a7["n_outliers"], "apogee_mean": a7["apogee_altitude"]["mean"],
+                 "median_n_steps": medians[name], "kernel_ms": t["ms"],
+                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                 "share_of_bound": t["share_of_bound"]}
+        if name == "full_flights":  # the run's first lanes against the plain version
+            stats.update(full_flights_against_plain(args, got, cfg7, BENCH_LANES))
+        del args, got
+        torch.cuda.empty_cache()
+        rows[name]["full_flights_f32"] = stats
+        phase(f"7 full flights {name}", build=rows[name]["build"], **stats)
+    tiered = rows["full_flights"]["full_flights_f32"]
+    ratio = medians["energy_consistent_aero"] / medians["full_flights"]
+    if tiered["n_outliers"] > 0.01 * BENCH_LANES or not ratio > 2.5:
+        raise AssertionError(f"stabilized full flights: {tiered['n_outliers']} outliers "
+                             f"(at most 1% allowed), median steps {ratio:.2f}x fewer tiered "
+                             "(more than 2.5x required)")
+    phase("7 tiered against fine", median_steps_ratio=ratio,
+          outlier_share=tiered["n_outliers"] / BENCH_LANES)
+
+    # ---------------------------------------------------------------- 8
+    certificates(dev)
+
     report = {"kernels": [
         {"name": f"flight_summary ({name})", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": where, "launches": launches, "max_abs_err": main_err,
          "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None, **costs}
         for name, where in REPLACES
+    ] + [
+        {"name": f"flight_summary [{name}]", "route": "cuda", "source": KERNEL_SOURCE,
+         "replaces": REPLACES[0][1], "launches": row["launches"],
+         "max_abs_err": row["max_abs_err"], "ms": row["f32"]["ms"],
+         "plain_ms": row["plain_ms"], "bound_ms": row["f32"]["bound_ms"],
+         "bound_by": row["f32"]["bound_by"], "library_ms": None, **row}
+        for name, row in rows.items()
     ]}
     print(card, flush=True)
     print(json.dumps(report), flush=True)

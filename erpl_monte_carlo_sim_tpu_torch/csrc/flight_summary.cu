@@ -56,6 +56,19 @@
 //     engine/component.py step_time rounds it;
 //   * built with -fmad=false: no multiply-add contraction;
 //   * every literal is T(...), so the float build does no double math.
+//
+// SimConfig opt-ins (engine/config.py) and RocketParams.stall_limited_moments
+// that change the loop's structure are compile-time constants (-DFS_*=0/1,
+// chosen by kernels/flight_summary.py kernel_flags), as they are static in
+// the JAX package: the midpoint method (two stages), one wind lookup a step,
+// energy-consistent aero forces, stall-limited moments, the tiered timestep
+// (each lane carries its own time, and its step is coarse in quiet phases)
+// with or without the quiet-coast ascent gate, the non-finite stop and the
+// speed guard, and a bfloat16 wind table (converted exactly at the load).
+// Their numbers (the guard, the coarse step, its half and sixth formed in
+// double as JAX forms them, the settle time, the ascent threshold) are Cfg
+// fields. With every flag at its default (parity), the code is the kernel's
+// code without flags.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -64,6 +77,37 @@
 #if !defined(FS_F32)
 #error "compile with -DFS_F32=1 (float) or -DFS_F32=0 (double)"
 #endif
+// the flag set, parity by default
+#ifndef FS_RK2
+#define FS_RK2 0
+#endif
+#ifndef FS_WIND_PER_STEP
+#define FS_WIND_PER_STEP 0
+#endif
+#ifndef FS_ENERGY_AERO
+#define FS_ENERGY_AERO 0
+#endif
+#ifndef FS_STALL_MOMENTS
+#define FS_STALL_MOMENTS 0
+#endif
+#ifndef FS_TIERED
+#define FS_TIERED 0
+#endif
+#ifndef FS_ASCENT_GATE
+#define FS_ASCENT_GATE 0
+#endif
+#ifndef FS_TERMINATE_NONFINITE
+#define FS_TERMINATE_NONFINITE 1
+#endif
+#ifndef FS_SPEED_GUARD
+#define FS_SPEED_GUARD 0
+#endif
+#ifndef FS_WIND_BF16
+#define FS_WIND_BF16 0
+#endif
+#if FS_WIND_BF16
+#include <cuda_bf16.h>
+#endif
 
 namespace {
 
@@ -71,6 +115,17 @@ namespace {
 // budget must allow (128 registers a thread)
 constexpr int kThreads = 128;
 constexpr int kMinBlocks = 4;
+
+constexpr bool kRk2 = FS_RK2;                      // integrator="rk2"
+constexpr bool kWindPerStep = FS_WIND_PER_STEP;    // wind_eval_per_step
+constexpr bool kEnergyAero = FS_ENERGY_AERO;       // energy_consistent_aero
+constexpr bool kStallMoments = FS_STALL_MOMENTS;   // stall_limited_moments
+constexpr bool kTiered = FS_TIERED;                // descent_dt_scale > 1
+constexpr bool kAscentGate = FS_ASCENT_GATE;       // ascent_q_threshold > 0, tiered
+constexpr bool kTerminate = FS_TERMINATE_NONFINITE;
+constexpr bool kSpeedGuard = FS_SPEED_GUARD;       // a finite speed_guard
+static_assert(!kAscentGate || kTiered, "the ascent gate is part of the tiered loop");
+static_assert(!kSpeedGuard || kTerminate, "the speed guard stops a lane as diverged");
 
 #if FS_F32
 typedef float T;
@@ -129,6 +184,16 @@ __device__ __forceinline__ double step_time(double rail_time, int step, double d
 }
 #endif
 
+// the wind table's element type: T, or bfloat16 (wind_table_bf16), whose
+// value converts exactly to float and to double
+#if FS_WIND_BF16
+typedef __nv_bfloat16 W;
+__device__ __forceinline__ T wval(W x) { return static_cast<T>(__bfloat162float(x)); }
+#else
+typedef T W;
+__device__ __forceinline__ T wval(W x) { return x; }
+#endif
+
 // jnp.maximum / jnp.minimum / jnp.clip: NaN in, NaN out
 __device__ __forceinline__ T nmax(T a, T b) {
   return (a != a || b != b) ? a + b : (a > b ? a : b);
@@ -180,7 +245,7 @@ struct Tables {
   const T* curve_t; const T* curve_f;
   // the wind table, lane-minor [N,3,B] (lane stride 1, knot-component
   // stride B) or shared [N,3] (lane stride 0, knot-component stride 1)
-  const T* grid; const T* wind; long long wind_lane_stride, wind_comp_stride;
+  const T* grid; const W* wind; long long wind_lane_stride, wind_comp_stride;
   const int* flags;   // [N_FLAGS], from the wrapper
   Knots cd, cp, th, g;  // the Mach (cd0, cda), CP, thrust tables and wind grid
   int lane_base;        // the lane constants' place in shared memory
@@ -191,14 +256,18 @@ struct Tables {
 // with finite knot supports; where it is finite
 enum Flag { F_CD, F_CP, F_TH, F_GRID_WINDOW, F_GRID_FINITE, N_FLAGS };
 
-// SimConfig numbers, in the order of the wrapper's cfg array (the opt-in
-// flags are checked by the wrapper)
+// SimConfig numbers, in the order of the wrapper's cfg array
+// (kernels/flight_summary.py cfg_values); the flags are the build's
 struct Cfg {
   T dt, half_dt, dt6, rail_dt, max_time, rail_length, pitch_damping, yaw_damping,
     ground_altitude, excessive_altitude, apogee_min_altitude, coast_alt_hi,
     coast_alt_mid, coast_time_hi, coast_time_mid, coast_time_lo;
   int max_steps, max_rail_steps;
+  // speed_guard; the coarse step dt * descent_dt_scale, its half and sixth;
+  // descent_settle_time; ascent_q_threshold
+  T speed_guard, dt_big, half_dt_big, dt6_big, settle_time, q_threshold;
 };
+constexpr int N_CFG = 22;
 
 // outputs: float rows in engine/component.py SUMMARY_KEYS order, then ints
 enum OutF {
@@ -227,7 +296,7 @@ enum LaneField {
 
 struct Lane {
   T* field;  // this thread's column of the block's [N_LANE_FIELDS][kThreads] array
-  const T* wind;
+  const W* wind;
   bool wind_bad[3];
   __device__ __forceinline__ T& operator[](int f) const { return field[f * kThreads]; }
 };
@@ -364,7 +433,7 @@ __device__ __forceinline__ int wind_segment(const Knots& g, T xc, bool sorted) {
 __device__ void wind_at(const Tables& tb, const Lane& ln, T alt, T out[3]) {
   const Knots& g = tb.g;
   const int n = g.k;
-  const T* w = ln.wind;
+  const W* w = ln.wind;
   const long long cs = tb.wind_comp_stride;
   T xc = nclip(alt, knot(g, A_X, 0), knot(g, A_X, n - 1));
   if (xc != xc) {
@@ -378,16 +447,16 @@ __device__ void wind_at(const Tables& tb, const Lane& ln, T alt, T out[3]) {
   T a0 = T(0), a1 = T(0), a2 = T(0);
   for (int j = j0; j <= j1; ++j) {
     T wj = weight(g, j, xc, window);
-    const T* wk = w + 3 * j * cs;
-    a0 = a0 + wj * wk[0];
-    a1 = a1 + wj * wk[cs];
-    a2 = a2 + wj * wk[2 * cs];
+    const W* wk = w + 3 * j * cs;
+    a0 = a0 + wj * wval(wk[0]);
+    a1 = a1 + wj * wval(wk[cs]);
+    a2 = a2 + wj * wval(wk[2 * cs]);
   }
   out[0] = a0; out[1] = a1; out[2] = a2;
   for (int c = 0; c < 3; ++c) {
     if (!ln.wind_bad[c]) continue;
     T acc = T(0);
-    for (int j = 0; j < n; ++j) acc = acc + tent_weight(g, j, xc) * w[(3 * j + c) * cs];
+    for (int j = 0; j < n; ++j) acc = acc + tent_weight(g, j, xc) * wval(w[(3 * j + c) * cs]);
     out[c] = acc;
   }
 }
@@ -478,6 +547,16 @@ __device__ Aero aero(const Tables& tb, const Lane& ln, T mach, T alpha, T beta, 
   a.cpitch = -cl_alpha * sm * alpha;
   a.cy = stalled ? cl_alpha * beta * stall_factor : cl_alpha * beta;
   a.cyaw = -cl_alpha * sm * beta;
+  if constexpr (kStallMoments) {
+    // the moments saturate at their stall-onset value and taper with the
+    // stall factor; cyaw on beta's own factor
+    if (stalled) a.cpitch = -cl_alpha * sm * T(kStall) * stall_factor * nsign(alpha);
+    const T abs_beta = m_abs(beta);
+    if (abs_beta > T(kStall)) {
+      const T beta_sf = nmax(T(0), T(1) - (abs_beta - T(kStall)) / T(kStallRange));
+      a.cyaw = -cl_alpha * sm * T(kStall) * beta_sf * nsign(beta);
+    }
+  }
   return a;
 }
 
@@ -517,9 +596,10 @@ __device__ __forceinline__ void aero_angles(T ub, T vb, T wb, T& alpha, T& beta)
 enum { S_PX, S_PY, S_PZ, S_VX, S_VY, S_VZ, S_QW, S_QX, S_QY, S_QZ, S_OX, S_OY, S_OZ, S_FRAC,
        N_STATE };
 
-// engine/component.py dynamics_c; updates the parachute latch in place
+// engine/component.py dynamics_c; updates the parachute latch in place.
+// wstep: the step's wind under wind_eval_per_step, unread otherwise
 __device__ void dynamics(const Tables& tb, const Lane& ln, const Cfg& cfg, T t,
-                         const T s[N_STATE], int& para, T d[N_STATE]) {
+                         const T s[N_STATE], int& para, T d[N_STATE], const T wstep[3]) {
   T frac = nmax(s[S_FRAC], T(0));
   T qw = s[S_QW], qx = s[S_QX], qy = s[S_QY], qz = s[S_QZ];
   quat_normalize(qw, qx, qy, qz);
@@ -531,7 +611,11 @@ __device__ void dynamics(const Tables& tb, const Lane& ln, const Cfg& cfg, T t,
   Atm atm = atmosphere(ln, pz);
 
   T wnd[3];
-  wind_at(tb, ln, pz, wnd);
+  if constexpr (kWindPerStep) {
+    wnd[0] = wstep[0]; wnd[1] = wstep[1]; wnd[2] = wstep[2];
+  } else {
+    wind_at(tb, ln, pz, wnd);
+  }
   T rvx = vx - wnd[0], rvy = vy - wnd[1], rvz = vz - wnd[2];
   T ub = r[0] * rvx + r[3] * rvy + r[6] * rvz;
   T vb = r[1] * rvx + r[4] * rvy + r[7] * rvz;
@@ -561,9 +645,24 @@ __device__ void dynamics(const Tables& tb, const Lane& ln, const Cfg& cfg, T t,
   m_sincos(alpha, sa, ca);
   m_sincos(beta, sb, cb);
   bool has_q = q_dyn > T(0);
-  T afx = has_q ? ca * cb * (-drag) + (-sb) * (-side) + sa * cb * (-lift) : T(0);
-  T afy = has_q ? ca * sb * (-drag) + cb * (-side) + sa * sb * (-lift) : T(0);
-  T afz = has_q ? -sa * (-drag) + ca * (-lift) : T(0);
+  T afx, afy, afz;
+  if constexpr (kEnergyAero) {
+    // drag anti-parallel to the body-frame air velocity; lift and side
+    // force projected onto the plane perpendicular to it
+    const T inv_bs = T(1) / nmax(body_speed, T(1e-12));
+    const T vhx = ub * inv_bs, vhy = vb * inv_bs, vhz = wb * inv_bs;
+    const T lsx = has_q ? (-sb) * (-side) + sa * cb * (-lift) : T(0);
+    const T lsy = has_q ? cb * (-side) + sa * sb * (-lift) : T(0);
+    const T lsz = has_q ? ca * (-lift) : T(0);
+    const T along = lsx * vhx + lsy * vhy + lsz * vhz;
+    afx = has_q ? -drag * vhx + (lsx - along * vhx) : T(0);
+    afy = has_q ? -drag * vhy + (lsy - along * vhy) : T(0);
+    afz = has_q ? -drag * vhz + (lsz - along * vhz) : T(0);
+  } else {
+    afx = has_q ? ca * cb * (-drag) + (-sb) * (-side) + sa * cb * (-lift) : T(0);
+    afy = has_q ? ca * sb * (-drag) + cb * (-side) + sa * sb * (-lift) : T(0);
+    afz = has_q ? -sa * (-drag) + ca * (-lift) : T(0);
+  }
 
   T fx = (is_chute ? chute_coef * ub : afx) + thrust;
   T fy = is_chute ? chute_coef * vb : afy;
@@ -609,6 +708,28 @@ __device__ void dynamics(const Tables& tb, const Lane& ln, const Cfg& cfg, T t,
   T remaining = nz ? frac / m_abs(safe) : T(INFINITY);
   T dfrac = remaining < T(0.01) ? -frac / T(0.01) : nominal;
   d[S_FRAC] = burning ? dfrac : T(0);
+}
+
+// engine/component.py _coarse_lanes: whether a step of the tiered loop is
+// coarse. Settled ballistic fall after apogee, clear of the chute-deploy
+// altitude by 1.5 coarse steps; canopy descent once the opening has
+// settled; with the ascent gate, a quiet coast before apogee (burnt out, no
+// chute, clear, dynamic pressure from its own atmosphere lookup under the
+// threshold), looked up only where the other terms leave the step fine.
+__device__ __forceinline__ bool coarse_step(const Lane& ln, const Cfg& cfg, const T s[N_STATE],
+                                            T t, int apod, int para, T apo_t, T dep_t) {
+  const T fall = nmax(-s[S_VZ], T(0));
+  const bool clear = s[S_PZ] > ln[LF_CHUTE_ALT] + T(1.5) * fall * cfg.dt_big;
+  bool coarse = (apod > 0 && para == 0 && (t - apo_t) > cfg.settle_time && clear) ||
+                (para > 0 && (t - dep_t) > cfg.settle_time);
+  if constexpr (kAscentGate) {
+    if (!coarse && t > ln[LF_BURN_TIME] && apod == 0 && para == 0 && clear) {
+      const T rho = atmosphere(ln, s[S_PZ]).density;
+      coarse = T(0.5) * rho * (s[S_VX] * s[S_VX] + s[S_VY] * s[S_VY] + s[S_VZ] * s[S_VZ]) <
+               cfg.q_threshold;
+    }
+  }
+  return coarse;
 }
 
 __device__ __forceinline__ T leaf(const Leaves& lv, int k, long long lane) {
@@ -672,7 +793,7 @@ __device__ __forceinline__ void fly(const Leaves& lv, const Tables& tb, const Cf
   for (int c = 0; c < 3; ++c) {
     bool bad = grid_bad;
     for (int j = 0; j < tb.g.k; ++j)
-      bad |= !m_finite(ln.wind[(3 * j + c) * tb.wind_comp_stride]);
+      bad |= !m_finite(wval(ln.wind[(3 * j + c) * tb.wind_comp_stride]));
     ln.wind_bad[c] = bad;
   }
 
@@ -739,43 +860,71 @@ __device__ __forceinline__ void fly(const Leaves& lv, const Tables& tb, const Cf
   }
   const T rail_speed = safe_sqrt(rvx0 * rvx0 + rvy0 * rvy0 + rvz0 * rvz0);
 
-  // ---------------- main loop: RK4 with masked events
+  // ---------------- main loop: RK4 (or rk2) with masked events
   T s[N_STATE] = {rpx, rpy, rpz, rvx0, rvy0, rvz0, qw, qx, qy, qz,
                   leaf(lv, L_OX, lane), leaf(lv, L_OY, lane), leaf(lv, L_OZ, lane), frac};
   int step = 0, para = 0, apod = 0, done = 0, div = 0;
   T apo_t = T(0), max_coast = T(0), max_alt = rpz, t_max = rail_time,
     max_spd = rail_speed, end_t = rail_time;
+  // the tiered loop's own time and the time the chute latched
+  T t_lane = rail_time, dep_t = T(INFINITY);
+  T wstep[3];  // wind_eval_per_step: the wind at the step's starting altitude
+  constexpr int kStages = kRk2 ? 2 : 4;
 
-  while (done == 0 && (step_time(rail_time, step, cfg.dt) < cfg.max_time) &&
+  while (done == 0 && ((kTiered ? t_lane : step_time(rail_time, step, cfg.dt)) < cfg.max_time) &&
          step < cfg.max_steps) {
-    const T t = step_time(rail_time, step, cfg.dt);
+    T t, dt = cfg.dt, half = cfg.half_dt, dt6 = cfg.dt6;
+    if constexpr (kTiered) {
+      t = t_lane;
+      if (coarse_step(ln, cfg, s, t, apod, para, apo_t, dep_t)) {
+        dt = cfg.dt_big;
+        half = cfg.half_dt_big;
+        dt6 = cfg.dt6_big;
+      }
+    } else {
+      t = step_time(rail_time, step, cfg.dt);
+    }
+    if constexpr (kWindPerStep) wind_at(tb, ln, s[S_PZ], wstep);
     // RK4 with one running stage sum: acc = (k1 + 2 k2) + 2 k3, then
     // s + dt/6 (acc + k4), the order and rounding of
-    // s + dt/6 (k1 + 2 k2 + 2 k3 + k4). The four stages are one loop, so
-    // the kernel holds one copy of dynamics, not four.
+    // s + dt/6 (k1 + 2 k2 + 2 k3 + k4). The stages are one loop, so the
+    // kernel holds one copy of dynamics, not four. rk2 stops after the
+    // second stage and takes s + dt k2.
     T acc[N_STATE], k[N_STATE], tmp[N_STATE];
     int p = para;
 #pragma unroll
     for (int i = 0; i < N_STATE; ++i) tmp[i] = s[i];
 #pragma unroll 1
-    for (int stage = 0; stage < 4; ++stage) {
-      const T ts = stage == 0 ? t : (stage == 3 ? t + cfg.dt : t + cfg.half_dt);
-      dynamics(tb, ln, cfg, ts, tmp, p, k);
-      if (stage == 3) break;
-      const T h = stage == 2 ? cfg.dt : cfg.half_dt;
+    for (int stage = 0; stage < kStages; ++stage) {
+      const T ts = stage == 0 ? t : (stage == 3 ? t + dt : t + half);
+      dynamics(tb, ln, cfg, ts, tmp, p, k, wstep);
+      if (stage == kStages - 1) break;
+      const T h = stage == 2 ? dt : half;
 #pragma unroll
       for (int i = 0; i < N_STATE; ++i) {
-        acc[i] = stage == 0 ? k[i] : acc[i] + T(2) * k[i];
+        if constexpr (!kRk2) acc[i] = stage == 0 ? k[i] : acc[i] + T(2) * k[i];
         tmp[i] = s[i] + h * k[i];
       }
     }
 #pragma unroll
-    for (int i = 0; i < N_STATE; ++i) s[i] = s[i] + cfg.dt6 * (acc[i] + k[i]);
+    for (int i = 0; i < N_STATE; ++i) {
+      if constexpr (kRk2) {
+        s[i] = s[i] + dt * k[i];
+      } else {
+        s[i] = s[i] + dt6 * (acc[i] + k[i]);
+      }
+    }
     quat_normalize(s[S_QW], s[S_QX], s[S_QY], s[S_QZ]);
+    const bool latched = p > para;
     para = p;
 
     const int step_new = step + 1;
-    const T t_new = step_time(rail_time, step_new, cfg.dt);
+    T t_new;
+    if constexpr (kTiered) {
+      t_new = t + dt;
+    } else {
+      t_new = step_time(rail_time, step_new, cfg.dt);
+    }
     const T alt = s[S_PZ], vzn = s[S_VZ];
     const T speed = safe_sqrt(s[S_VX] * s[S_VX] + s[S_VY] * s[S_VY] + s[S_VZ] * s[S_VZ]);
 
@@ -791,11 +940,19 @@ __device__ __forceinline__ void fly(const Leaves& lv, const Tables& tb, const Cf
     bool ground = (alt <= cfg.ground_altitude) && (vzn <= T(0));
     bool excessive = alt > cfg.excessive_altitude;
     bool coast_done = (apod > 0) && (alt > cfg.coast_alt_mid) && ((t_new - apo_t) > max_coast);
-    bool newly_div = !(m_finite(alt) && m_finite(vzn) && m_finite(speed));
+    bool newly_div = false;
+    if constexpr (kTerminate) {
+      newly_div = !(m_finite(alt) && m_finite(vzn) && m_finite(speed));
+      if constexpr (kSpeedGuard) newly_div = newly_div || !(speed < cfg.speed_guard);
+    }
     if (newly_div) div = 1;
     // done was 0 on entry, so end_t takes this step's time
     end_t = t_new;
     if (ground || excessive || coast_done || newly_div) done = 1;
+    if constexpr (kTiered) {
+      if (latched) dep_t = t_new;
+      t_lane = t_new;
+    }
     step = step_new;
   }
 
@@ -871,15 +1028,16 @@ __host__ int layout(Tables& tb, int k_cd, int k_cp, int k_th, int n_wind) {
 // pointers except leaf_ptrs, leaf_strides, table_ptrs, table_sizes and cfg,
 // which are host arrays. table_ptrs holds the seven tables (Tables order),
 // the wind grid, the wind table (lane-minor [N,3,B] when wind_lane_stride
-// is 1, shared [N,3] when it is 0) and the int flags; table_sizes the
-// knots of the Mach, CP and thrust tables and of the grid. Launches on
+// is 1, shared [N,3] when it is 0; of W, bfloat16 in a FS_WIND_BF16 build)
+// and the int flags; table_sizes the knots of the Mach, CP and thrust
+// tables and of the grid; cfg the N_CFG numbers of Cfg. Launches on
 // `stream`, allocates nothing, returns cudaGetLastError() after the launch.
 extern "C" int FS_CAT(flight_summary_, FS_SUFFIX)(
     const void* const* leaf_ptrs, const int* leaf_strides, int n_leaves,
     const void* const* table_ptrs, const int* table_sizes,
-    long long wind_lane_stride, const double* cfg_in, int max_steps,
+    long long wind_lane_stride, const double* cfg_in, int n_cfg, int max_steps,
     int max_rail_steps, void* out_f, void* out_i, int n_lanes, void* stream) {
-  if (n_leaves != N_LEAVES) return -1;
+  if (n_leaves != N_LEAVES || n_cfg != N_CFG) return -1;
   if (n_lanes <= 0) return 0;
   Leaves lv;
   for (int k = 0; k < N_LEAVES; ++k) {
@@ -895,7 +1053,7 @@ extern "C" int FS_CAT(flight_summary_, FS_SUFFIX)(
   tb.curve_t = static_cast<const T*>(table_ptrs[5]);
   tb.curve_f = static_cast<const T*>(table_ptrs[6]);
   tb.grid = static_cast<const T*>(table_ptrs[7]);
-  tb.wind = static_cast<const T*>(table_ptrs[8]);
+  tb.wind = static_cast<const W*>(table_ptrs[8]);
   tb.wind_lane_stride = wind_lane_stride;
   tb.wind_comp_stride = wind_lane_stride == 0 ? 1 : n_lanes;
   tb.flags = static_cast<const int*>(table_ptrs[9]);
@@ -922,6 +1080,12 @@ extern "C" int FS_CAT(flight_summary_, FS_SUFFIX)(
   cfg.coast_time_hi = static_cast<T>(cfg_in[13]);
   cfg.coast_time_mid = static_cast<T>(cfg_in[14]);
   cfg.coast_time_lo = static_cast<T>(cfg_in[15]);
+  cfg.speed_guard = static_cast<T>(cfg_in[16]);
+  cfg.dt_big = static_cast<T>(cfg_in[17]);
+  cfg.half_dt_big = static_cast<T>(cfg_in[18]);
+  cfg.dt6_big = static_cast<T>(cfg_in[19]);
+  cfg.settle_time = static_cast<T>(cfg_in[20]);
+  cfg.q_threshold = static_cast<T>(cfg_in[21]);
   cfg.max_steps = max_steps;
   cfg.max_rail_steps = max_rail_steps;
   const int blocks = (n_lanes + kThreads - 1) / kThreads;

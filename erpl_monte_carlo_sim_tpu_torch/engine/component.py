@@ -4,9 +4,16 @@
 Eager PyTorch: every state and event quantity is a ``[B]`` tensor, each
 step runs on every lane and a per-lane mask keeps finished lanes frozen, so
 a lane's result does not depend on the other lanes of the batch. The loop
-runs while any lane is active. This is the plain version of the CUDA
+runs while any lane is active; on a CUDA device it replays one captured
+step as a CUDA graph (``_replay_steps``). This is the plain version of the CUDA
 kernel ``kernels/flight_summary.py``, which runs the same arithmetic with
 one thread per lane; CPU tensors run here.
+
+Every ``SimConfig`` opt-in acts as in the JAX package: ``integrator="rk2"``,
+``wind_eval_per_step``, ``energy_consistent_aero``, ``speed_guard``,
+``terminate_nonfinite`` and the tiered timestep (``descent_dt_scale``,
+``descent_settle_time``, ``ascent_q_threshold``). ``wind_table_bf16`` is a
+property of the table ``wind_fn`` reads (``table_wind_fn``).
 
 Wind access is a caller-provided ``wind_fn(alt) -> (u, v, w)``.
 """
@@ -23,7 +30,6 @@ from ..models.rocket import aero_coefficients, mass_properties
 from ..ops.interp import interpolate_vec
 from ..ops.math import arctan2, safe_sqrt
 from ..ops.quaternion import euler_to_quaternion
-from .config import require_parity_flags
 
 __all__ = ["quat_normalize_c", "rotmat_c", "qdot_c", "table_wind_fn",
            "dynamics_c", "rk4_c", "flight_components", "SUMMARY_KEYS",
@@ -47,7 +53,10 @@ INT_KEYS = ("parachute_deployed", "diverged", "n_steps")
 def table_wind_fn(grid: torch.Tensor, wind: torch.Tensor):
     """``wind_fn`` over a wind table on the shared ``grid [N]``: ``wind`` is
     ``[B, N, 3]`` per lane or ``[N, 3]`` shared. Tent weights over all N
-    knots, as the JAX package evaluates them."""
+    knots, as the JAX package evaluates them. A table stored in another
+    dtype (bfloat16 under ``SimConfig.wind_table_bf16``) is upcast to the
+    grid's first, which is exact."""
+    wind = wind.to(grid.dtype)
 
     def wind_fn(alt):
         return interpolate_vec(alt, grid, wind).unbind(-1)
@@ -153,6 +162,18 @@ def dynamics_c(scene, cfg, wind_fn, t, st, para):
     afx = torch.where(has_q, afx, 0.0)
     afy = torch.where(has_q, afy, 0.0)
     afz = torch.where(has_q, afz, 0.0)
+    if cfg.energy_consistent_aero:
+        # drag anti-parallel to the body-frame air velocity; lift and side
+        # force projected onto the plane perpendicular to it
+        inv_bs = 1.0 / torch.clamp_min(body_speed, 1e-12)
+        vhx, vhy, vhz = ub * inv_bs, vb * inv_bs, wb * inv_bs
+        lsx = torch.where(has_q, (-sb) * (-side) + sa * cb * (-lift), 0.0)
+        lsy = torch.where(has_q, cb * (-side) + sa * sb * (-lift), 0.0)
+        lsz = torch.where(has_q, ca * (-lift), 0.0)
+        along = lsx * vhx + lsy * vhy + lsz * vhz
+        afx = torch.where(has_q, -drag * vhx + (lsx - along * vhx), 0.0)
+        afy = torch.where(has_q, -drag * vhy + (lsy - along * vhy), 0.0)
+        afz = torch.where(has_q, -drag * vhz + (lsz - along * vhz), 0.0)
 
     fx = torch.where(is_chute, cfx, afx) + thrust
     fy = torch.where(is_chute, cfy, afy)
@@ -194,19 +215,38 @@ def dynamics_c(scene, cfg, wind_fn, t, st, para):
     return deriv, para
 
 
-def rk4_c(scene, cfg, wind_fn, t, st, para):
-    """Classical RK4 with the parachute latch threaded through the stages."""
-    dt = cfg.dt
+def rk4_c(scene, cfg, wind_fn, t, st, para, dt=None):
+    """One step of RK4 (or the midpoint method under ``integrator="rk2"``)
+    with the parachute latch threaded through the stages. ``dt`` is None for
+    ``cfg.dt``, or per-lane ``(dt, dt / 6)`` tensors of the tiered timestep
+    (the sixth rounded once from float64, as JAX's weakly typed step is)."""
+    if dt is None:
+        dt, dt6 = cfg.dt, cfg.dt / 6.0
+    else:
+        dt, dt6 = dt
+    half = 0.5 * dt
 
     def axpy(a, k):
         return tuple(s + a * d for s, d in zip(st, k))
 
-    k1, para = dynamics_c(scene, cfg, wind_fn, t, st, para)
-    k2, para = dynamics_c(scene, cfg, wind_fn, t + 0.5 * dt, axpy(0.5 * dt, k1), para)
-    k3, para = dynamics_c(scene, cfg, wind_fn, t + 0.5 * dt, axpy(0.5 * dt, k2), para)
-    k4, para = dynamics_c(scene, cfg, wind_fn, t + dt, axpy(dt, k3), para)
-    new = tuple(s + (dt / 6.0) * (a + 2 * b + 2 * c + d)
-                for s, a, b, c, d in zip(st, k1, k2, k3, k4))
+    if cfg.wind_eval_per_step:
+        # one wind lookup at the step's starting altitude, for every stage
+        w = wind_fn(st[2])
+
+        def eval_wind(alt):
+            return w
+    else:
+        eval_wind = wind_fn
+
+    k1, para = dynamics_c(scene, cfg, eval_wind, t, st, para)
+    k2, para = dynamics_c(scene, cfg, eval_wind, t + half, axpy(half, k1), para)
+    if cfg.integrator == "rk2":
+        new = tuple(s + dt * b for s, b in zip(st, k2))
+    else:
+        k3, para = dynamics_c(scene, cfg, eval_wind, t + half, axpy(half, k2), para)
+        k4, para = dynamics_c(scene, cfg, eval_wind, t + dt, axpy(dt, k3), para)
+        new = tuple(s + dt6 * (a + 2 * b + 2 * c + d)
+                    for s, a, b, c, d in zip(st, k1, k2, k3, k4))
     qw, qx, qy, qz = quat_normalize_c(new[6], new[7], new[8], new[9])
     return new[:6] + (qw, qx, qy, qz) + new[10:], para
 
@@ -270,6 +310,71 @@ def step_time(rail_time: torch.Tensor, step: torch.Tensor, dt: float) -> torch.T
     return rail_time + step.to(rail_time.dtype) * dt
 
 
+def _coarse_lanes(scene, cfg, st, ev, t, dt_big):
+    """The tiered timestep's coarse lanes: settled ballistic fall after
+    apogee, clear of the chute-deploy altitude by 1.5 coarse steps; canopy
+    descent once the opening has settled; and, with ``ascent_q_threshold``,
+    a quiet coast before apogee (burnt out, chute not latched, clear, low
+    dynamic pressure from its own atmosphere lookup)."""
+    rocket, settle = scene.rocket, cfg.descent_settle_time
+    fall_speed = torch.clamp_min(-st[5], 0.0)
+    clear = st[2] > (rocket.parachute_deployment_altitude + 1.5 * fall_speed * dt_big)
+    ballistic = ((ev["apod"] > 0) & (ev["para"] == 0) & ((t - ev["apo_t"]) > settle)
+                 & clear)
+    chuted = (ev["para"] > 0) & ((t - ev["dep_t"]) > settle)
+    coarse = ballistic | chuted
+    if cfg.ascent_q_threshold > 0.0:
+        density = atmosphere_properties(scene.atmosphere, st[2]).density
+        q_est = 0.5 * density * (st[3] * st[3] + st[4] * st[4] + st[5] * st[5])
+        coarse = coarse | ((t > scene.motor.burn_time) & (ev["apod"] == 0)
+                           & (ev["para"] == 0) & clear
+                           & (q_est < cfg.ascent_q_threshold))
+    return coarse
+
+
+def _run_steps(step, st, ev, run):
+    """The main loop: ``step`` while any lane runs."""
+    while bool(run.any()):
+        st, ev, run = step(st, ev, run)
+    return st, ev
+
+
+# main-loop steps replayed between two reads of the loop condition
+GRAPH_STEPS = 16
+
+
+def _replay_steps(step, st, ev, run):
+    """The main loop on a CUDA device: one ``step`` captured as a CUDA graph
+    and replayed, ``GRAPH_STEPS`` at a time, until no lane runs. A replay
+    launches the eager step's kernels with the same arguments, so the
+    result is the eager loop's, bit for bit, without its per-operation
+    launch cost. Steps replayed after the last lane stopped change nothing:
+    a stopped lane keeps its state."""
+    if not bool(run.any()):
+        return st, ev
+    st = tuple(x.clone() for x in st)  # the graph's inputs and outputs
+    ev = {k: v.clone() for k, v in ev.items()}
+    run = run.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # a warm-up step on copies before capture
+        step(tuple(x.clone() for x in st), {k: v.clone() for k, v in ev.items()},
+             run.clone())
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        new_st, new_ev, new_run = step(st, ev, run)
+        for a, b in zip(st, new_st):
+            a.copy_(b)
+        for k in ev:
+            ev[k].copy_(new_ev[k])
+        run.copy_(new_run)
+    while bool(run.any()):
+        for _ in range(GRAPH_STEPS):
+            graph.replay()
+    return st, ev
+
+
 def flight_components(scene, cfg, wind_fn, ics) -> dict:
     """Full flight: launch attitude, rail phase, RK4 main loop with masked
     events (apogee, coast timeouts, ground, 100 km cut, non-finite stop).
@@ -277,8 +382,11 @@ def flight_components(scene, cfg, wind_fn, ics) -> dict:
     ``ics``: 12 ``[B]`` tensors (px, py, pz, vx, vy, vz, roll, pitch, yaw,
     ox, oy, oz). Returns a dict of ``[B]`` tensors keyed by ``SUMMARY_KEYS``
     (int32 for ``INT_KEYS``). ``quat_*`` is the rail-exit (= launch)
-    attitude."""
-    require_parity_flags(cfg)
+    attitude.
+
+    With ``descent_dt_scale > 1`` (tiered) each lane carries its own time,
+    advanced by its own step, and the time its chute latched; otherwise time
+    is ``step_time`` of the step counter."""
     (px, py, pz, vx, vy, vz, roll, pitch, yaw, ox, oy, oz) = ics
 
     qw, qx, qy, qz = euler_to_quaternion(roll, pitch, yaw).unbind(-1)
@@ -306,17 +414,33 @@ def flight_components(scene, cfg, wind_fn, ics) -> dict:
     f0 = torch.zeros_like(spd)
     ev = dict(step=i0, para=i0, apod=i0, done=i0, div=i0, apo_t=f0, max_coast=f0,
               max_alt=rpz, t_max=rail_time, max_spd=rail_speed, end_t=rail_time)
+    tiered = cfg.descent_dt_scale > 1
+    if tiered:
+        dt_big = cfg.dt * cfg.descent_dt_scale
+        fine, big = torch.full_like(f0, cfg.dt), torch.full_like(f0, dt_big)
+        fine6, big6 = torch.full_like(f0, cfg.dt / 6.0), torch.full_like(f0, dt_big / 6.0)
+        ev["t"] = rail_time
+        ev["dep_t"] = torch.full_like(f0, math.inf)
+
+    def time_of(ev):
+        return ev["t"] if tiered else step_time(rail_time, ev["step"], cfg.dt)
 
     def lane_active(ev):
-        t = step_time(rail_time, ev["step"], cfg.dt)
-        return (ev["done"] == 0) & (t < cfg.max_time) & (ev["step"] < cfg.max_steps)
+        return (ev["done"] == 0) & (time_of(ev) < cfg.max_time) & (
+            ev["step"] < cfg.max_steps)
 
-    run = lane_active(ev)
-    while bool(run.any()):
-        t = step_time(rail_time, ev["step"], cfg.dt)
-        new_st, para = rk4_c(scene, cfg, wind_fn, t, st, ev["para"])
+    def step(st, ev, run):
+        t = time_of(ev)
         step_new = ev["step"] + 1
-        t_new = step_time(rail_time, step_new, cfg.dt)
+        if tiered:
+            coarse = _coarse_lanes(scene, cfg, st, ev, t, dt_big)
+            dt_lane = torch.where(coarse, big, fine)
+            new_st, para = rk4_c(scene, cfg, wind_fn, t, st, ev["para"],
+                                 dt=(dt_lane, torch.where(coarse, big6, fine6)))
+            t_new = t + dt_lane
+        else:
+            new_st, para = rk4_c(scene, cfg, wind_fn, t, st, ev["para"])
+            t_new = step_time(rail_time, step_new, cfg.dt)
         alt, vzn = new_st[2], new_st[5]
         speed = safe_sqrt(new_st[3] * new_st[3] + new_st[4] * new_st[4]
                           + new_st[5] * new_st[5])
@@ -335,8 +459,11 @@ def flight_components(scene, cfg, wind_fn, ics) -> dict:
         excessive = alt > cfg.excessive_altitude
         coast_done = (apod > 0) & (alt > cfg.coast_alt_mid) & (
             (t_new - apo_t) > max_coast)
-        finite = torch.isfinite(alt) & torch.isfinite(vzn) & torch.isfinite(speed)
-        newly_div = (~finite).to(torch.int32)
+        if cfg.terminate_nonfinite:
+            finite = torch.isfinite(alt) & torch.isfinite(vzn) & torch.isfinite(speed)
+            newly_div = (~finite | ~(speed < cfg.speed_guard)).to(torch.int32)
+        else:
+            newly_div = i0
         new_ev = dict(
             step=step_new, para=para, apod=apod,
             done=torch.maximum(ev["done"],
@@ -350,9 +477,15 @@ def flight_components(scene, cfg, wind_fn, ics) -> dict:
             max_spd=torch.maximum(ev["max_spd"], speed),
             end_t=torch.where(ev["done"] > 0, ev["end_t"], t_new),
         )
+        if tiered:
+            new_ev["t"] = t_new
+            new_ev["dep_t"] = torch.where(para > ev["para"], t_new, ev["dep_t"])
         st = tuple(torch.where(run, a, b) for a, b in zip(new_st, st))
         ev = {k: torch.where(run, new_ev[k], ev[k]) for k in ev}
-        run = lane_active(ev)
+        return st, ev, lane_active(ev)
+
+    loop = _replay_steps if spd.is_cuda else _run_steps
+    st, ev = loop(step, st, ev, lane_active(ev))
 
     fpx, fpy, fpz, fvx, fvy, fvz = st[:6]
     return {

@@ -2,8 +2,8 @@
 
 A frozen, hashable dataclass of plain Python values, field for field the
 JAX package's ``SimConfig`` (see that file for what each opt-in flag does).
-The port's flight paths implement the parity defaults of the opt-in flags;
-``require_parity_flags`` refuses the others (ROADMAP P7 brings them).
+Every field acts on the summary path except ``unroll`` and ``record_*``,
+which it ignores, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -11,7 +11,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
-__all__ = ["SimConfig", "require_parity_flags"]
+__all__ = ["SimConfig"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,26 +72,3 @@ class SimConfig:
         """Bound on main-loop steps."""
         return int(math.ceil(self.max_time / self.dt))
 
-
-# opt-in flags and their parity values; the port's flight paths implement
-# only these values so far
-_PARITY_FLAGS = {
-    "terminate_nonfinite": True,
-    "speed_guard": float("inf"),
-    "wind_eval_per_step": False,
-    "wind_table_bf16": False,
-    "integrator": "rk4",
-    "energy_consistent_aero": False,
-    "descent_dt_scale": 1,
-    "ascent_q_threshold": 0.0,
-}
-
-
-def require_parity_flags(cfg: SimConfig) -> None:
-    """Raise ``NotImplementedError`` for any opt-in flag away from its
-    parity default."""
-    bad = [f"{k}={getattr(cfg, k)!r}" for k, v in _PARITY_FLAGS.items()
-           if getattr(cfg, k) != v]
-    if bad:
-        raise NotImplementedError(
-            f"SimConfig flags not ported yet (ROADMAP P7): {', '.join(bad)}")

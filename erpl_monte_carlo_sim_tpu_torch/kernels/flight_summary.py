@@ -11,23 +11,30 @@ plain PyTorch version (``flight_summary_reference``, the eager
 ``flight_components``); CUDA tensors launch the kernel, or raise. There is
 no fallback from one to the other.
 
-The kernel is built at first use with ``nvcc`` for ``sm_90a`` into
-``erpl_monte_carlo_sim_tpu_torch/_build/`` (a content hash of the source and
-flags names the library, so an edited source rebuilds) and bound with
-``ctypes``. ``launches`` counts kernel launches.
+The ``SimConfig`` opt-ins that change the loop's structure, and
+``RocketParams.stall_limited_moments``, are compile-time constants of the
+kernel, as they are static in the JAX package: ``kernel_flags`` reads them,
+and each flag set is its own build. A build is made at first use with
+``nvcc`` for ``sm_90a`` into ``erpl_monte_carlo_sim_tpu_torch/_build/`` (a
+content hash of the source, the flags and the defines names the library, so
+an edited source rebuilds) and bound with ``ctypes``; ``build_many`` starts
+the compilers of several flag sets at once. The parity flag set
+(``PARITY``) compiles to the same code as before the flags existed.
+``launches`` counts kernel launches, of every flag set.
 
 Besides the inputs, the wrapper hands the kernel a lane-minor ``[N, 3, B]``
 copy of a per-lane wind table (a warp's loads of one knot are then
-contiguous) and the table flags of ``_table_flags``, which say where the
-kernel's shortcuts return the full expressions' bits. ``bound_ms`` is the
-least time an H100 could take for the flights of a result, from the
-operation count ``OPS_PER_STEP``.
+contiguous; bfloat16 under ``wind_table_bf16``) and the table flags of
+``_table_flags``, which say where the kernel's shortcuts return the full
+expressions' bits. ``bound_ms`` is the least time an H100 could take for
+the flights of a result, from the operation count ``ops_per_step``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -35,12 +42,12 @@ from typing import NamedTuple
 
 import torch
 
-from ..engine.component import INT_KEYS, SUMMARY_KEYS, table_wind_fn
-from ..engine.component import flight_components as flight_summary_reference
-from ..engine.config import SimConfig, require_parity_flags
+from ..engine.component import INT_KEYS, SUMMARY_KEYS, flight_components, table_wind_fn
+from ..engine.config import SimConfig
 
-__all__ = ["flight_summary", "flight_summary_reference", "build", "launches",
-           "SOURCE", "bound_ms", "input_bytes"]
+__all__ = ["flight_summary", "flight_summary_reference", "build", "build_many",
+           "launches", "SOURCE", "KernelFlags", "PARITY", "kernel_flags", "flags_name",
+           "stored_wind", "cfg_values", "ops_per_step", "bound_ms", "input_bytes"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "flight_summary.cu")
@@ -54,6 +61,49 @@ _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # PyTorch ops and the JAX package do, operation by operation
 _FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-fmad=false"]
 _PRECISIONS = {torch.float32: ("1", "f32"), torch.float64: ("0", "f64")}
+
+
+class KernelFlags(NamedTuple):
+    """A build of the kernel: the compile-time constants, in the order of
+    their ``-D`` defines (``_DEFINES``). The defaults are the parity flags."""
+    rk2: bool = False                  # integrator="rk2"
+    wind_per_step: bool = False        # wind_eval_per_step
+    energy_aero: bool = False          # energy_consistent_aero
+    stall_moments: bool = False        # RocketParams.stall_limited_moments
+    tiered: bool = False               # descent_dt_scale > 1
+    ascent_gate: bool = False          # tiered and ascent_q_threshold > 0
+    terminate_nonfinite: bool = True   # terminate_nonfinite
+    speed_guard: bool = False          # terminate_nonfinite and speed_guard != inf
+    wind_bf16: bool = False            # wind_table_bf16
+
+
+PARITY = KernelFlags()
+_DEFINES = ("FS_RK2", "FS_WIND_PER_STEP", "FS_ENERGY_AERO", "FS_STALL_MOMENTS",
+            "FS_TIERED", "FS_ASCENT_GATE", "FS_TERMINATE_NONFINITE", "FS_SPEED_GUARD",
+            "FS_WIND_BF16")
+
+
+def kernel_flags(cfg: SimConfig, stall_limited_moments: bool = False) -> KernelFlags:
+    """The build that runs ``cfg`` (and a rocket's ``stall_limited_moments``).
+    A flag that changes nothing is off: the ascent gate acts only in the
+    tiered loop, an infinite speed guard never trips where the non-finite
+    stop does not, and neither guard acts without ``terminate_nonfinite``."""
+    tiered = cfg.descent_dt_scale > 1
+    return KernelFlags(
+        rk2=cfg.integrator == "rk2", wind_per_step=cfg.wind_eval_per_step,
+        energy_aero=cfg.energy_consistent_aero,
+        stall_moments=bool(stall_limited_moments), tiered=tiered,
+        ascent_gate=tiered and cfg.ascent_q_threshold > 0.0,
+        terminate_nonfinite=cfg.terminate_nonfinite,
+        speed_guard=cfg.terminate_nonfinite and cfg.speed_guard != math.inf,
+        wind_bf16=cfg.wind_table_bf16)
+
+
+def flags_name(flags: KernelFlags) -> str:
+    """A short name of a flag set: the fields away from parity."""
+    diff = [f for f in KernelFlags._fields if getattr(flags, f) != getattr(PARITY, f)]
+    return "+".join(f if getattr(flags, f) else f"no_{f}" for f in diff) or "parity"
+
 
 # scalar leaves in the kernel's Leaf order: (scene part, field)
 _SCENE_LEAVES = (
@@ -81,7 +131,7 @@ _TABLES = (
 _N_LEAVES = len(_SCENE_LEAVES) + 12
 _FLOAT_KEYS = tuple(k for k in SUMMARY_KEYS if k not in INT_KEYS)
 
-_lib = None
+_libs: dict = {}
 
 
 def _nvcc() -> str:
@@ -97,50 +147,66 @@ def _run(cmd):
                             text=True)
 
 
-def build(verbose: bool = False) -> tuple[str, str]:
-    """Compile the kernel (float and double objects in parallel, then one
-    shared library) unless the hashed library exists. Returns
-    ``(library path, compiler log)``; ``verbose`` adds ``-Xptxas -v``
-    (registers, spills). The float object is built with
+def _library(flags: KernelFlags, src: bytes) -> tuple[str, list]:
+    defines = [f"-D{d}={int(v)}" for d, v in zip(_DEFINES, flags)]
+    key = hashlib.sha256(src + " ".join(_ARCH + _FLAGS + defines).encode()).hexdigest()[:16]
+    return os.path.join(BUILD_DIR, f"flight_summary_{key}.so"), defines
+
+
+def build_many(flag_sets, verbose: bool = False) -> list:
+    """Compile the kernel for each flag set that has no hashed library yet:
+    every object (float and double of every set) by its own ``nvcc``, all
+    started at once, then one shared library per set. Returns ``(library
+    path, compiler log)`` per set; ``verbose`` adds ``-Xptxas -v``
+    (registers, spills) and rebuilds. The float objects are built with
     ``-Xptxas -warn-double-usage``, and any such warning fails the build."""
     with open(SOURCE, "rb") as f:
         src = f.read()
     extra = ["-Xptxas", "-v"] if verbose else []
-    key = hashlib.sha256(src + " ".join(_ARCH + _FLAGS).encode()).hexdigest()[:16]
-    lib = os.path.join(BUILD_DIR, f"flight_summary_{key}.so")
-    if os.path.exists(lib) and not verbose:
-        return lib, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    nvcc = _nvcc()
-    objs, procs = [], []
-    for f32, suffix in _PRECISIONS.values():
-        obj = os.path.join(BUILD_DIR, f"flight_summary_{key}_{suffix}.o")
-        warn = ["-Xptxas", "-warn-double-usage"] if suffix == "f32" else []
-        cmd = [nvcc, *_ARCH, *_FLAGS, *warn, *extra, f"-DFS_F32={f32}", "-c", SOURCE,
-               "-o", obj]
-        objs.append(obj)
-        procs.append((suffix, _run(cmd)))
-    log = []
-    for suffix, p in procs:
+    jobs = {}
+    for flags in flag_sets:
+        lib, defines = _library(flags, src)
+        if lib in jobs or (os.path.exists(lib) and not verbose):
+            continue
+        procs = []
+        for f32, suffix in _PRECISIONS.values():
+            obj = f"{lib[:-3]}_{suffix}.o"
+            warn = ["-Xptxas", "-warn-double-usage"] if suffix == "f32" else []
+            procs.append((suffix, obj, _run([_nvcc(), *_ARCH, *_FLAGS, *warn, *extra,
+                                             f"-DFS_F32={f32}", *defines, "-c", SOURCE,
+                                             "-o", obj])))
+        jobs[lib] = (flags, procs)
+    logs = {}
+    for lib, (flags, procs) in jobs.items():
+        log = []
+        for suffix, _, p in procs:
+            out, _ = p.communicate()
+            log.append(f"[{suffix}]\n{out}")
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({flags_name(flags)}, {suffix}):\n{out}")
+            if suffix == "f32" and "double precision" in out:
+                raise RuntimeError(f"float build uses double precision "
+                                   f"({flags_name(flags)}):\n{out[:4000]}")
+        tmp = f"{lib}.{os.getpid()}.tmp"
+        p = _run([_nvcc(), *_ARCH, "-shared", "-o", tmp, *(o for _, o, _ in procs)])
         out, _ = p.communicate()
-        log.append(f"[{suffix}]\n{out}")
         if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({suffix}):\n{out}")
-        if suffix == "f32" and "double precision" in out:
-            raise RuntimeError(f"float build uses double precision:\n{out[:4000]}")
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    p = _run([nvcc, *_ARCH, "-shared", "-o", tmp, *objs])
-    out, _ = p.communicate()
-    if p.returncode != 0:
-        raise RuntimeError(f"nvcc link failed:\n{out}")
-    os.replace(tmp, lib)
-    return lib, "\n".join(log)
+            raise RuntimeError(f"nvcc link failed ({flags_name(flags)}):\n{out}")
+        os.replace(tmp, lib)
+        logs[lib] = "\n".join(log)
+    return [(lib, logs.get(lib, "")) for lib, _ in (_library(f, src) for f in flag_sets)]
 
 
-def _load():
-    global _lib
-    if _lib is None:
-        path, _ = build()
+def build(flags: KernelFlags = PARITY, verbose: bool = False) -> tuple[str, str]:
+    """``build_many`` of one flag set."""
+    return build_many([flags], verbose)[0]
+
+
+def _load(flags: KernelFlags = PARITY):
+    lib = _libs.get(flags)
+    if lib is None:
+        path, _ = build(flags)
         lib = ctypes.CDLL(path)
         for _, suffix in _PRECISIONS.values():
             fn = getattr(lib, f"flight_summary_{suffix}")
@@ -148,7 +214,7 @@ def _load():
                 ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
                 ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
                 ctypes.POINTER(ctypes.c_int), ctypes.c_int64,
-                ctypes.POINTER(ctypes.c_double), ctypes.c_int, ctypes.c_int,
+                ctypes.POINTER(ctypes.c_double), ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
             ]
             fn.restype = ctypes.c_int
@@ -156,8 +222,8 @@ def _load():
             occ.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
                             ctypes.POINTER(ctypes.c_int)]
             occ.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+        _libs[flags] = lib
+    return lib
 
 
 def _check(t: torch.Tensor, name: str, dtype, device) -> torch.Tensor:
@@ -233,16 +299,37 @@ class KernelArgs(NamedTuple):
     wind_lane_stride: int
     flags: torch.Tensor    # ``_table_flags``
     cfg_vals: list         # SimConfig numbers in the kernel's Cfg order
+    build: KernelFlags     # the build that runs them
+
+
+def stored_wind(wind: torch.Tensor, cfg: SimConfig) -> torch.Tensor:
+    """The wind table as the flight reads it: rounded to bfloat16 under
+    ``wind_table_bf16`` (the JAX package's ``engine/batch.py`` stores it so,
+    and upcasts at each lookup), else as given."""
+    return wind.to(torch.bfloat16) if cfg.wind_table_bf16 else wind
+
+
+def cfg_values(cfg: SimConfig) -> list:
+    """The ``SimConfig`` numbers in the kernel's ``Cfg`` order, in float64;
+    the kernel rounds each once to its precision. The fine and coarse steps'
+    halves and sixths are formed here, in float64, as the JAX package forms
+    them from its Python (or weakly typed float64) step."""
+    dt_big = cfg.dt * cfg.descent_dt_scale
+    return [cfg.dt, 0.5 * cfg.dt, cfg.dt / 6.0, cfg.rail_dt, cfg.max_time,
+            cfg.rail_length, cfg.pitch_damping, cfg.yaw_damping,
+            cfg.ground_altitude, cfg.excessive_altitude, cfg.apogee_min_altitude,
+            cfg.coast_alt_hi, cfg.coast_alt_mid, cfg.coast_time_hi,
+            cfg.coast_time_mid, cfg.coast_time_lo, cfg.speed_guard, dt_big,
+            0.5 * dt_big, dt_big / 6.0, cfg.descent_settle_time,
+            cfg.ascent_q_threshold]
 
 
 def _kernel_args(scene_nw, grid, wind, ics, cfg: SimConfig) -> KernelArgs:
     """Check the inputs against what the kernel takes and lay them out as its
     C entry wants them. A scalar leaf's stride is 0 when it is shared and 1
     when it is per lane; the tables are the fixed ``_TABLES`` list, always
-    shared, whatever their length."""
-    require_parity_flags(cfg)
-    if scene_nw.rocket.stall_limited_moments:
-        raise NotImplementedError("stall_limited_moments is not ported yet (ROADMAP P7)")
+    shared, whatever their length. ``wind`` is the table as given; under
+    ``wind_table_bf16`` the kernel reads its ``stored_wind``."""
     dtype, device = ics[0].dtype, ics[0].device
     if dtype not in _PRECISIONS:
         raise ValueError(f"flight_summary takes float32 or float64, got {dtype}")
@@ -278,6 +365,7 @@ def _kernel_args(scene_nw, grid, wind, ics, cfg: SimConfig) -> KernelArgs:
         raise ValueError("table lengths do not match their knot vectors")
     _check(grid, "wind grid", dtype, device)
     _check(wind, "wind table", dtype, device)
+    wind = stored_wind(wind, cfg)
     n_wind = grid.numel()
     if grid.ndim != 1 or wind.shape[-2:] != (n_wind, 3):
         raise ValueError(f"wind table must be [N,3] or [B,N,3] on the [N] grid, got "
@@ -294,13 +382,8 @@ def _kernel_args(scene_nw, grid, wind, ics, cfg: SimConfig) -> KernelArgs:
                                                    flags.data_ptr()]
     sizes.append(n_wind)
 
-    cfg_vals = [cfg.dt, 0.5 * cfg.dt, cfg.dt / 6.0, cfg.rail_dt, cfg.max_time,
-                cfg.rail_length, cfg.pitch_damping, cfg.yaw_damping,
-                cfg.ground_altitude, cfg.excessive_altitude, cfg.apogee_min_altitude,
-                cfg.coast_alt_hi, cfg.coast_alt_mid, cfg.coast_time_hi,
-                cfg.coast_time_mid, cfg.coast_time_lo]
     return KernelArgs(n, ptrs, strides, table_ptrs, sizes, wind, wind_stride, flags,
-                      cfg_vals)
+                      cfg_values(cfg), kernel_flags(cfg, scene_nw.rocket.stall_limited_moments))
 
 
 def _launch(scene_nw, grid, wind, ics, cfg: SimConfig) -> dict:
@@ -309,14 +392,14 @@ def _launch(scene_nw, grid, wind, ics, cfg: SimConfig) -> dict:
     out_f = torch.empty((len(_FLOAT_KEYS), a.n), dtype=dtype, device=device)
     out_i = torch.empty((len(INT_KEYS), a.n), dtype=torch.int32, device=device)
 
-    fn = getattr(_load(), f"flight_summary_{_PRECISIONS[dtype][1]}")
+    fn = getattr(_load(a.build), f"flight_summary_{_PRECISIONS[dtype][1]}")
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = fn((ctypes.c_void_p * _N_LEAVES)(*a.ptrs),
                 (ctypes.c_int * _N_LEAVES)(*a.strides), _N_LEAVES,
                 (ctypes.c_void_p * len(a.table_ptrs))(*a.table_ptrs),
                 (ctypes.c_int * len(a.sizes))(*a.sizes), a.wind_lane_stride,
-                (ctypes.c_double * len(a.cfg_vals))(*a.cfg_vals),
+                (ctypes.c_double * len(a.cfg_vals))(*a.cfg_vals), len(a.cfg_vals),
                 cfg.max_steps, cfg.max_rail_steps, out_f.data_ptr(), out_i.data_ptr(),
                 a.n, stream)
     if rc != 0:
@@ -328,16 +411,25 @@ def _launch(scene_nw, grid, wind, ics, cfg: SimConfig) -> dict:
     return res
 
 
+def flight_summary_reference(scene_nw, grid: torch.Tensor, wind: torch.Tensor, ics,
+                             cfg: SimConfig) -> dict:
+    """The kernel's plain version: ``flight_components`` over the tent-basis
+    lookup of ``stored_wind``, on any device."""
+    return flight_components(scene_nw, cfg, table_wind_fn(grid, stored_wind(wind, cfg)),
+                             ics)
+
+
 def flight_summary(scene_nw, grid: torch.Tensor, wind: torch.Tensor, ics,
                    cfg: SimConfig) -> dict:
     """Whole flights of a batch: ``scene_nw`` without its wind, the wind
     ``grid [N]`` and table (``[B, N, 3]`` or shared ``[N, 3]``), 12 ``[B]``
     initial-condition tensors. Returns ``flight_components``' dict.
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel."""
+    CPU tensors run the plain version; CUDA tensors launch the kernel build
+    of ``kernel_flags``."""
     device = ics[0].device
     if device.type == "cpu":
-        return flight_summary_reference(scene_nw, cfg, table_wind_fn(grid, wind), ics)
+        return flight_summary_reference(scene_nw, grid, wind, ics, cfg)
     if device.type != "cuda":
         raise ValueError(f"flight_summary runs on cpu or cuda, not {device}")
     return _launch(scene_nw, grid, wind, ics, cfg)
@@ -400,7 +492,47 @@ RAIL_OPS = {  # one forward-Euler rail step
     "nozzle correction 2, scale 2": 20,
     "gravity 4, acceleration 4, speed 2, position 9, distance 2, fraction 5": 26,
 }
-OPS_PER_STEP = 4 * sum(DYNAMICS_OPS.values()) + sum(RK4_OPS.values())
+# the flag sets' changes to one step
+RK2_OPS = {  # the rest of one main-loop step of the midpoint method
+    "stage time": 1,
+    "one stage input: 14 x (*, +)": 28,
+    "combine: 14 x (*dt, +s)": 28,
+    "renormalize the quaternion": 13,
+    "events: step time (fused, 2), speed 6, max speed 1, coast time 1": 10,
+}
+# energy_consistent_aero, in place of "aero force in the body frame" (17)
+ENERGY_AERO_OPS = {
+    "1 / max(|v|, 1e-12) 2, unit air velocity 3, lift and side force 9, "
+    "their component along it 5, force 3 x 4": 31,
+}
+TIERED_OPS = {  # descent_dt_scale > 1, beside the events
+    "fall speed 1, clearance 3, t + dt 1 in place of the fused step time 2": 3,
+}
+
+
+def ops_per_step(flags: KernelFlags = None) -> int:
+    """Operations of one main-loop step of a build: two or four dynamics
+    evaluations and the rest of the step. Under ``wind_per_step`` the wind
+    lookup leaves the dynamics and runs once a step. Left out, as the stall
+    branch is, because a step runs them only on some lanes: the
+    stall-limited moments, the tiered gate's time since apogee or since the
+    chute latched, and the ascent gate's atmosphere lookup and dynamic
+    pressure (``coarse_step``: quiet coasting steps only)."""
+    flags = flags or PARITY
+    wind = DYNAMICS_OPS["wind: window 14, segment guess 2, 3 components x 3 knots x (*, +) 18"]
+    dyn = sum(DYNAMICS_OPS.values())
+    if flags.energy_aero:
+        dyn += sum(ENERGY_AERO_OPS.values()) - DYNAMICS_OPS["aero force in the body frame"]
+    ops = wind if flags.wind_per_step else 0
+    if flags.wind_per_step:
+        dyn -= wind
+    ops += 2 * dyn + sum(RK2_OPS.values()) if flags.rk2 else 4 * dyn + sum(RK4_OPS.values())
+    if flags.tiered:
+        ops += sum(TIERED_OPS.values())
+    return ops
+
+
+OPS_PER_STEP = ops_per_step(PARITY)
 OPS_PER_RAIL_STEP = sum(RAIL_OPS.values())
 
 # NVIDIA H100 SXM data sheet, 700 W: HBM3 bytes/s; FP32 and FP64 FLOP/s
@@ -421,25 +553,27 @@ class Bound(NamedTuple):
     bytes: int
 
 
-def input_bytes(scene_nw, grid, wind, ics) -> int:
+def input_bytes(scene_nw, grid, wind, ics, cfg: SimConfig = SimConfig()) -> int:
     """Bytes of every input of one call, each counted once: the scalar
-    leaves, the tables, the wind grid and table and the initial
-    conditions."""
+    leaves, the tables, the wind grid and table (two bytes a value under
+    ``wind_table_bf16``) and the initial conditions."""
     leaves = [getattr(getattr(scene_nw, part), field)
               for part, field in _SCENE_LEAVES + _TABLES]
-    return sum(t.numel() * t.element_size() for t in (*leaves, grid, wind, *ics))
+    wind_bytes = wind.numel() * (2 if cfg.wind_table_bf16 else wind.element_size())
+    return wind_bytes + sum(t.numel() * t.element_size() for t in (*leaves, grid, *ics))
 
 
 def bound_ms(out: dict, cfg: SimConfig, dtype, in_bytes: int) -> Bound:
     """The least time an H100 SXM at 700 W could take for the flights in
-    ``out`` (a ``flight_summary`` result): the larger of their operations
-    (``n_steps`` RK4 steps at ``OPS_PER_STEP``, plus
+    ``out`` (a ``flight_summary`` result of ``cfg``): the larger of their
+    operations (``n_steps`` main-loop steps at ``ops_per_step`` of the build
+    of ``cfg``, a tiered step counting one step whatever its length, plus
     ``round(rail_exit_time / rail_dt)`` rail steps at ``OPS_PER_RAIL_STEP``)
     over the FP32 or FP64 peak, and of ``in_bytes`` read once plus the
     outputs written once over the memory rate."""
     steps = int(out["n_steps"].to(torch.int64).sum())
     rail = int(torch.round(out["rail_exit_time"].double() / cfg.rail_dt).sum())
-    ops = float(steps * OPS_PER_STEP + rail * OPS_PER_RAIL_STEP)
+    ops = float(steps * ops_per_step(kernel_flags(cfg)) + rail * OPS_PER_RAIL_STEP)
     nbytes = in_bytes + sum(t.numel() * t.element_size() for t in out.values())
     t_ops = ops / H100_FLOPS[dtype] * 1e3
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3

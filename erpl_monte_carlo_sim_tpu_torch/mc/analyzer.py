@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from ..engine.batch import simulate_summary_batch
-from ..engine.config import SimConfig, require_parity_flags
+from ..engine.config import SimConfig
 from ..engine.state import InitialConditions
 from ..models.scene import Scene, nominal_scene
 from ..utils.convert import to_numpy
@@ -91,7 +91,6 @@ class MonteCarloAnalyzer:
             _not_ported("two_level_lanes", "P13")
         if wind_table_modes is not None:
             _not_ported("wind_table_modes", "P8")
-        require_parity_flags(sim_config)
         self.scene = scene
         self.uncertainty_params = uncertainty_params
         self.sim_config = sim_config

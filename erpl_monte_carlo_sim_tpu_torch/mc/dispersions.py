@@ -27,7 +27,7 @@ from ..models.scene import Scene
 from ..models.wind import WindField, generate_stochastic_profile, perturb_wind_profile
 
 __all__ = ["UncertaintyParams", "DispersionSample", "sample_dispersions",
-           "select_lane"]
+           "inject_reference_lanes", "select_lane"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -219,6 +219,48 @@ def sample_dispersions(generator: torch.Generator, scene: Scene, ic: InitialCond
         dtype = scene.rocket.dry_mass.dtype
     return _sample_impl(generator, scene, ic, params, n, base_wind, wind_grid_points,
                         wind_grid_top, dtype)
+
+
+def inject_reference_lanes(scene: Scene, ic: InitialConditions, params: dict, wind_grid,
+                           wind_profiles):
+    """Batched ``(Scene, InitialConditions)`` from explicit per-lane
+    dispersion values and wind tables, on the scene's device and in its
+    dtype: the lane-matched path of the Monte Carlo certificates against the
+    executed reference (tests/golden/mc_*.jsonl).
+
+    ``params`` holds ``[n]`` arrays ``mass_mult``, ``motor_thrust_mult``,
+    ``motor_mdot_mult``, ``density_mult`` and ``[n, 3]`` ``pos_off``,
+    ``vel_off``, ``att_off``, ``omg_off``; ``wind_profiles`` is ``[n, N, 3]``
+    on the shared ``wind_grid [N]``. The perturbations are ``_build_scene``'s
+    (dry and propellant mass scale together, burn time re-syncs to
+    propellant / mass flow, density scales), with every value given instead
+    of drawn."""
+    dtype, device = scene.rocket.dry_mass.dtype, scene.rocket.dry_mass.device
+
+    def as_t(x):
+        return torch.as_tensor(x, dtype=dtype, device=device)
+
+    p = {k: as_t(v) for k, v in params.items()}
+    mass_mult = p["mass_mult"]
+    new_prop = scene.rocket.propellant_mass * mass_mult
+    new_mdot = scene.motor.mass_flow_rate * p["motor_mdot_mult"]
+    rocket = dataclasses.replace(scene.rocket, dry_mass=scene.rocket.dry_mass * mass_mult,
+                                 propellant_mass=new_prop)
+    motor = dataclasses.replace(
+        scene.motor, thrust_scale=scene.motor.thrust_scale * p["motor_thrust_mult"],
+        mass_flow_rate=new_mdot, propellant_mass=new_prop, burn_time=new_prop / new_mdot)
+    atmosphere = dataclasses.replace(
+        scene.atmosphere, density_scale=scene.atmosphere.density_scale * p["density_mult"])
+    batched_scene = Scene(rocket=rocket, motor=motor, atmosphere=atmosphere,
+                          wind=WindField(altitudes=as_t(wind_grid), wind=as_t(wind_profiles)),
+                          wind_model=scene.wind_model)
+    batched_ic = InitialConditions(
+        position=as_t(ic.position) + p["pos_off"],
+        velocity=as_t(ic.velocity) + p["vel_off"],
+        attitude=as_t(ic.attitude) + p["att_off"],
+        angular_velocity=as_t(ic.angular_velocity) + p["omg_off"],
+    )
+    return batched_scene, batched_ic
 
 
 def select_lane(batched: Scene, base: Scene, lane: int) -> Scene:

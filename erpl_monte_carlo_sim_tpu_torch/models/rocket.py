@@ -2,8 +2,9 @@
 (``erpl_monte_carlo_sim_tpu/models/rocket.py``).
 
 Quirks kept from the JAX package: ``Izz`` mirrors ``Iyy``; the pitch moment
-``cm`` and ``cyaw`` are not stall-limited; the Barrowman static CP is
-computed once, in plain Python, when the parameters are created.
+``cm`` and ``cyaw`` are not stall-limited unless ``stall_limited_moments``
+asks for it; the Barrowman static CP is computed once, in plain Python, when
+the parameters are created.
 """
 
 from __future__ import annotations
@@ -152,10 +153,9 @@ def aero_coefficients(p: RocketParams, mach, alpha, beta=0.0,
     """Coefficient build-up: Cd0/CdA Mach tables with quadratic-alpha drag,
     x power_off_drag_factor when unpowered, finite-wing lift slope with
     compressibility and sweep, 15 -> 45 deg stall taper on cl/cy/cn, moments
-    from the dynamic-CP static margin."""
-    if p.stall_limited_moments:
-        raise NotImplementedError(
-            "stall_limited_moments is not ported yet (ROADMAP P7)")
+    from the dynamic-CP static margin. With ``p.stall_limited_moments`` the
+    moments saturate at their stall-onset value and taper with the stall
+    factor: ``cm`` on alpha, ``cyaw`` on its own beta factor."""
     like = p.cd_mach
     mach = torch.as_tensor(mach, dtype=like.dtype, device=like.device)
     alpha = torch.as_tensor(alpha, dtype=like.dtype, device=like.device)
@@ -200,6 +200,14 @@ def aero_coefficients(p: RocketParams, mach, alpha, beta=0.0,
     cy = torch.where(stalled, cl_alpha * beta * stall_factor, cl_alpha * beta)
     cn = torch.where(stalled, cl_stalled, cl_alpha * alpha)
     cyaw = -cl_alpha * sm * beta
+    if p.stall_limited_moments:
+        cm_sat = -cl_alpha * sm * STALL_ANGLE * stall_factor * torch.sign(alpha)
+        cm = torch.where(stalled, cm_sat, cm)
+        abs_beta = torch.abs(beta)
+        beta_sf = torch.clamp_min(
+            1.0 - (abs_beta - STALL_ANGLE) / (MAX_ANGLE - STALL_ANGLE), 0.0)
+        cyaw_sat = -cl_alpha * sm * STALL_ANGLE * beta_sf * torch.sign(beta)
+        cyaw = torch.where(abs_beta > STALL_ANGLE, cyaw_sat, cyaw)
     zero = torch.zeros_like(cd)
     return AeroCoefficients(cd=cd, cl=cl, cm=cm, cp=cp_current, cn=cn, cy=cy,
                             croll=zero, cpitch=cm, cyaw=cyaw)

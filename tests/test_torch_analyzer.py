@@ -90,18 +90,35 @@ def test_rejects_unknown_ic_keys():
     ({"two_level_lanes": 64}, "P13"),
     ({"wind_table_modes": 24}, "P8"),
     ({"mesh": object()}, "P16"),
-    ({"sim_config": SimConfig(integrator="rk2")}, "P7"),
-    ({"sim_config": SimConfig(descent_dt_scale=8)}, "P7"),
-    ({"sim_config": SimConfig(speed_guard=3000.0)}, "P7"),
-    ({"sim_config": SimConfig(wind_eval_per_step=True)}, "P7"),
-    ({"sim_config": SimConfig(wind_table_bf16=True)}, "P7"),
-    ({"sim_config": SimConfig(energy_consistent_aero=True)}, "P7"),
-    ({"sim_config": SimConfig(ascent_q_threshold=5000.0)}, "P7"),
-    ({"sim_config": SimConfig(terminate_nonfinite=False)}, "P7"),
 ])
 def test_unported_constructor_options_raise(option, item):
     with pytest.raises(NotImplementedError, match=item):
         MonteCarloAnalyzer(motor=liquid_motor("cpu"), **option)
+
+
+@pytest.mark.parametrize("flags", [
+    {"integrator": "rk2"}, {"descent_dt_scale": 8}, {"speed_guard": 3000.0},
+    {"wind_eval_per_step": True}, {"wind_table_bf16": True},
+    {"energy_consistent_aero": True}, {"ascent_q_threshold": 5000.0},
+    {"terminate_nonfinite": False},
+], ids=lambda f: next(iter(f)))
+def test_sim_config_flags_reach_the_flights(flags):
+    """The analyzer takes every SimConfig opt-in and flies its lanes with
+    it: its summary is simulate_summary_batch's under the same config on
+    the lanes the same seed draws."""
+    from erpl_monte_carlo_sim_tpu_torch.engine import simulate_summary_batch
+    from erpl_monte_carlo_sim_tpu_torch.mc import sample_dispersions
+    from erpl_monte_carlo_sim_tpu_torch.utils.convert import to_numpy
+
+    cfg = SimConfig(max_time=1.2, **flags)
+    mc = MonteCarloAnalyzer(motor=liquid_motor("cpu"), sim_config=cfg)
+    ic = InitialConditions.vertical_launch("cpu")
+    a = mc.run_monte_carlo(ic, n_samples=4, seed=5)
+    scene_b, ic_b, _ = sample_dispersions(torch.Generator().manual_seed(5), mc.scene, ic, n=4)
+    want = to_numpy(simulate_summary_batch(scene_b, ic_b, cfg))
+    np.testing.assert_array_equal(a["summary"].apogee_altitude, want.apogee_altitude)
+    np.testing.assert_array_equal(a["summary"].n_steps, want.n_steps)
+    assert (want.n_steps > 0).all()
 
 
 @pytest.mark.parametrize("kwargs,item", [

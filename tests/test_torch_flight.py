@@ -50,7 +50,7 @@ def compare(ref, got, rtol, atol=1e-6):
     """Every leaf: floats at ``rtol``/``atol``, integers and flags exact.
     In float32 a ``[B, 3]`` leaf is held to ``rtol`` of each lane's vector
     norm: a horizontal component far smaller than the altitude carries the
-    altitude's absolute float32 rounding."""
+    altitude's absolute float32 rounding. NaN must meet NaN."""
     ref_l, got_l = list(leaves(ref)), list(leaves(got))
     assert [p for p, _ in ref_l] == [p for p, _ in got_l]
     for (path, a), (_, b) in zip(ref_l, got_l):
@@ -58,7 +58,7 @@ def compare(ref, got, rtol, atol=1e-6):
         assert a.dtype == b.dtype, (path, a.dtype, b.dtype)
         if a.dtype == np.float32 and a.ndim == 2:
             scale = np.linalg.norm(a, axis=-1, keepdims=True)
-            bad = ~(np.abs(b - a) <= atol + rtol * scale)
+            bad = ~((np.abs(b - a) <= atol + rtol * scale) | (np.isnan(a) & np.isnan(b)))
             assert not bad.any(), (path, a[bad.any(-1)], b[bad.any(-1)])
         elif a.dtype.kind == "f":
             np.testing.assert_allclose(b, a, rtol=rtol, atol=atol,

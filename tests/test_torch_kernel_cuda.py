@@ -20,6 +20,9 @@ from chip_smoke import compare, kernel_and_plain, sample_batch
 from erpl_monte_carlo_sim_tpu_torch.engine import InitialConditions, SimConfig
 from erpl_monte_carlo_sim_tpu_torch.engine.batch import prepare_batch
 from erpl_monte_carlo_sim_tpu_torch.kernels import flight_summary as fs
+from erpl_monte_carlo_sim_tpu_torch.engine import component
+from erpl_monte_carlo_sim_tpu_torch.kernels.measure import (COMBINED, FLAG_SETS, combined,
+                                                            digest, with_stall)
 from erpl_monte_carlo_sim_tpu_torch.mc import sample_dispersions
 from erpl_monte_carlo_sim_tpu_torch.models import liquid_motor, nominal_scene
 
@@ -76,7 +79,6 @@ def test_kernel_args_layout():
     ("dtype", ValueError, "float32 or float64"),
     ("mixed_dtype", ValueError, "expected torch.float64"),
     ("wind_lanes", ValueError, "shared or per lane"),
-    ("flag", NotImplementedError, "ROADMAP P7"),
 ])
 def test_kernel_args_refuse(case, error, match):
     scene_nw, grid, wind, ics = cpu_batch(4)
@@ -94,10 +96,61 @@ def test_kernel_args_refuse(case, error, match):
         scene_nw = with_leaf(scene_nw, "rocket", diameter=r.diameter.float())
     elif case == "wind_lanes":
         wind = wind[:3].contiguous()
-    else:
-        cfg = SimConfig(max_time=6.0, wind_table_bf16=True)
     with pytest.raises(error, match=match):
         fs._kernel_args(scene_nw, grid, wind, ics, cfg)
+
+
+def test_kernel_args_take_the_bf16_table():
+    """Under wind_table_bf16 the wrapper hands the kernel the lane-minor
+    table in bfloat16 and picks the bfloat16 build."""
+    scene_nw, grid, wind, ics = cpu_batch(4)
+    a = fs._kernel_args(scene_nw, grid, wind, ics, SimConfig(max_time=6.0, wind_table_bf16=True))
+    assert a.wind.dtype == torch.bfloat16 and a.wind.shape == (grid.numel(), 3, 4)
+    assert torch.equal(a.wind, wind.permute(1, 2, 0).to(torch.bfloat16))
+    assert a.build == fs.KernelFlags(wind_bf16=True) and a.table_ptrs[8] == a.wind.data_ptr()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("name", list(COMBINED))
+def test_flag_sets_match_plain_version_on_cuda(name, dtype):
+    """Each combined flag set's build (``kernels/measure.py COMBINED``)
+    against the plain version on the card, 256 dispersed lanes for 2 s;
+    with the stall-limited moments the wind is scaled 4x and lane 7's wind
+    is NaN above 2 km, without the non-finite stop."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc; the CPU runs the plain version only")
+    fields, stall = combined(COMBINED[name])
+    scene_b, ic_b = sample_batch(256, dtype, nan_lane=7 if stall else None)
+    if stall:
+        scene_b = with_stall(dataclasses.replace(scene_b, wind=dataclasses.replace(
+            scene_b.wind, wind=scene_b.wind.wind * 4.0)))
+    before = fs.launches
+    ref, got = kernel_and_plain(scene_b, ic_b, SimConfig(max_time=2.0, **fields))
+    assert fs.launches == before + 1
+    compare(ref, got, dtype)
+    assert bool(got["diverged"].all()) == (name == "speed_guard")
+    if stall:
+        assert bool(got["apogee_altitude"][7].isnan())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("name", ["parity", "full_flights+rk2"])
+def test_plain_graph_replay_is_the_eager_loop_on_cuda(name, dtype, monkeypatch):
+    """On the card the plain version replays one captured main-loop step
+    (``engine/component.py _replay_steps``): every output bit as the eager
+    loop's, on 256 dispersed lanes for 2 s."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the CPU runs the eager loop only")
+    fields = {} if name == "parity" else FLAG_SETS[name][0]
+    cfg = SimConfig(max_time=2.0, **fields)
+    args = prepare_batch(*sample_batch(256, dtype))
+    graphed = fs.flight_summary_reference(*args, cfg)
+    monkeypatch.setattr(component, "_replay_steps", component._run_steps)
+    eager = fs.flight_summary_reference(*args, cfg)
+    assert (eager["n_steps"] > 150).all()
+    assert digest(graphed) == digest(eager)
 
 
 @pytest.mark.cuda

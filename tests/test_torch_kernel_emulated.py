@@ -9,10 +9,12 @@ builds the unchanged source against it (the launch rewritten as a call,
 what it computes to the plain PyTorch version with chip_smoke's bars, on the
 kernel's paths: window and full-knot table sums, a ragged last block whose
 idle threads must still reach the barrier, a shared wind table, the solid
-motor's 10-knot thrust curve, float32 and float64. The CPU's math library
-stands in for CUDA's, so this checks the kernel's logic and order of
-operations, not its last bits on the card (chip_smoke.py does that). It
-skips without g++. This file imports no JAX.
+motor's 10-knot thrust curve, float32 and float64; and every flag set's
+build (``kernel_flags``) on a window of dispersed lanes, the tiered ones
+also on the low-apogee scenes of tests/test_descent.py flown to landing.
+The CPU's math library stands in for CUDA's, so this checks the kernel's
+logic and order of operations, not its last bits on the card (chip_smoke.py
+does that). It skips without g++. This file imports no JAX.
 """
 
 import ctypes
@@ -27,8 +29,9 @@ import torch
 from chip_smoke import compare
 from erpl_monte_carlo_sim_tpu_torch.engine import InitialConditions, SimConfig
 from erpl_monte_carlo_sim_tpu_torch.engine.batch import prepare_batch
-from erpl_monte_carlo_sim_tpu_torch.engine.component import INT_KEYS, table_wind_fn
+from erpl_monte_carlo_sim_tpu_torch.engine.component import INT_KEYS
 from erpl_monte_carlo_sim_tpu_torch.kernels import flight_summary as fs
+from erpl_monte_carlo_sim_tpu_torch.kernels.measure import COMBINED, combined, low_apogee_batch
 from erpl_monte_carlo_sim_tpu_torch.mc import sample_dispersions
 from erpl_monte_carlo_sim_tpu_torch.models import liquid_motor, nominal_scene, solid_motor
 
@@ -113,15 +116,38 @@ template <class F, class... A> void emu_launch(EmuCfg c, F f, A... a) {
 }
 """
 
+# cuda_bf16.h for the bfloat16 wind table: the bits, widened exactly
+BF16_SHIM = r"""
+#pragma once
+#include <stdint.h>
+#include <string.h>
+struct __nv_bfloat16 { uint16_t x; };
+inline float __bfloat162float(__nv_bfloat16 b) {
+  uint32_t u = static_cast<uint32_t>(b.x) << 16;
+  float f;
+  memcpy(&f, &u, sizeof f);
+  return f;
+}
+"""
+
+def flags_of(name):
+    """The build of a ``COMBINED`` flag set: the catalogue's opt-ins
+    combined, to keep the g++ builds few."""
+    fields, stall = combined(COMBINED[name])
+    return fields, stall, fs.kernel_flags(SimConfig(**fields), stall)
+
 
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
-    """The kernel's two C entries, built from its source for the CPU."""
+    """``emulated[flags][dtype]``: the kernel's C entries of each build the
+    tests run (the parity flags and ``COMBINED``), built from its source
+    for the CPU, all compilers started at once."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the kernel's source for the CPU")
     d = tmp_path_factory.mktemp("emulated_kernel")
     (d / "cuda_runtime.h").write_text(SHIM)
+    (d / "cuda_bf16.h").write_text(BF16_SHIM)
     with open(fs.SOURCE) as f:
         src = f.read()
     src = re.sub(r"(\w+)<<<(.*?)>>>\(", r"emu_launch(EMU_CFG(\2), \1, ", src, flags=re.S)
@@ -129,28 +155,38 @@ def emulated(tmp_path_factory):
                  r"\1* \2 = reinterpret_cast<\1*>(emu_dyn_smem);", src)
     src = src.replace("__shared__", "static")
     (d / "kernel.cpp").write_text(src)
+    builds = {fs.PARITY} | {flags_of(name)[2] for name in COMBINED}
+    jobs = []
+    for i, flags in enumerate(sorted(builds)):
+        defines = [f"-D{m}={int(v)}" for m, v in zip(fs._DEFINES, flags)]
+        for dtype, (f32, suffix) in fs._PRECISIONS.items():
+            lib = d / f"kernel_{i}_{suffix}.so"
+            cmd = [gxx, "-std=c++17", "-O1", "-ffp-contract=off", "-fPIC", "-shared", f"-I{d}",
+                   f"-DFS_F32={f32}", *defines, str(d / "kernel.cpp"), "-o", str(lib),
+                   "-lpthread"]
+            jobs.append((flags, dtype, suffix, lib, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     libs = {}
-    for dtype, (f32, suffix) in fs._PRECISIONS.items():
-        lib = d / f"kernel_{suffix}.so"
-        subprocess.run([gxx, "-std=c++17", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
-                        f"-I{d}", f"-DFS_F32={f32}", str(d / "kernel.cpp"), "-o", str(lib),
-                        "-lpthread"], check=True, capture_output=True, timeout=600)
+    for flags, dtype, suffix, lib, p in jobs:
+        out, _ = p.communicate(timeout=600)
+        assert p.returncode == 0, f"g++ failed for {flags}:\n{out}"
         fn = getattr(ctypes.CDLL(str(lib)), f"flight_summary_{suffix}")
         fn.restype = ctypes.c_int
-        libs[dtype] = fn
+        libs.setdefault(flags, {})[dtype] = fn
     return libs
 
 
-def run_emulated(fn, scene_nw, grid, wind, ics, cfg) -> dict:
-    """``flight_summary`` through the emulated kernel: the wrapper's own
-    argument layout, host pointers for device ones."""
+def run_emulated(libs, scene_nw, grid, wind, ics, cfg) -> dict:
+    """``flight_summary`` through the emulated build of ``cfg``'s flags: the
+    wrapper's own argument layout, host pointers for device ones."""
     a = fs._kernel_args(scene_nw, grid, wind, ics, cfg)
+    fn = libs[a.build][ics[0].dtype]
     out_f = torch.empty((len(fs._FLOAT_KEYS), a.n), dtype=ics[0].dtype)
     out_i = torch.empty((len(INT_KEYS), a.n), dtype=torch.int32)
     rc = fn((ctypes.c_void_p * len(a.ptrs))(*a.ptrs), (ctypes.c_int * len(a.strides))(*a.strides),
             len(a.ptrs), (ctypes.c_void_p * len(a.table_ptrs))(*a.table_ptrs),
             (ctypes.c_int * len(a.sizes))(*a.sizes), ctypes.c_int64(a.wind_lane_stride),
-            (ctypes.c_double * len(a.cfg_vals))(*a.cfg_vals), cfg.max_steps,
+            (ctypes.c_double * len(a.cfg_vals))(*a.cfg_vals), len(a.cfg_vals), cfg.max_steps,
             cfg.max_rail_steps, ctypes.c_void_p(out_f.data_ptr()),
             ctypes.c_void_p(out_i.data_ptr()), a.n, None)
     assert rc == 0
@@ -201,8 +237,8 @@ def test_emulated_kernel_matches_plain_version(emulated, case):
         scene_b = dataclasses.replace(
             scene_b, wind=dataclasses.replace(wind, wind=wind.wind[0].contiguous()))
     scene_nw, grid, table, ics = prepare_batch(scene_b, ic_b)
-    got = run_emulated(emulated[dtype], scene_nw, grid, table, ics, WINDOW)
-    ref = fs.flight_summary_reference(scene_nw, WINDOW, table_wind_fn(grid, table), ics)
+    got = run_emulated(emulated, scene_nw, grid, table, ics, WINDOW)
+    ref = fs.flight_summary_reference(scene_nw, grid, table, ics, WINDOW)
     compare(ref, got, dtype)
     if case == "f64-nan-wind-lane":
         assert bool(got["diverged"][7]) and int(got["n_steps"][7]) == 1
@@ -210,3 +246,48 @@ def test_emulated_kernel_matches_plain_version(emulated, case):
         assert bool(got["diverged"].all())
     else:
         assert not bool(got["diverged"].any()) and bool((got["n_steps"] > 200).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("name", list(COMBINED))
+def test_emulated_flag_set_window(emulated, name, dtype):
+    """Each flag set's build against the plain version on 64 dispersed
+    lanes for 2 s. With the stall-limited moments the wind is scaled 4x, so
+    that lanes leave the rail stalled, and lane 5's wind is NaN above 2 km
+    (it runs on, not diverged, without the non-finite stop); the 60 m/s
+    speed guard stops every lane as diverged within the window."""
+    fields, stall, _ = flags_of(name)
+    cfg = SimConfig(max_time=2.0, **fields)
+    scene_b, ic_b = batch(64, dtype, seed=len(name))
+    if stall:
+        table = scene_b.wind.wind * 4.0
+        table[5, scene_b.wind.altitudes > 2000.0] = float("nan")
+        scene_b = dataclasses.replace(
+            scene_b, wind=dataclasses.replace(scene_b.wind, wind=table),
+            rocket=dataclasses.replace(scene_b.rocket, stall_limited_moments=True))
+    scene_nw, grid, table, ics = prepare_batch(scene_b, ic_b)
+    got = run_emulated(emulated, scene_nw, grid, table, ics, cfg)
+    ref = fs.flight_summary_reference(scene_nw, grid, table, ics, cfg)
+    compare(ref, got, dtype)
+    if name == "speed_guard":
+        assert bool(got["diverged"].all())
+    elif stall:
+        assert not bool(got["diverged"].any()) and bool(got["apogee_altitude"][5].isnan())
+        assert bool((got["rail_exit_angle_of_attack"].abs() > 0.2618).any())
+    else:
+        assert not bool(got["diverged"].any()) and bool((got["n_steps"] > 200).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("name", ["full_flights", "full_flights+rk2"])
+def test_emulated_tiered_sets_to_landing(emulated, name, dtype):
+    """The tiered builds on the low-apogee scenes (``low_apogee_batch``) to
+    landing: fine steps through the chute latch, coarse quiet coast and
+    canopy descent, each lane's own time."""
+    cfg = SimConfig(**flags_of(name)[0])
+    scene_nw, grid, table, ics = prepare_batch(*low_apogee_batch("cpu", dtype))
+    got = run_emulated(emulated, scene_nw, grid, table, ics, cfg)
+    ref = fs.flight_summary_reference(scene_nw, grid, table, ics, cfg)
+    compare(ref, got, dtype)
+    assert bool(got["parachute_deployed"].all()) and not bool(got["diverged"].any())
+    assert bool((got["n_steps"] < 3500).all()) and bool((got["final_pz"] <= 0.5).all())

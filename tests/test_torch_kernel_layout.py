@@ -10,6 +10,8 @@ takes one. And the bound the kernel's time is held against. This file
 imports no JAX.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -34,8 +36,6 @@ def cpu_batch(n, dtype=torch.float64):
 
 
 def replace_leaf(scene_nw, part, **fields):
-    import dataclasses
-
     return dataclasses.replace(
         scene_nw, **{part: dataclasses.replace(getattr(scene_nw, part), **fields)})
 
@@ -118,6 +118,92 @@ def test_grid_flag_refuses_gaps_that_overflow():
     tables = [getattr(getattr(scene_nw, p), f) for p, f in fs._TABLES]
     wide = torch.tensor([-1e308, 1e308], dtype=torch.float64)
     assert fs._table_flags(tables, wide).tolist() == [1, 1, 1, 0, 1]
+
+
+# ------------------------------------------------ the flag sets
+FLAG_CONFIGS = {
+    "parity": {},
+    "rk2": dict(integrator="rk2"),
+    "wind_per_step": dict(wind_eval_per_step=True),
+    "bf16": dict(wind_table_bf16=True),
+    "energy": dict(energy_consistent_aero=True),
+    "speed_guard": dict(speed_guard=60.0),
+    "no_terminate": dict(terminate_nonfinite=False, speed_guard=60.0),
+    "tiered": dict(descent_dt_scale=16),
+    "full_flights": dict(energy_consistent_aero=True, descent_dt_scale=16,
+                         ascent_q_threshold=8000.0, descent_settle_time=1.5),
+}
+
+
+@pytest.mark.parametrize("name", list(FLAG_CONFIGS))
+def test_cfg_values_per_flag_set(name):
+    """The kernel's Cfg numbers in float64: the fine step, its half and
+    sixth, then after the event numbers the speed guard, the coarse step
+    dt * descent_dt_scale with its half and sixth, the settle time and the
+    ascent threshold; the build follows the flags."""
+    cfg = dataclasses.replace(WINDOW, **FLAG_CONFIGS[name])
+    scene_nw, grid, wind, ics = cpu_batch(3)
+    a = fs._kernel_args(scene_nw, grid, wind, ics, cfg)
+    big = cfg.dt * cfg.descent_dt_scale
+    assert a.cfg_vals[:3] == [cfg.dt, 0.5 * cfg.dt, cfg.dt / 6.0]
+    assert a.cfg_vals[16:] == [cfg.speed_guard, big, 0.5 * big, big / 6.0,
+                               cfg.descent_settle_time, cfg.ascent_q_threshold]
+    assert len(a.cfg_vals) == 22 and a.build == fs.kernel_flags(cfg)
+    assert (a.build == fs.PARITY) == (name == "parity")
+    if name == "no_terminate":  # the guard acts only through the non-finite stop
+        assert not a.build.speed_guard and not a.build.terminate_nonfinite
+
+
+def test_each_flag_set_is_its_own_build():
+    """Every flag set names its own library (the source hash, the flags and
+    the defines), and stall_limited_moments, a rocket field, is one more."""
+    with open(fs.SOURCE, "rb") as f:
+        src = f.read()
+    sets = {fs.kernel_flags(dataclasses.replace(WINDOW, **c)) for c in FLAG_CONFIGS.values()}
+    sets.add(fs.kernel_flags(WINDOW, stall_limited_moments=True))
+    paths = {fs._library(flags, src)[0] for flags in sets}
+    assert len(paths) == len(sets) == len(FLAG_CONFIGS) + 1
+    parity, defines = fs._library(fs.PARITY, src)
+    assert defines == ["-DFS_RK2=0", "-DFS_WIND_PER_STEP=0", "-DFS_ENERGY_AERO=0",
+                       "-DFS_STALL_MOMENTS=0", "-DFS_TIERED=0", "-DFS_ASCENT_GATE=0",
+                       "-DFS_TERMINATE_NONFINITE=1", "-DFS_SPEED_GUARD=0", "-DFS_WIND_BF16=0"]
+    assert fs._library(fs.PARITY, src + b" ")[0] != parity
+
+
+@pytest.mark.parametrize("shared", [False, True], ids=["per_lane", "shared"])
+def test_bf16_table_is_passed_rounded(shared):
+    """Under wind_table_bf16 the kernel reads the table rounded to
+    bfloat16, lane-minor when per lane; the plain version reads the same
+    values, widened."""
+    scene_nw, grid, wind, ics = cpu_batch(5, torch.float32)
+    if shared:
+        wind = wind[0].contiguous()
+    cfg = dataclasses.replace(WINDOW, wind_table_bf16=True)
+    a = fs._kernel_args(scene_nw, grid, wind, ics, cfg)
+    want = wind.to(torch.bfloat16)
+    assert a.wind.dtype == torch.bfloat16 and a.build.wind_bf16
+    assert torch.equal(a.wind, want if shared else want.permute(1, 2, 0))
+    assert a.wind_lane_stride == (0 if shared else 1) and a.wind.is_contiguous()
+    assert torch.equal(fs.stored_wind(wind, cfg).to(torch.float32), want.to(torch.float32))
+    assert fs.input_bytes(scene_nw, grid, wind, ics, cfg) == (
+        fs.input_bytes(scene_nw, grid, wind, ics) - 2 * wind.numel())
+
+
+def test_ops_per_step_per_flag_set():
+    """The bound's operations of one step per build: rk2 evaluates the
+    dynamics twice, one wind lookup a step leaves the four evaluations, the
+    energy-consistent force costs 31 in place of 17, the tiered step adds
+    the gate it evaluates on every lane; the ascent gate, which runs only
+    on quiet coasting steps, adds nothing."""
+    dyn, wind = 353, 34
+    assert fs.ops_per_step(fs.PARITY) == fs.OPS_PER_STEP == 4 * dyn + 207
+    assert fs.ops_per_step(fs.KernelFlags(rk2=True)) == 2 * dyn + 80
+    assert fs.ops_per_step(fs.KernelFlags(wind_per_step=True)) == 4 * (dyn - wind) + 207 + wind
+    assert fs.ops_per_step(fs.KernelFlags(energy_aero=True)) == 4 * (dyn + 14) + 207
+    full = fs.KernelFlags(energy_aero=True, tiered=True, ascent_gate=True)
+    assert fs.ops_per_step(full) == fs.ops_per_step(full._replace(ascent_gate=False))
+    assert fs.ops_per_step(full) == 4 * (dyn + 14) + 207 + 3
+    assert fs.ops_per_step(full._replace(rk2=True)) == 2 * (dyn + 14) + 80 + 3
 
 
 # ------------------------------------------------ the window rule, in NumPy

@@ -386,9 +386,17 @@ def test_sim_config_fields_and_defaults_match_jax():
     {"ascent_q_threshold": 100.0}, {"terminate_nonfinite": False},
     {"speed_guard": 2000.0},
 ])
-def test_unported_config_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="P7"):
-        teng.require_parity_flags(teng.SimConfig(**flag))
+def test_config_flags_match_jax(flag):
+    """Each opt-in: the same SimConfig as the JAX package's, and a build of
+    the kernel other than the parity one, except ascent_q_threshold, which
+    acts only in the tiered loop."""
+    from erpl_monte_carlo_sim_tpu_torch.kernels import flight_summary as fs
+
+    mine, ref = teng.SimConfig(**flag), jeng.SimConfig(**flag)
+    assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
+    assert (fs.kernel_flags(mine) == fs.PARITY) == ("ascent_q_threshold" in flag)
+    tiered = fs.kernel_flags(dataclasses.replace(mine, descent_dt_scale=16))
+    assert tiered.tiered and tiered.ascent_gate == ("ascent_q_threshold" in flag)
 
 
 def test_initial_conditions_match_jax():
