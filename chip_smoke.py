@@ -45,7 +45,25 @@ raises and the run exits non-zero:
      float64, through the kernel: the 500 calm lanes lane-matched to the
      executed reference, and the 220 forecast lanes, whose pass count in
      parity physics matches the reference's and which all stay valid with
-     ``energy_consistent_aero``.
+     ``energy_consistent_aero``;
+  9. runs larger than one device call, float32, ``SimConfig(max_time=6.0)``:
+     (a) ``run_monte_carlo`` with 1,048,576 lanes, 4 slabs of the default
+     262,144, whose metrics, masks and stats blocks must be those of 4
+     single calls on the slabs' lanes (``slab_seed``), then the same run
+     timed stage by stage (sampling, kernel, and the host's readback and
+     accumulators, synchronized at each boundary); (b) 8,388,608 lanes, 32
+     slabs, streaming past 4,194,304, every lane kept in the prefix: exact
+     moments, the sketch's percentiles within 1e-3 of their mass in rank and
+     1e-3 sigma in value (``flight_time``, which takes one or two values in
+     the window, within 1e-6 of ``np.percentile``), intervals bracketing the
+     exact percentiles, sketch exceedances within 1e-3, and the same run
+     timed at 1,048,576 lanes a slab, then both split stage by stage as in
+     (a) (sums, median and largest host share); (c) run (a) killed after
+     slab 2 with a checkpoint after every slab, then resumed: run (a)'s
+     analysis bit for bit, the checkpoint gone; (d) ``run_to_precision`` on the apogee's mean
+     stderr, met after 2 or 3 slabs: ``run_monte_carlo(n_samples=n_used)``'s
+     analysis bit for bit but for ``performance`` and ``sequential``. Each
+     run counts its kernel launches from 0: one a slab.
 
 Phases 2, 4, 5 and 6 also print ``digest`` lines: the SHA-256 of the
 kernel's outputs with NaN made canonical (``kernels/measure.py digest``). A
@@ -90,6 +108,11 @@ FULL_FLIGHT_LANES = 16_384
 FLAG_LANES = {torch.float32: BENCH_LANES, torch.float64: 256}
 F64_TIMED_LANES = 65_536
 TO_LANDING = ("full_flights", "full_flights+rk2")
+# phase 9: 4 slabs at the default lane_slab; 32 slabs, past the (default)
+# streaming threshold
+LARGE_LANES = 4 * BENCH_LANES
+STREAM_LANES = 32 * BENCH_LANES
+STREAM_THRESHOLD = 4_194_304
 # phase 7: lanes of the tiered run held to the plain version to landing
 # (about 5-8k steps; the plain version's step costs about the same for
 # any lane count up to some thousands)
@@ -162,6 +185,33 @@ def compare(ref_out: dict, got_out: dict, dtype) -> float:
         raise AssertionError(f"kernel != plain ({dtype}, rtol {rtol}):\n  "
                              + "\n  ".join(bad))
     return worst
+
+
+def plain_data(obj):
+    """An analysis as nested dicts, lists and NumPy arrays: dataclasses and
+    accumulator objects (streams, reservoirs) become dicts of their fields,
+    tensors arrays."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu().numpy()
+    if dataclasses.is_dataclass(obj):
+        return {f.name: plain_data(getattr(obj, f.name)) for f in dataclasses.fields(obj)}
+    if isinstance(obj, dict):
+        return {k: plain_data(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [plain_data(v) for v in obj]
+    if hasattr(obj, "__dict__") and not isinstance(obj, type):
+        return plain_data(vars(obj))
+    return obj
+
+
+def same_analysis(a: dict, b: dict, skip=("performance",)) -> None:
+    """Two analyses equal bit for bit (NaN meets NaN) in every key but
+    ``skip``; raises on the first difference."""
+    if a.keys() != b.keys():
+        raise AssertionError(f"analysis keys differ: {sorted(a.keys() ^ b.keys())}")
+    for k in a:
+        if k not in skip:
+            np.testing.assert_equal(plain_data(a[k]), plain_data(b[k]), err_msg=k)
 
 
 def golden_lanes(config: str):
@@ -420,6 +470,231 @@ def certificates(dev) -> None:
           **{k: v for k, v in worst.items() if not k.endswith("_ok")})
     if not ok:
         raise AssertionError(f"forecast certificate: {forecast} {worst}")
+
+
+def slab_reference(mc, ic, n, slab, seed):
+    """What a slabbed run's per-lane arrays must be: one
+    ``simulate_summary_batch`` call per slab on
+    ``sample_dispersions(Generator().manual_seed(slab_seed(seed, k)))``, the
+    first ``n`` lanes concatenated: ``(metrics, valid, reasons)``."""
+    from erpl_monte_carlo_sim_tpu_torch.engine import simulate_summary_batch
+    from erpl_monte_carlo_sim_tpu_torch.mc import outlier_mask, sample_dispersions, slab_seed
+    from erpl_monte_carlo_sim_tpu_torch.mc.slab_accumulators import PREFIX_METRICS
+
+    metrics, valid, reasons = {k: [] for k in PREFIX_METRICS}, [], []
+    for k in range(-(-n // slab)):
+        gen = torch.Generator(device=mc.device)
+        gen.manual_seed(slab_seed(seed, k))
+        scene_b, ic_b, _ = sample_dispersions(gen, mc.scene, ic, mc.uncertainty_params, slab,
+                                              wind_grid_points=mc.wind_grid_points,
+                                              wind_grid_top=mc.wind_grid_top)
+        s = simulate_summary_batch(scene_b, ic_b, mc.sim_config)
+        v, r = outlier_mask(s, mc.bounds)
+        take = min(slab, n - k * slab)
+        for key in metrics:
+            metrics[key].append(getattr(s, key)[:take].cpu().numpy())
+        valid.append(v[:take].cpu().numpy())
+        reasons.append(r[:take].cpu().numpy())
+    return ({k: np.concatenate(v) for k, v in metrics.items()}, np.concatenate(valid),
+            np.concatenate(reasons))
+
+
+def staged_run(mc, ic, n, **kw):
+    """``run_monte_carlo(n_samples=n, **kw)`` with the card synchronized at each
+    stage boundary of every slab: ``(sampling ms, kernel ms, host ms)`` per
+    slab, the host's share being the readback and the accumulators from the
+    kernel's end to the next slab's draw (the last slab's runs into the
+    run's end, so its share includes the final statistics), and the wall."""
+    from erpl_monte_carlo_sim_tpu_torch.mc import analyzer as analyzer_mod
+
+    marks = []
+    draw, fly = analyzer_mod._draw_slab, analyzer_mod.simulate_summary_batch
+
+    def timed(stage, fn):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            marks.append((stage, t0, time.perf_counter()))
+            return out
+        return call
+
+    analyzer_mod._draw_slab = timed("sampling", draw)
+    analyzer_mod.simulate_summary_batch = timed("kernel", fly)
+    try:
+        t0 = time.perf_counter()
+        mc.run_monte_carlo(ic, n_samples=n, seed=0, **kw)
+        end = time.perf_counter()
+    finally:
+        analyzer_mod._draw_slab, analyzer_mod.simulate_summary_batch = draw, fly
+    spans = {stage: [(a, b) for s, a, b in marks if s == stage]
+             for stage in ("sampling", "kernel")}
+    next_start = [a for a, _ in spans["sampling"][1:]] + [end]
+    return ([1e3 * (b - a) for a, b in spans["sampling"]],
+            [1e3 * (b - a) for a, b in spans["kernel"]],
+            [1e3 * (nxt - b) for (_, b), nxt in zip(spans["kernel"], next_start)], end - t0)
+
+
+def large_runs(dev, ic) -> dict:
+    """Phase 9; returns each run's kernel launches."""
+    import tempfile
+
+    from erpl_monte_carlo_sim_tpu_torch.engine import SimConfig
+    from erpl_monte_carlo_sim_tpu_torch.kernels import flight_summary as fs
+    from erpl_monte_carlo_sim_tpu_torch.mc import MonteCarloAnalyzer, exceedance_from_analysis
+    from erpl_monte_carlo_sim_tpu_torch.mc import analyzer as analyzer_mod
+    from erpl_monte_carlo_sim_tpu_torch.mc.analyzer import _host_stats
+    from erpl_monte_carlo_sim_tpu_torch.mc.stats import PERCENTILES
+    from erpl_monte_carlo_sim_tpu_torch.models import liquid_motor
+
+    cfg = SimConfig(max_time=WINDOW)
+    mc = MonteCarloAnalyzer(motor=liquid_motor(dev), sim_config=cfg)
+    launches = {}
+
+    def driven(tag, slabs, fn):
+        """One run of the main path with the launches counted from 0, which
+        must be one a slab it flies. Returns the analysis and the wall."""
+        torch.cuda.synchronize()
+        fs.launches = 0
+        t0 = time.time()
+        out = fn()
+        wall = time.time() - t0
+        launches[tag] = fs.launches
+        if fs.launches != slabs:
+            raise AssertionError(f"phase {tag}: {fs.launches} launches for {slabs} slabs")
+        return out, wall
+
+    # ---- 9a: 4 slabs, the per-lane arrays of 4 single calls
+    a, wall = driven("9a", 4, lambda: mc.run_monte_carlo(ic, n_samples=LARGE_LANES, seed=0))
+    metrics, valid, reasons = slab_reference(mc, ic, LARGE_LANES, BENCH_LANES, 0)
+    for k, v in metrics.items():
+        if not np.array_equal(a["metrics"][k], v, equal_nan=True):
+            raise AssertionError(f"9a: metrics.{k} differ from the single calls")
+    if not (np.array_equal(a["valid_mask"], valid) and np.array_equal(a["reasons"], reasons)):
+        raise AssertionError("9a: masks differ from the single calls")
+    for k in ("apogee_altitude", "range", "flight_time"):
+        np.testing.assert_equal(a[k], _host_stats(metrics[k], valid), err_msg=f"9a {k}")
+    phase("9a large run", lanes=LARGE_LANES, slabs=4, launches=launches["9a"],
+          wall_s=f"{wall:.3f}", lanes_per_s=f"{LARGE_LANES / wall:.1f}",
+          n_valid=a["n_samples"], apogee_mean=a["apogee_altitude"]["mean"],
+          single_calls_equal=True)
+    sampling, kernel, host, staged_wall = staged_run(mc, ic, LARGE_LANES)
+    phase("9a per-slab split", wall_s=f"{staged_wall:.3f}",
+          sampling_ms=json.dumps([round(x, 3) for x in sampling]),
+          kernel_ms=json.dumps([round(x, 3) for x in kernel]),
+          host_ms=json.dumps([round(x, 3) for x in host]))
+
+    # ---- 9b: 32 slabs, streaming; the prefix keeps every lane
+    mc_s = MonteCarloAnalyzer(motor=liquid_motor(dev), sim_config=cfg,
+                              stats_stream_threshold=STREAM_THRESHOLD,
+                              metrics_sample_cap=STREAM_LANES)
+    b, wall_b = driven("9b", 32, lambda: mc_s.run_monte_carlo(ic, n_samples=STREAM_LANES,
+                                                              seed=0))
+    if not b["metrics_is_sample"] or b["valid_mask"].size != STREAM_LANES:
+        raise AssertionError("9b: not a streaming run that kept every lane")
+    worst = {"mean_rel": 0.0, "std_rel": 0.0, "rank": 0.0, "value_sigma": 0.0,
+             "flight_time_rel": 0.0, "exceed": 0.0}
+    for k in ("apogee_altitude", "range", "flight_time"):
+        blk, stream = b[k], b["streams"][k]
+        vals = b["metrics"][k][b["valid_mask"]].astype(np.float64)
+        vals = np.sort(vals[np.isfinite(vals)])
+        if stream.is_exact or stream.n != vals.size:
+            raise AssertionError(f"9b {k}: the stream kept {stream.n} of {vals.size} lanes "
+                                 f"(exact={stream.is_exact})")
+        sigma = vals.std()
+        worst["mean_rel"] = max(worst["mean_rel"], abs(blk["mean"] / vals.mean() - 1))
+        worst["std_rel"] = max(worst["std_rel"], abs(blk["std"] / sigma - 1) if sigma else 0.0)
+        if blk["min"] != vals[0] or blk["max"] != vals[-1]:
+            raise AssertionError(f"9b {k}: min/max differ")
+        exact = np.percentile(vals, PERCENTILES)
+        for q, est, ex, (lo, hi) in zip(PERCENTILES, blk["percentiles"], exact,
+                                        blk["percentile_ci"]):
+            if not lo <= ex <= hi:
+                raise AssertionError(f"9b {k} p{q}: interval [{lo}, {hi}] misses {ex}")
+            if k == "flight_time":
+                worst["flight_time_rel"] = max(worst["flight_time_rel"], abs(est / ex - 1))
+                continue
+            below = np.searchsorted(vals, est, "left") / vals.size
+            upto = np.searchsorted(vals, est, "right") / vals.size
+            worst["rank"] = max(worst["rank"], max(below - q / 100, q / 100 - upto, 0.0))
+            if sigma > 0:
+                worst["value_sigma"] = max(worst["value_sigma"], abs(est - ex) / sigma)
+        if k != "flight_time":
+            ts = np.percentile(vals, (10, 50, 90))
+            for row, t in zip(exceedance_from_analysis(b, k, ts), ts):
+                if row["method"] != "sketch":
+                    raise AssertionError(f"9b {k}: exceedance by {row['method']}")
+                worst["exceed"] = max(worst["exceed"], abs(row["probability"]
+                                                           - np.mean(vals > t)))
+    ok = (worst["mean_rel"] <= 1e-12 and worst["std_rel"] <= 1e-9 and worst["rank"] <= 1e-3
+          and worst["value_sigma"] <= 1e-3 and worst["flight_time_rel"] <= 1e-6
+          and worst["exceed"] <= 1e-3)
+    big_slab = 4 * BENCH_LANES
+    _, wall_big = driven("9b 1M slabs", 8, lambda: mc_s.run_monte_carlo(
+        ic, n_samples=STREAM_LANES, seed=0, lane_slab=big_slab))
+    phase("9b streaming", lanes=STREAM_LANES, slabs=32, launches=launches["9b"],
+          wall_s=f"{wall_b:.3f}", lanes_per_s=f"{STREAM_LANES / wall_b:.1f}",
+          wall_s_1m_slabs=f"{wall_big:.3f}", lanes_per_s_1m_slabs=f"{STREAM_LANES / wall_big:.1f}",
+          launches_1m_slabs=launches["9b 1M slabs"], passed=ok, **worst)
+    if not ok:
+        raise AssertionError(f"9b: {worst}")
+    del b
+    for slab in (BENCH_LANES, big_slab):
+        sampling, kernel, host, staged_wall = staged_run(mc_s, ic, STREAM_LANES, lane_slab=slab)
+        phase("9b per-slab split", lane_slab=slab, wall_s=f"{staged_wall:.3f}",
+              sampling_ms_sum=f"{sum(sampling):.1f}", kernel_ms_sum=f"{sum(kernel):.1f}",
+              host_ms_sum=f"{sum(host):.1f}", host_ms_median=f"{np.median(host):.1f}",
+              host_ms_max=f"{max(host):.1f}", host_ms_first=f"{host[0]:.1f}",
+              host_ms_last=f"{host[-1]:.1f}")
+
+    # ---- 9c: run (a) killed after slab 2, resumed from its checkpoint
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "run.ckpt.npz")
+        draw, calls = analyzer_mod._draw_slab, []
+
+        def dying(*args, **kw):
+            if len(calls) == 2:
+                raise RuntimeError("simulated crash")
+            calls.append(1)
+            return draw(*args, **kw)
+
+        analyzer_mod._draw_slab = dying
+        try:
+            mc.run_monte_carlo(ic, n_samples=LARGE_LANES, seed=0, checkpoint_path=path,
+                               checkpoint_every=1)
+            raise AssertionError("9c: the run did not stop at its third draw")
+        except RuntimeError as e:
+            if "simulated crash" not in str(e):
+                raise
+        finally:
+            analyzer_mod._draw_slab = draw
+        kept = os.path.exists(path)
+        c, wall_c = driven("9c", 2, lambda: mc.run_monte_carlo(
+            ic, n_samples=LARGE_LANES, seed=0, checkpoint_path=path, checkpoint_every=1))
+        same_analysis(c, a)
+        if not kept or os.path.exists(path):
+            raise AssertionError(f"9c: checkpoint written {kept}, left after the run "
+                                 f"{os.path.exists(path)}")
+    phase("9c resume", lanes=LARGE_LANES, launches=launches["9c"], wall_s=f"{wall_c:.3f}",
+          equal_to_9a=True)
+
+    # ---- 9d: run_to_precision, met after 2 or 3 slabs
+    hist = [row["apogee_altitude"]["stderr"] for row in a["convergence"]]
+    target = hist[2]
+    stop = next(i for i, x in enumerate(hist) if x <= target) + 1
+    if stop not in (2, 3):
+        raise AssertionError(f"9d: the stderr history {hist} stops at slab {stop}")
+    d, wall_d = driven("9d", stop, lambda: mc.run_to_precision(
+        ic, criteria=[{"metric": "apogee_altitude", "mean_stderr": target}],
+        max_samples=2 * LARGE_LANES, seed=0))
+    seq = d.pop("sequential")
+    if seq["n_used"] != stop * BENCH_LANES or not seq["satisfied"]:
+        raise AssertionError(f"9d: {seq}")
+    same_analysis(d, mc.run_monte_carlo(ic, n_samples=seq["n_used"], seed=0))
+    phase("9d run_to_precision", target_stderr_m=target, n_used=seq["n_used"],
+          launches=launches["9d"], wall_s=f"{wall_d:.3f}", equal_to_run_monte_carlo=True)
+    return launches
 
 
 def main() -> int:
@@ -691,10 +966,14 @@ def main() -> int:
     # ---------------------------------------------------------------- 8
     certificates(dev)
 
+    # ---------------------------------------------------------------- 9
+    large_launches = large_runs(dev, ic)
+
     report = {"kernels": [
         {"name": f"flight_summary ({name})", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": where, "launches": launches, "max_abs_err": main_err,
-         "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None, **costs}
+         "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
+         "large_run_launches": large_launches, **costs}
         for name, where in REPLACES
     ] + [
         {"name": f"flight_summary [{name}]", "route": "cuda", "source": KERNEL_SOURCE,

@@ -22,7 +22,8 @@ from ..models.scene import Scene
 from ..models.wind import WindField, WindModelParams
 from .tree import is_static, tree_map
 
-__all__ = ["scene_from_numpy", "ic_from_numpy", "to_numpy", "summary_to_numpy"]
+__all__ = ["scene_from_numpy", "ic_from_numpy", "sample_from_numpy", "to_numpy",
+           "summary_to_numpy"]
 
 _SCENE_PARTS = {"rocket": RocketParams, "motor": MotorParams,
                 "atmosphere": AtmosphereParams, "wind": WindField,
@@ -65,6 +66,15 @@ def scene_from_numpy(obj, device, dtype=None) -> Scene:
 
 def ic_from_numpy(obj, device, dtype=None) -> InitialConditions:
     return _convert(InitialConditions, obj, device, dtype)
+
+
+def sample_from_numpy(obj, device, dtype=None):
+    """A port ``DispersionSample`` from a JAX one (or a dict): the drawn
+    parameters of a batch, integer leaves (lane ids, members) kept as they
+    are."""
+    from ..mc.dispersions import DispersionSample
+
+    return _convert(DispersionSample, obj, device, dtype)
 
 
 def to_numpy(obj):

@@ -122,8 +122,6 @@ def test_sim_config_flags_reach_the_flights(flags):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    ({"n_samples": 300_000}, "P11"),
-    ({"n_samples": 64, "lane_slab": 32}, "P11"),
     ({"n_samples": 8, "chunk_steps": 100}, "Left out of the port"),
 ])
 def test_unported_run_options_raise(kwargs, item):
@@ -138,3 +136,11 @@ def test_forecast_ensemble_raises():
     mc.base_wind_profile = torch.zeros((2, 10, 3), dtype=torch.float64)
     with pytest.raises(NotImplementedError, match="P12"):
         mc.run_monte_carlo(InitialConditions.vertical_launch("cpu"), n_samples=4)
+
+
+def test_forecast_ensemble_raises_on_the_slabbed_path():
+    mc = MonteCarloAnalyzer(motor=liquid_motor("cpu"), sim_config=SimConfig(max_time=0.1))
+    mc.base_altitude_profile = torch.linspace(0.0, 25000.0, 10, dtype=torch.float64)
+    mc.base_wind_profile = torch.zeros((2, 10, 3), dtype=torch.float64)
+    with pytest.raises(NotImplementedError, match="P12"):
+        mc.run_monte_carlo(InitialConditions.vertical_launch("cpu"), n_samples=4, lane_slab=2)

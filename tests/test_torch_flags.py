@@ -5,9 +5,13 @@ lane, on the same dispersed inputs, at the bars of tests/test_torch_flight.py
 
 On CPU tensors the port runs the plain version of its CUDA kernel, so these
 pin the kernel's oracle for every flag set. Each opt-in runs alone in a
-window (tests/test_torch_descent.py flies the tiered set to landing). Also
-here: the stall-limited moments over alpha and beta, and the bfloat16
-rounding of the wind table against ``jnp.bfloat16``.
+window (tests/test_torch_landing_f64.py and _f32.py fly the tiered set to
+landing). The opt-ins are split over three files (``GROUPS``), so that no
+one test worker carries all 18 JAX compiles: this file holds the integrator
+and wind opt-ins, tests/test_torch_flags_aero.py and
+tests/test_torch_flags_tiered.py the others. Also here: the stall-limited
+moments over alpha and beta, and the bfloat16 rounding of the wind table
+against ``jnp.bfloat16``.
 """
 
 import dataclasses
@@ -35,6 +39,14 @@ torch.set_num_threads(1)
 WINDOW = 2.0  # the rail phase and about 230 steps
 DTYPES = pytest.mark.parametrize("dtype", [jnp.float64, jnp.float32], ids=["f64", "f32"])
 NAN_LANE = 3
+# the opt-ins of each file that runs test_opt_in_matches_jax
+GROUPS = {
+    "test_torch_flags.py": ("rk2", "wind_eval_per_step", "wind_table_bf16"),
+    "test_torch_flags_aero.py": ("energy_consistent_aero", "stall_limited_moments",
+                                 "speed_guard"),
+    "test_torch_flags_tiered.py": ("terminate_nonfinite", "descent_dt_scale",
+                                   "ascent_q_threshold"),
+}
 
 
 def run_both(scene_b, ic_b, **flags):
@@ -48,10 +60,8 @@ def with_table(scene_b, table):
     return scene_b.replace(wind=scene_b.wind.replace(wind=jnp.asarray(table)))
 
 
-@DTYPES
-@pytest.mark.parametrize("flag", list(OPT_INS))
-def test_opt_in_matches_jax(flag, dtype):
-    """16 dispersed lanes in a window, each opt-in of the catalogue
+def check_opt_in(flag, dtype):
+    """16 dispersed lanes in a window, one opt-in of the catalogue
     (``kernels/measure.py OPT_INS``) alone. stall_limited_moments: the wind
     is scaled 4x, so that lanes leave the rail past the 15 degree stall.
     speed_guard: passed within the window. terminate_nonfinite=False: lane
@@ -76,6 +86,18 @@ def test_opt_in_matches_jax(flag, dtype):
         assert not got.diverged.any() and np.isnan(got.apogee_altitude[NAN_LANE])
     else:
         assert not got.diverged.any() and (got.n_steps > 200).all()
+
+
+@DTYPES
+@pytest.mark.parametrize("flag", GROUPS["test_torch_flags.py"])
+def test_opt_in_matches_jax(flag, dtype):
+    check_opt_in(flag, dtype)
+
+
+def test_opt_in_groups_cover_the_catalogue():
+    """Every opt-in of the catalogue runs in exactly one file."""
+    names = [flag for group in GROUPS.values() for flag in group]
+    assert sorted(names) == sorted(OPT_INS)
 
 
 @pytest.mark.parametrize("case", ["zero", "stall", "past_45", "random"])

@@ -17,6 +17,8 @@ FORBIDDEN = {"jax", "jaxlib", "flax"}
 
 
 def test_every_module_imports_with_jax_and_flax_blocked():
+    assert {f"erpl_monte_carlo_sim_tpu_torch.mc.{m}" for m in (
+        "slab_accumulators", "slab_checkpoint", "sequential", "checkpoint", "tail")} <= set(MODULES)
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"

@@ -13,17 +13,19 @@ with a card (and without JAX) they run with
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
-from chip_smoke import compare, kernel_and_plain, sample_batch
+from chip_smoke import compare, kernel_and_plain, sample_batch, slab_reference
 from erpl_monte_carlo_sim_tpu_torch.engine import InitialConditions, SimConfig
 from erpl_monte_carlo_sim_tpu_torch.engine.batch import prepare_batch
 from erpl_monte_carlo_sim_tpu_torch.kernels import flight_summary as fs
 from erpl_monte_carlo_sim_tpu_torch.engine import component
 from erpl_monte_carlo_sim_tpu_torch.kernels.measure import (COMBINED, FLAG_SETS, combined,
                                                             digest, with_stall)
-from erpl_monte_carlo_sim_tpu_torch.mc import sample_dispersions
+from erpl_monte_carlo_sim_tpu_torch.mc import MonteCarloAnalyzer, sample_dispersions
+from erpl_monte_carlo_sim_tpu_torch.mc.analyzer import _host_stats
 from erpl_monte_carlo_sim_tpu_torch.models import liquid_motor, nominal_scene
 
 torch.set_num_threads(1)
@@ -207,3 +209,26 @@ def test_kernel_paths_match_plain_version_on_cuda(case):
         assert bool(got["diverged"].all()) and bool((got["n_steps"] == 1).all())
     else:
         assert (got["n_steps"] > 1000).all()
+
+
+@pytest.mark.cuda
+def test_slabbed_run_is_its_single_calls_on_cuda():
+    """A run of 3 slabs of 1024 lanes on the card launches the kernel once a
+    slab, and its metrics, masks and stats blocks are those of one
+    ``simulate_summary_batch`` call per slab on the slab's lanes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc; the CPU runs the plain version only")
+    dev = torch.device("cuda")
+    mc = MonteCarloAnalyzer(motor=liquid_motor(dev), sim_config=WINDOW)
+    ic = InitialConditions.vertical_launch(dev)
+    before = fs.launches
+    a = mc.run_monte_carlo(ic, n_samples=3 * 1024, lane_slab=1024, seed=2)
+    assert fs.launches == before + 3
+    metrics, valid, reasons = slab_reference(mc, ic, 3 * 1024, 1024, 2)
+    for k, v in metrics.items():
+        np.testing.assert_array_equal(a["metrics"][k], v, err_msg=k)
+    np.testing.assert_array_equal(a["valid_mask"], valid)
+    np.testing.assert_array_equal(a["reasons"], reasons)
+    assert 0 < a["n_samples"]
+    for k in ("apogee_altitude", "range", "flight_time"):
+        np.testing.assert_equal(a[k], _host_stats(metrics[k], valid), err_msg=k)

@@ -10,8 +10,9 @@ what it computes to the plain PyTorch version with chip_smoke's bars, on the
 kernel's paths: window and full-knot table sums, a ragged last block whose
 idle threads must still reach the barrier, a shared wind table, the solid
 motor's 10-knot thrust curve, float32 and float64; and every flag set's
-build (``kernel_flags``) on a window of dispersed lanes, the tiered ones
-also on the low-apogee scenes of tests/test_descent.py flown to landing.
+build (``kernel_flags``) on a window of dispersed lanes (the tiered ones
+also fly the low-apogee scenes of tests/test_descent.py to landing, in
+tests/test_torch_landing_f64.py and _f32.py).
 The CPU's math library stands in for CUDA's, so this checks the kernel's
 logic and order of operations, not its last bits on the card (chip_smoke.py
 does that). It skips without g++. This file imports no JAX.
@@ -31,7 +32,7 @@ from erpl_monte_carlo_sim_tpu_torch.engine import InitialConditions, SimConfig
 from erpl_monte_carlo_sim_tpu_torch.engine.batch import prepare_batch
 from erpl_monte_carlo_sim_tpu_torch.engine.component import INT_KEYS
 from erpl_monte_carlo_sim_tpu_torch.kernels import flight_summary as fs
-from erpl_monte_carlo_sim_tpu_torch.kernels.measure import COMBINED, combined, low_apogee_batch
+from erpl_monte_carlo_sim_tpu_torch.kernels.measure import COMBINED, combined
 from erpl_monte_carlo_sim_tpu_torch.mc import sample_dispersions
 from erpl_monte_carlo_sim_tpu_torch.models import liquid_motor, nominal_scene, solid_motor
 
@@ -137,11 +138,9 @@ def flags_of(name):
     return fields, stall, fs.kernel_flags(SimConfig(**fields), stall)
 
 
-@pytest.fixture(scope="module")
-def emulated(tmp_path_factory):
-    """``emulated[flags][dtype]``: the kernel's C entries of each build the
-    tests run (the parity flags and ``COMBINED``), built from its source
-    for the CPU, all compilers started at once."""
+def build_emulated(tmp_path_factory, builds) -> dict:
+    """``libs[flags][dtype]``: the kernel's C entries of ``builds``, built
+    from its source for the CPU, all compilers started at once."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the kernel's source for the CPU")
@@ -155,7 +154,6 @@ def emulated(tmp_path_factory):
                  r"\1* \2 = reinterpret_cast<\1*>(emu_dyn_smem);", src)
     src = src.replace("__shared__", "static")
     (d / "kernel.cpp").write_text(src)
-    builds = {fs.PARITY} | {flags_of(name)[2] for name in COMBINED}
     jobs = []
     for i, flags in enumerate(sorted(builds)):
         defines = [f"-D{m}={int(v)}" for m, v in zip(fs._DEFINES, flags)]
@@ -174,6 +172,13 @@ def emulated(tmp_path_factory):
         fn.restype = ctypes.c_int
         libs.setdefault(flags, {})[dtype] = fn
     return libs
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    """The parity build and each ``COMBINED`` flag set's, emulated."""
+    return build_emulated(tmp_path_factory,
+                          {fs.PARITY} | {flags_of(name)[2] for name in COMBINED})
 
 
 def run_emulated(libs, scene_nw, grid, wind, ics, cfg) -> dict:
@@ -276,18 +281,3 @@ def test_emulated_flag_set_window(emulated, name, dtype):
         assert bool((got["rail_exit_angle_of_attack"].abs() > 0.2618).any())
     else:
         assert not bool(got["diverged"].any()) and bool((got["n_steps"] > 200).all())
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
-@pytest.mark.parametrize("name", ["full_flights", "full_flights+rk2"])
-def test_emulated_tiered_sets_to_landing(emulated, name, dtype):
-    """The tiered builds on the low-apogee scenes (``low_apogee_batch``) to
-    landing: fine steps through the chute latch, coarse quiet coast and
-    canopy descent, each lane's own time."""
-    cfg = SimConfig(**flags_of(name)[0])
-    scene_nw, grid, table, ics = prepare_batch(*low_apogee_batch("cpu", dtype))
-    got = run_emulated(emulated, scene_nw, grid, table, ics, cfg)
-    ref = fs.flight_summary_reference(scene_nw, grid, table, ics, cfg)
-    compare(ref, got, dtype)
-    assert bool(got["parachute_deployed"].all()) and not bool(got["diverged"].any())
-    assert bool((got["n_steps"] < 3500).all()) and bool((got["final_pz"] <= 0.5).all())
