@@ -63,7 +63,27 @@ raises and the run exits non-zero:
      analysis bit for bit, the checkpoint gone; (d) ``run_to_precision`` on the apogee's mean
      stderr, met after 2 or 3 slabs: ``run_monte_carlo(n_samples=n_used)``'s
      analysis bit for bit but for ``performance`` and ``sequential``. Each
-     run counts its kernel launches from 0: one a slab.
+     run counts its kernel launches from 0: one a slab;
+ 10. lanes flown again with their trajectories recorded, through the
+     kernel's recording build (``MonteCarloAnalyzer.resimulate_trajectories``,
+     launches counted from 0 before each): (a) 256 lanes spread over phase
+     4's run, float32, every summary leaf the run's bit for bit, 64 of the
+     trajectories held to the plain recorder on the card at the float32
+     bars (``compare_records``), and the same 256 lanes in float64 at rtol
+     5e-7; (b) the same for 256 stabilized full flights to landing (phase
+     7's set), 64 of them held to the plain recorder in float32 (the
+     summaries as phase 7 holds them, ``tied_landings``; the frames up to
+     each lane's float32 horizon, ``f32_horizon``, past which the float32
+     flight no longer follows the float64 one within the bars; the frame
+     epilogue recomputed by the plain ``derived_c`` on every frame to
+     landing) and in float64 to landing; each recording's last frame is
+     its summary's final state bit for bit; (c) one lane
+     from each slab of 9a's 4-slab run, equal to its ``metrics``; (d) in
+     float64, the frame-path envelope fed by the kernel against the same
+     envelope fed by the plain recorder (counts and histograms exact,
+     moments at 1e-9), the in-loop envelope against the frame path, and
+     the in-loop reduction alone timed on 2,048 lanes. The recording
+     builds are timed in both precisions beside their bound.
 
 Phases 2, 4, 5 and 6 also print ``digest`` lines: the SHA-256 of the
 kernel's outputs with NaN made canonical (``kernels/measure.py digest``). A
@@ -119,6 +139,13 @@ STREAM_THRESHOLD = 4_194_304
 SLICE_LANES = 1024
 RTOL = {torch.float32: 2e-5, torch.float64: 5e-7}
 ATOL = 1e-6
+# phase 10: lanes re-simulated; of them, lanes held to the plain recorder
+# on the card; lanes of the envelope runs and of its kernel-fed against
+# plain-fed check
+RESIM_LANES = 256
+HELD_LANES = 64
+ENVELOPE_LANES = 4096
+ENVELOPE_HELD = 1024
 
 
 def phase(name: str, **numbers) -> None:
@@ -185,6 +212,189 @@ def compare(ref_out: dict, got_out: dict, dtype) -> float:
         raise AssertionError(f"kernel != plain ({dtype}, rtol {rtol}):\n  "
                              + "\n  ".join(bad))
     return worst
+
+
+# the frame's state channels held, in float32, against one scale per vector
+STATE_SCALES = (("px", "py", "pz"), ("vx", "vy", "vz"), ("qw", "qx", "qy", "qz"),
+                ("ox", "oy", "oz"), ("frac",), ("time",))
+EULER_KEYS = ("euler_roll", "euler_pitch", "euler_yaw")
+# float32 rounding of an Euler angle's arguments, in both versions together
+EULER_ROUNDING = 16 * torch.finfo(torch.float32).eps
+
+
+def euler_slack(q_ref: torch.Tensor, q_got: torch.Tensor) -> torch.Tensor:
+    """How far each Euler angle (roll, pitch, yaw as ``quaternion_to_euler``
+    takes them; ``[..., 3]``) of the quaternion ``q_got`` may lie from the
+    same angle of ``q_ref`` (``[..., 4]``), given how far the two
+    quaternions lie apart: the extraction's own conditioning. With ``d``
+    the largest difference of a component, the two arguments of roll's and
+    of yaw's atan2 move by at most 10 d (1 + d) together and pitch's sine by
+    4 d (1 + d), plus ``EULER_ROUNDING``. The angle of a vector of length r
+    (the cosine of the pitch) turns by at most (pi/2) e / r for a move e
+    < r, and by up to pi past it (near vertical, roll and yaw are not
+    defined); asin moves by at most e / sqrt(1 - s^2), s the largest sine
+    within reach, and never by more than (pi / sqrt 2) sqrt(e)."""
+    d = (q_got - q_ref).abs().amax(-1)
+    w, x, y, z = q_ref.unbind(-1)
+    e_vec = 10.0 * d * (1.0 + d) + EULER_ROUNDING
+    e_sin = 4.0 * d * (1.0 + d) + EULER_ROUNDING
+
+    def turn(a, b):
+        r = torch.hypot(a, b)
+        return torch.where(e_vec < r, (math.pi / 2) * e_vec / r, math.pi)
+
+    hi = torch.clamp((2 * (w * y - z * x)).abs() + e_sin, max=1.0)
+    pitch = torch.minimum(e_sin / torch.sqrt(1 - hi * hi),
+                          (math.pi / math.sqrt(2)) * torch.sqrt(e_sin))
+    return torch.stack([turn(2 * (w * x + y * z), 1 - 2 * (x * x + y * y)), pitch,
+                        turn(2 * (w * z + x * y), 1 - 2 * (y * y + z * z))], dim=-1)
+
+
+def record_checks(ref: dict, got: dict, dtype) -> list:
+    """The per-value checks of ``compare_records``: ``(channel, ok, diff,
+    plain, kernel)``, ``ok`` and ``diff`` shaped as the channel's values
+    (``[T, B]``, or ``[k, T, B]`` for a state vector of k components)."""
+    rtol, f32 = RTOL[dtype], dtype == torch.float32
+    pairs = []
+    for keys in STATE_SCALES:
+        a = torch.stack([ref[k] for k in keys])
+        scale = torch.linalg.vector_norm(a, dim=0, keepdim=True).expand_as(a) if f32 else a
+        pairs.append(("/".join(keys), a, torch.stack([got[k] for k in keys]),
+                      ATOL + rtol * scale.abs(), False))
+    slack = None
+    if f32 and EULER_KEYS[0] in ref["derived"]:
+        slack = euler_slack(*(torch.stack([r[c] for c in ("qw", "qx", "qy", "qz")], dim=-1)
+                              for r in (ref, got)))
+    for k, a in ref["derived"].items():
+        scale = a
+        if f32:
+            scale = torch.where(ref["valid"], a.abs(), 0.0).nan_to_num(0.0).amax(0, keepdim=True)
+        tol = ATOL + rtol * scale.abs()
+        if slack is not None and k in EULER_KEYS:
+            tol = tol + slack[..., EULER_KEYS.index(k)]
+        pairs.append((k, a, got["derived"][k], tol, k in ("euler_roll", "euler_yaw")))
+    checks = []
+    for name, a, b, tol, wraps in pairs:
+        diff = b - a
+        if wraps:
+            diff = torch.remainder(diff + math.pi, 2 * math.pi) - math.pi
+        diff = diff.abs()
+        same_nan = torch.isnan(a) & torch.isnan(b)
+        checks.append((name, same_nan | (diff <= tol), torch.where(same_nan, 0.0, diff), a, b))
+    return checks
+
+
+def compare_records(ref: dict, got: dict, dtype, keep=None) -> float:
+    """The kernel's recorded frames ``got`` against the plain recorder's
+    ``ref`` (``flight_record`` records, ``[T, B]``): ``valid`` exact, the
+    rest within ``RTOL[dtype]``/``ATOL``, on the frames where ``keep``
+    (``[T, B]``, every frame by default) holds. In float64 every value on
+    its own. In float32, as ``compare`` holds vectors: each state vector
+    against its norm at the frame, and each derived channel against its
+    largest magnitude over the lane's valid frames (a channel that passes
+    near zero, as cl or the angle of attack does, carries the absolute
+    rounding of its scale); the Euler angles, ill-conditioned near vertical
+    (ROADMAP F6), within that bar plus ``euler_slack`` of the two
+    quaternions at the frame, roll and yaw modulo 2 pi. Returns the
+    largest absolute difference; raises naming every channel that
+    differs."""
+    if keep is None:
+        keep = torch.ones_like(ref["valid"])
+    if not torch.equal(ref["valid"][keep], got["valid"][keep]):
+        lanes = ((ref["valid"] != got["valid"]) & keep).any(0).nonzero()[:5].flatten().tolist()
+        raise AssertionError(f"recorded valid differs on lanes {lanes}")
+    worst, bad = 0.0, []
+    for name, ok, diff, a, b in record_checks(ref, got, dtype):
+        ok = ok | ~keep
+        if not bool(ok.all()):
+            i = (~ok).nonzero()[0].tolist()
+            bad.append(f"{name}: {int((~ok).sum())} values, first at {i} "
+                       f"plain={a[tuple(i)].item()!r} kernel={b[tuple(i)].item()!r}")
+        held = torch.where(keep, diff, 0.0)
+        if held.numel():
+            worst = max(worst, float(held.max()))
+    if bad:
+        raise AssertionError(f"recorded frames: kernel != plain ({dtype}, rtol "
+                             f"{RTOL[dtype]}):\n  " + "\n  ".join(bad))
+    return worst
+
+
+def f32_horizon(ref32: dict, ref64: dict) -> torch.Tensor:
+    """Each lane's float32 horizon ``[B]``: the first frame at which the
+    plain recorder's float32 flight ``ref32`` leaves the float32 bars
+    (``compare_records``) of its float64 flight ``ref64`` (the same lanes,
+    the inputs widened exactly), or the frame count if it never does.
+    Past it the flight in float32 no longer follows the flight within the
+    bars, whoever computes it: over a stabilized full flight the attitude
+    (and all that depends on it) is ill-conditioned in float32."""
+    out = torch.zeros_like(ref64["valid"])
+    for _, ok, _, _, _ in record_checks(ref64, ref32, torch.float32):
+        out |= ~(ok.all(0) if ok.ndim == 3 else ok)
+    out &= ref32["valid"] & ref64["valid"]
+    n = out.shape[0]
+    return torch.where(out.any(0), out.to(torch.int8).argmax(0), n)
+
+
+def lanes_off_bars(ref: dict, got: dict, dtype, upto: torch.Tensor) -> int:
+    """Lanes on which a recorded value of ``got`` lies outside the bars of
+    ``compare_records`` around ``ref`` on some frame before ``upto [B]``."""
+    frame = torch.arange(ref["valid"].shape[0], device=upto.device)[:, None]
+    off = torch.zeros_like(ref["valid"])
+    for _, ok, _, _, _ in record_checks(ref, got, dtype):
+        off |= ~(ok.all(0) if ok.ndim == 3 else ok)
+    return int((off & (frame < upto[None, :])).any(0).sum())
+
+
+def derived_of_frames(args, recs: dict, cfg) -> dict:
+    """``recs`` with its derived channels recomputed by the plain version
+    (``engine.component.derived_c``) from each frame's own state and time:
+    the recording build's frame epilogue, evaluated apart from the flight
+    that led to the frame. ``args`` are the prepared inputs of ``recs``'
+    lanes."""
+    from erpl_monte_carlo_sim_tpu_torch.engine.component import derived_c, table_wind_fn
+    from erpl_monte_carlo_sim_tpu_torch.kernels import flight_summary as fs
+
+    wind_fn = table_wind_fn(args[1], fs.stored_wind(args[2], cfg))
+    derived = {k: torch.empty_like(v) for k, v in recs["derived"].items()}
+    n, chunk = recs["time"].shape[0], 1024
+    for i in range(0, n, chunk):
+        d = derived_c(args[0], cfg, wind_fn, recs["time"][i:i + chunk],
+                      tuple(recs[k][i:i + chunk] for k in fs.FRAME_KEYS[1:]))
+        for k, v in derived.items():
+            v[i:i + chunk] = d[k]
+    return {**recs, "derived": derived}
+
+
+def terminal_is_summary(recs: dict, res: dict, tag: str) -> None:
+    """Each lane's last valid frame is its summary's final state and flight
+    time, bit for bit (NaN meets NaN): both come from the same registers."""
+    stop = stop_frames(recs).long()[None]
+    for k, o in (("time", "flight_time"), ("px", "final_px"), ("py", "final_py"),
+                 ("pz", "final_pz"), ("vx", "final_vx"), ("vy", "final_vy"),
+                 ("vz", "final_vz")):
+        a, b = recs[k].gather(0, stop)[0], res[o]
+        if not bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all()):
+            raise AssertionError(f"{tag}: the terminal frame's {k} is not the summary's {o}")
+
+
+def records_of(traj, n: int) -> dict:
+    """The first ``n`` lanes of a ``Trajectory`` as ``flight_record``
+    records: ``[T, n]`` tensors, the Euler angles split again."""
+    def tm(x):
+        return x[:n].movedim(0, 1)
+
+    recs = {"time": tm(traj.time), "frac": tm(traj.propellant_fraction),
+            "valid": tm(traj.valid)}
+    for keys, leaf in ((("px", "py", "pz"), traj.position), (("vx", "vy", "vz"), traj.velocity),
+                       (("qw", "qx", "qy", "qz"), traj.quaternion),
+                       (("ox", "oy", "oz"), traj.angular_velocity)):
+        recs.update({k: tm(leaf[..., i]) for i, k in enumerate(keys)})
+    derived = {k: tm(v) for k, v in traj.derived.items() if k != "euler_angles"}
+    if "euler_angles" in traj.derived:
+        derived.update({k: tm(traj.derived["euler_angles"][..., i])
+                        for i, k in enumerate(EULER_KEYS)})
+    recs["derived"] = derived
+    return recs
 
 
 def plain_data(obj):
@@ -323,35 +533,45 @@ def landing_ties(ref, got, dtype):
     return bad
 
 
+def tied_landings(ref, got, cfg, what: str):
+    """Full flights in float32 (output dicts of the plain version ``ref``
+    and the kernel ``got``): every leaf at the bars on every lane but the
+    landing ties (``landing_ties``), at most 2% of the lanes, whose landing
+    times differ by at most two coarse steps and whose other leaves
+    (apogee, maximum speed, rail exit, chute, divergence) stay at the bars.
+    Returns ``(largest absolute difference off the ties, ties [B], the
+    ties' landing-time differences, their range differences)``."""
+    ties = landing_ties(ref, got, torch.float32)
+    kept = ~ties
+    err = compare({k: v[kept] for k, v in ref.items()}, {k: v[kept] for k, v in got.items()},
+                  torch.float32)
+    compare({k: (got if k in LANDING_KEYS else ref)[k][ties] for k in ref},
+            {k: v[ties] for k, v in got.items()}, torch.float32)
+    dt_time = (got["flight_time"] - ref["flight_time"]).abs()[ties]
+    d_range = (got["range"] - ref["range"]).abs()[ties]
+    coarse = cfg.dt * cfg.descent_dt_scale
+    if (int(ties.sum()) > 0.02 * ties.numel()
+            or bool((dt_time > 2.0 * coarse * (1 + 1e-6)).any())):
+        raise AssertionError(f"{what}: {int(ties.sum())} landing ties, landing times "
+                             f"{dt_time.tolist()} apart")
+    return err, ties, dt_time, d_range
+
+
 def full_flights_against_plain(args, got, cfg, lanes, n=SLICE_LANES) -> dict:
     """Phase 7's check: the kernel against its plain version on the first
     ``n`` lanes of the run (prepared inputs ``args``, kernel outputs
-    ``got``), flown to landing. In float32, every leaf at the bars on every
-    lane but the landing ties (``landing_ties``), at most 2% of the lanes,
-    whose landing times differ by at most two coarse steps and whose other
-    leaves (apogee, maximum speed, rail exit, chute, divergence) stay at the
-    bars. The same flights in float64 (the inputs widened exactly): every
-    leaf at the float64 bars on every lane."""
+    ``got``), flown to landing, in float32 as ``tied_landings`` holds them.
+    The same flights in float64 (the inputs widened exactly): every leaf at
+    the float64 bars on every lane."""
     from erpl_monte_carlo_sim_tpu_torch.kernels import flight_summary as fs
 
     ref, got_n, plain_ms = plain_on_head(args, got, cfg, n)
-    ties = landing_ties(ref, got_n, torch.float32)
-    kept = ~ties
-    err = compare({k: v[kept] for k, v in ref.items()}, {k: v[kept] for k, v in got_n.items()},
-                  torch.float32)
-    compare({k: (got_n if k in LANDING_KEYS else ref)[k][ties] for k in ref},
-            {k: v[ties] for k, v in got_n.items()}, torch.float32)
-    dt_time = (got_n["flight_time"] - ref["flight_time"]).abs()[ties]
-    d_range = (got_n["range"] - ref["range"]).abs()[ties]
-    coarse = cfg.dt * cfg.descent_dt_scale
-    if int(ties.sum()) > 0.02 * n or bool((dt_time > 2.0 * coarse * (1 + 1e-6)).any()):
-        raise AssertionError(f"full flights: {int(ties.sum())} landing ties, landing times "
-                             f"{dt_time.tolist()} apart")
+    err, ties, dt_time, d_range = tied_landings(ref, got_n, cfg, "full flights")
     part64 = map_tensors(lambda t: t.double() if t.is_floating_point() else t,
                          head(args, lanes, n))
     got64 = fs.flight_summary(*part64, cfg)
     plain64_ms, ref64 = cuda_ms(lambda: fs.flight_summary_reference(*part64, cfg))
-    return {"max_abs_err": err, "max_abs_err_lanes": int(kept.sum()),
+    return {"max_abs_err": err, "max_abs_err_lanes": int((~ties).sum()),
             "landing_ties": int(ties.sum()),
             "tie_flight_time_diff_max": float(dt_time.max()) if dt_time.numel() else 0.0,
             "tie_range_diff_max": float(d_range.max()) if d_range.numel() else 0.0,
@@ -697,7 +917,275 @@ def large_runs(dev, ic) -> dict:
     return launches
 
 
+def spread(n_run: int, n: int) -> np.ndarray:
+    """``n`` lane ids spread evenly over a run of ``n_run`` lanes."""
+    return np.linspace(0, n_run - 1, n).round().astype(np.int64)
+
+
+def resimulated(mc, ids, tag: str, want_launches: int):
+    """The main path of phase 10: ``resimulate_trajectories(ids)``, the
+    launches counted from 0 just before it and read just after. Returns
+    ``(summary, trajectory, launches, wall s)``."""
+    from erpl_monte_carlo_sim_tpu_torch.kernels import flight_summary as fs
+
+    torch.cuda.synchronize()
+    fs.launches = 0
+    t0 = time.time()
+    s, traj = mc.resimulate_trajectories(ids)
+    torch.cuda.synchronize()
+    wall, launched = time.time() - t0, fs.launches
+    if launched != want_launches:
+        raise AssertionError(f"phase {tag}: {launched} launches of the recording build, "
+                             f"{want_launches} expected")
+    return s, traj, launched, wall
+
+
+def same_summary(summary, run: dict, ids, tag: str) -> None:
+    """A re-simulated ``FlightSummary`` equals the run's lanes ``ids`` bit
+    for bit (NaN meets NaN): every leaf of a single call's ``summary``, or a
+    slabbed run's ``metrics``."""
+    from erpl_monte_carlo_sim_tpu_torch.utils.convert import to_numpy
+
+    got = to_numpy(summary)
+    if run["summary"] is not None:
+        for (path, a), (_, b) in zip(leaves(got), leaves(run["summary"])):
+            np.testing.assert_array_equal(a, np.asarray(b)[ids], err_msg=f"{tag} {path}")
+    else:
+        for k, v in run["metrics"].items():
+            np.testing.assert_array_equal(getattr(got, k), v[ids], err_msg=f"{tag} {k}")
+
+
+def recording_row(fs, args, res, recs, cfg, ms, usage, flags) -> dict:
+    """A kernels-JSON row of a recording build: its time, bound and share
+    on these inputs, registers, spills and warps per SM."""
+    dtype = args[3][0].dtype
+    key = "f32" if dtype == torch.float32 else "f64"
+    b = fs.bound_ms(res, cfg, dtype, fs.input_bytes(*args, cfg), recs)
+    use = usage[key]
+    threads, blocks = occupancy(fs, key, args[0], args[1], flags)
+    return {"lanes": int(args[3][0].shape[0]), "frames": int(recs["time"].shape[0]),
+            "channels": len(fs.FRAME_KEYS) + len(recs["derived"]), "ms": ms,
+            "bound_ms": b.ms, "bound_by": b.by, "share_of_bound": b.ms / ms,
+            "regs": use["regs"], "spill_bytes": use["spill_stores"] + use["spill_loads"],
+            "warps_per_sm": blocks * threads // 32}
+
+
+def widened(args):
+    """Prepared inputs in float64, every float widened exactly."""
+    return map_tensors(lambda t: t.double() if t.is_floating_point() else t, args)
+
+
+def stop_frames(recs) -> torch.Tensor:
+    """Each lane's last valid frame ``[B]``."""
+    return recs["valid"].sum(0) - 1
+
+
+ROW_KEYS = ("ms", "bound_ms", "share_of_bound", "regs", "spill_bytes", "warps_per_sm",
+            "frames", "channels")
+
+
+def recordings(dev, ic, mc4, run4, record_usage, record_flags) -> dict:
+    """Phase 10; returns the kernels-JSON rows of the recording builds."""
+    from erpl_monte_carlo_sim_tpu_torch.engine import (InitialConditions, SimConfig,
+                                                       simulate_flight_batch)
+    from erpl_monte_carlo_sim_tpu_torch.engine.batch import (prepare_batch,
+                                                             simulate_envelope_batch,
+                                                             trajectory_of)
+    from erpl_monte_carlo_sim_tpu_torch.kernels import flight_summary as fs
+    from erpl_monte_carlo_sim_tpu_torch.mc import (EnvelopeAccumulator, EnvelopeConfig,
+                                                   MonteCarloAnalyzer)
+    from erpl_monte_carlo_sim_tpu_torch.models import liquid_motor
+
+    f32, f64 = torch.float32, torch.float64
+    rows = {}
+
+    # ---- 10a: 256 lanes of phase 4's run, window
+    ids = spread(BENCH_LANES, RESIM_LANES)
+    s, traj, launched, wall = resimulated(mc4, ids, "10a", 1)
+    same_summary(s, run4, ids, "10a")
+    cfg = mc4.sim_config
+    args = prepare_batch(*mc4._select_lanes(ids))
+    fs.flight_record(*args, cfg)  # warm-up
+    ms, (res, recs) = cuda_ms(lambda: fs.flight_record(*args, cfg), reps=3)
+    if not torch.equal(recs["pz"], records_of(traj, RESIM_LANES)["pz"]):
+        raise AssertionError("10a: the timed recording is not the re-simulated one")
+    terminal_is_summary(recs, res, "10a")
+    part = head(args, RESIM_LANES, HELD_LANES)
+    plain_ms, (ref, ref_recs) = cuda_ms(lambda: fs.flight_record_reference(*part, cfg))
+    err = compare(ref, head(res, RESIM_LANES, HELD_LANES), f32)
+    frame_err = compare_records(ref_recs, records_of(traj, HELD_LANES), f32)
+    args64 = widened(args)
+    fs.flight_record(*args64, cfg)  # warm-up
+    ms64, (got64, recs64) = cuda_ms(lambda: fs.flight_record(*args64, cfg), reps=3)
+    plain64_ms, (ref64, ref_recs64) = cuda_ms(lambda: fs.flight_record_reference(*args64, cfg))
+    err64 = max(compare(ref64, got64, f64), compare_records(ref_recs64, recs64, f64))
+    row = recording_row(fs, args, res, recs, cfg, ms, record_usage["parity"],
+                        record_flags["parity"])
+    row.update(launches=launched, plain_ms=plain_ms, max_abs_err=err,
+               max_abs_err_lanes=HELD_LANES, frames_max_abs_err=frame_err,
+               f64=recording_row(fs, args64, got64, recs64, cfg, ms64,
+                                 record_usage["parity"], record_flags["parity"]))
+    row["f64"].update(plain_ms=plain64_ms, max_abs_err=err64)
+    rows["window"] = row
+    phase("10a re-simulated window", lanes=RESIM_LANES, launches=launched,
+          wall_s=f"{wall:.3f}", summary_equal_to_run=True, held_lanes=HELD_LANES,
+          max_abs_err=err, frames_max_abs_err=frame_err, plain_ms=f"{plain_ms:.1f}",
+          f64_lanes=RESIM_LANES, f64_max_abs_err=err64, f64_ms=f"{ms64:.3f}",
+          f64_plain_ms=f"{plain64_ms:.1f}", **{k: row[k] for k in ROW_KEYS})
+    del args, res, recs, args64, got64, recs64, ref_recs, ref_recs64, traj
+    torch.cuda.empty_cache()
+
+    # ---- 10b: 256 stabilized full flights of phase 7's run, to landing
+    cfg7 = flag_set("full_flights")[0]
+    mc7 = MonteCarloAnalyzer(motor=liquid_motor(dev), sim_config=cfg7)
+    run7 = mc7.run_monte_carlo(ic, n_samples=BENCH_LANES, seed=0)
+    s, traj, launched, wall = resimulated(mc7, ids, "10b", 1)
+    same_summary(s, run7, ids, "10b")
+    args = prepare_batch(*mc7._select_lanes(ids))
+    ms, (res, recs) = cuda_ms(lambda: fs.flight_record(*args, cfg7))
+    steps = res["n_steps"]
+    if not (bool(res["parachute_deployed"].all()) and bool((res["final_pz"] <= 0.5).all())):
+        raise AssertionError("10b: not every lane landed under its chute")
+    if not torch.equal(recs["pz"], records_of(traj, RESIM_LANES)["pz"]):
+        raise AssertionError("10b: the timed recording is not the re-simulated one")
+    terminal_is_summary(recs, res, "10b")
+    # float32 to landing, 64 lanes: the summaries as phase 7 holds them; the
+    # frames at the bars up to each lane's float32 horizon (and, on a
+    # landing tie, before the earlier of the two stop frames, at most 3
+    # apart); the frame epilogue at the bars on every frame to landing; and
+    # the same lanes in float64 to landing at rtol 5e-7
+    part = head(args, RESIM_LANES, HELD_LANES)
+    plain_ms, (ref, ref_recs) = cuda_ms(lambda: fs.flight_record_reference(*part, cfg7))
+    part64 = widened(part)
+    fs.flight_record(*part64, cfg7)  # warm-up
+    ms64, (got64, recs64) = cuda_ms(lambda: fs.flight_record(*part64, cfg7))
+    plain64_ms, (ref64, ref_recs64) = cuda_ms(lambda: fs.flight_record_reference(*part64, cfg7))
+    err64 = max(compare(ref64, got64, f64), compare_records(ref_recs64, recs64, f64))
+    got_recs = records_of(traj, HELD_LANES)
+    err, ties, dt_time, _ = tied_landings(ref, head(res, RESIM_LANES, HELD_LANES), cfg7, "10b")
+    stop_ref, stop_got = stop_frames(ref_recs), stop_frames(got_recs)
+    apart = (stop_ref - stop_got).abs()
+    if bool((apart[~ties] != 0).any()) or int(apart.max()) > 3:
+        raise AssertionError(f"10b: stop frames {apart.tolist()} apart, landing ties "
+                             f"{ties.nonzero().flatten().tolist()}")
+    horizon = f32_horizon(ref_recs, ref_recs64)
+    landed = torch.minimum(stop_ref, stop_got)
+    # what the horizon leaves out: lanes whose float32 flight leaves its
+    # float64 flight's bars before landing, lanes on which the two versions
+    # part before landing
+    leave_f64 = lanes_off_bars(ref_recs64, ref_recs, f32, landed)
+    leave_plain = lanes_off_bars(ref_recs, got_recs, f32, landed)
+    upto = torch.where(ties, torch.minimum(horizon, landed), horizon)
+    frame = torch.arange(ref_recs["valid"].shape[0], device=dev)[:, None]
+    keep = frame < upto[None, :]
+    frame_err = compare_records(ref_recs, got_recs, f32, keep=keep)
+    held_frames = int((keep & got_recs["valid"]).sum())
+    n = int(stop_got.max()) + 1
+    got_recs = map_tensors(lambda t: t[:n], got_recs)
+    epilogue_err = compare_records(derived_of_frames(part, got_recs, cfg7), got_recs, f32)
+    del ref_recs, ref_recs64, got_recs, keep
+    row = recording_row(fs, args, res, recs, cfg7, ms, record_usage["full_flights"],
+                        record_flags["full_flights"])
+    row.update(launches=launched, plain_ms=plain_ms, max_abs_err=err,
+               max_abs_err_lanes=HELD_LANES - int(ties.sum()), frames_max_abs_err=frame_err,
+               frames_held=held_frames, frames_valid=int((stop_got + 1).sum()),
+               f32_horizon_median=float(horizon.double().median()),
+               f32_lanes_leaving_f64=leave_f64, lanes_leaving_plain=leave_plain,
+               epilogue_max_abs_err=epilogue_err, landing_ties=int(ties.sum()),
+               tie_flight_time_diff_max=float(dt_time.max()) if dt_time.numel() else 0.0,
+               median_n_steps=float(steps.double().median()), max_n_steps=int(steps.max()),
+               f64=recording_row(fs, part64, got64, recs64, cfg7, ms64,
+                                 record_usage["full_flights"], record_flags["full_flights"]))
+    row["f64"].update(plain_ms=plain64_ms, max_abs_err=err64)
+    rows["full_flights"] = row
+    phase("10b re-simulated full flights", lanes=RESIM_LANES, launches=launched,
+          wall_s=f"{wall:.3f}", summary_equal_to_run=True, held_lanes=HELD_LANES,
+          landing_ties=row["landing_ties"], max_abs_err=err, frames_max_abs_err=frame_err,
+          **{k: row[k] for k in ("frames_held", "frames_valid", "f32_horizon_median",
+                                 "f32_lanes_leaving_f64", "lanes_leaving_plain",
+                                 "epilogue_max_abs_err")},
+          plain_ms=f"{plain_ms:.1f}", f64_held_lanes=HELD_LANES, f64_max_abs_err=err64,
+          f64_ms=f"{ms64:.3f}", f64_plain_ms=f"{plain64_ms:.1f}",
+          **{k: row[k] for k in ROW_KEYS + ("median_n_steps", "max_n_steps")})
+    del args, res, recs, traj, mc7, run7, part64, got64, recs64
+    torch.cuda.empty_cache()
+
+    # ---- 10c: one lane of each slab of 9a's run
+    mc9 = MonteCarloAnalyzer(motor=liquid_motor(dev), sim_config=SimConfig(max_time=WINDOW))
+    run9 = mc9.run_monte_carlo(ic, n_samples=LARGE_LANES, seed=0)
+    ids9 = np.array([7, BENCH_LANES + 1234, 2 * BENCH_LANES + 99_999, 4 * BENCH_LANES - 1])
+    s, _, launched9, wall = resimulated(mc9, ids9, "10c", 4)
+    same_summary(s, run9, ids9, "10c")
+    phase("10c re-simulated slabbed", lanes=ids9.tolist(), launches=launched9,
+          wall_s=f"{wall:.3f}", metrics_equal_to_run=True)
+    del mc9, run9
+
+    # ---- 10d: envelopes, float64
+    mce = MonteCarloAnalyzer(motor=liquid_motor(dev, f64), sim_config=SimConfig(max_time=WINDOW))
+    mce.run_monte_carlo(InitialConditions.vertical_launch(dev, f64), n_samples=ENVELOPE_LANES,
+                        seed=0)
+    env = EnvelopeConfig()
+    half = ENVELOPE_LANES // 2
+    torch.cuda.synchronize()
+    fs.launches = 0
+    t0 = time.time()
+    frm = mce.flight_envelope(n_lanes=ENVELOPE_LANES, chunk=half, env_config=env)
+    wall_f, launched_f = time.time() - t0, fs.launches
+    t0 = time.time()
+    inl = mce.flight_envelope(n_lanes=ENVELOPE_LANES, chunk=half, env_config=env, inline=True)
+    wall_i = time.time() - t0
+    for ch in env.channels:
+        a, b = frm["channels"][ch], inl["channels"][ch]
+        if a["n"] != b["n"]:
+            raise AssertionError(f"10d {ch}: in-loop counts differ from the frame path's")
+        for key, rtol, atol in (("min", 1e-12, 0.0), ("max", 1e-12, 0.0), ("mean", 1e-9, 1e-12),
+                                ("std", 1e-6, 1e-9)):
+            np.testing.assert_allclose(b[key], a[key], rtol=rtol, atol=atol, equal_nan=True,
+                                       err_msg=f"10d in-loop {ch} {key}")
+        for q, band in a["percentiles"].items():
+            np.testing.assert_allclose(b["percentiles"][q], band, rtol=1e-9, atol=1e-9,
+                                       equal_nan=True, err_msg=f"10d in-loop {ch} p{q}")
+    # the kernel's frames against the plain recorder's, through one envelope
+    cfge = dataclasses.replace(mce.sim_config, record_stride=env.record_stride,
+                               record_channels=tuple(c for c in env.channels
+                                                     if c not in ("altitude", "speed")))
+    sel = mce._select_lanes(np.arange(ENVELOPE_HELD))
+    acc_k, acc_p = EnvelopeAccumulator(cfge, env), EnvelopeAccumulator(cfge, env)
+    acc_k.add(simulate_flight_batch(*sel, cfge)[1])
+    acc_p._edges = acc_k._edges
+    acc_p.add(trajectory_of(fs.flight_record_reference(*prepare_batch(*sel), cfge)[1]))
+    worst = 0.0
+    for ch in env.channels:
+        if not (np.array_equal(acc_k._n[ch], acc_p._n[ch])
+                and np.array_equal(acc_k._hist[ch], acc_p._hist[ch])
+                and acc_k._clipped[ch] == acc_p._clipped[ch]):
+            raise AssertionError(f"10d {ch}: kernel-fed counts or histograms differ")
+        for a, b in ((acc_k._mean[ch], acc_p._mean[ch]), (acc_k._m2[ch], acc_p._m2[ch])):
+            np.testing.assert_allclose(a, b, rtol=1e-9, atol=1e-12, err_msg=f"10d {ch}")
+            worst = max(worst, float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-300))))
+    # the in-loop reduction alone, on the other half of the lanes, timed
+    lo, width = acc_k._edges
+    rest = mce._select_lanes(np.arange(half, ENVELOPE_LANES))
+    torch.cuda.synchronize()
+    t0 = time.time()
+    simulate_envelope_batch(*rest, cfge, channels=env.channels, n_bins=acc_k.n_bins,
+                            n_buckets=env.n_buckets, bin_dt=env.bin_dt, lo=lo, width=width,
+                            hist_every=max(1, env.hist_frame_stride))
+    torch.cuda.synchronize()
+    in_loop = time.time() - t0
+    phase("10d envelopes f64", lanes=ENVELOPE_LANES, chunk=half, frame_launches=launched_f,
+          frame_wall_s=f"{wall_f:.3f}", frame_lanes_per_s=f"{ENVELOPE_LANES / wall_f:.1f}",
+          inline_wall_s=f"{wall_i:.3f}", in_loop_s=f"{in_loop:.3f}",
+          in_loop_lanes_per_s=f"{half / in_loop:.1f}", in_loop_equal_to_frames=True,
+          kernel_fed_lanes=ENVELOPE_HELD, plain_fed_moment_rel=worst,
+          plain_fed_counts_equal=True)
+    rows["window"]["envelope"] = {"frame_lanes_per_s": ENVELOPE_LANES / wall_f,
+                                  "in_loop_lanes_per_s": half / in_loop}
+    return rows
+
+
 def main() -> int:
+    start = time.time()
     # ---------------------------------------------------------------- 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -722,15 +1210,22 @@ def main() -> int:
     # ---------------------------------------------------------------- 1
     # every build the phases run, all compilers started at once
     builds = {name: flag_set(name)[2] for name in FLAG_SETS}
+    # phase 10's recording builds
+    record_builds = {"parity": fs.PARITY._replace(record=True),
+                     "full_flights": flag_set("full_flights")[2]._replace(record=True)}
     t0 = time.time()
-    logs = fs.build_many([fs.PARITY, *builds.values()], verbose=True)
+    logs = fs.build_many([fs.PARITY, *builds.values(), *record_builds.values()], verbose=True)
     build_s = time.time() - t0
     usage = ptxas_usage(logs[0][1])
     set_usage = {name: ptxas_usage(log) for name, (_, log) in zip(builds, logs[1:])}
+    record_usage = {name: ptxas_usage(log)
+                    for name, (_, log) in zip(record_builds, logs[1 + len(builds):])}
     phase("1 build", seconds=f"{build_s:.2f}", libraries=len({lib for lib, _ in logs}),
           ptxas=json.dumps(usage))
     for name, use in set_usage.items():
         phase(f"1 build {name}", build=fs.flags_name(builds[name]), ptxas=json.dumps(use))
+    for (name, use), flags in zip(record_usage.items(), record_builds.values()):
+        phase(f"1 build record {name}", build=fs.flags_name(flags), ptxas=json.dumps(use))
 
     # ---------------------------------------------------------------- 2
     cfg = SimConfig(max_time=WINDOW)
@@ -969,6 +1464,11 @@ def main() -> int:
     # ---------------------------------------------------------------- 9
     large_launches = large_runs(dev, ic)
 
+    # ---------------------------------------------------------------- 10
+    t0 = time.time()
+    record_rows = recordings(dev, ic, mc, analysis, record_usage, record_builds)
+    phase("10 done", phase_10_s=f"{time.time() - t0:.1f}", script_s=f"{time.time() - start:.1f}")
+
     report = {"kernels": [
         {"name": f"flight_summary ({name})", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": where, "launches": launches, "max_abs_err": main_err,
@@ -982,6 +1482,10 @@ def main() -> int:
          "plain_ms": row["plain_ms"], "bound_ms": row["f32"]["bound_ms"],
          "bound_by": row["f32"]["bound_by"], "library_ms": None, **row}
         for name, row in rows.items()
+    ] + [
+        {"name": f"flight_summary [record {name}]", "route": "cuda", "source": KERNEL_SOURCE,
+         "replaces": REPLACES[0][1], "library_ms": None, **row}
+        for name, row in record_rows.items()
     ]}
     print(card, flush=True)
     print(json.dumps(report), flush=True)

@@ -69,6 +69,19 @@
 // double as JAX forms them, the settle time, the ascent threshold) are Cfg
 // fields. With every flag at its default (parity), the code is the kernel's
 // code without flags.
+//
+// The recording build (-DFS_RECORD=1, kernels/flight_summary.py
+// flight_record) is the same flight with one epilogue: each lane writes a
+// frame of engine/component.py flight_components_trajectory at the rail
+// exit, every record_stride steps, and at its termination if that falls
+// inside a block of record_stride steps: the time since rail exit, the 14
+// state values and the derived channels of derived_c that the channel mask
+// asks for, lane-minor ([frame][channel][B], so that a warp's stores
+// coalesce), and the frame it stopped at. The wrapper fills the frames after
+// that one with it and forms valid (frame <= stop). The flight's arithmetic
+// is untouched, so its summary outputs are the summary build's, bit for
+// bit; with FS_RECORD=0 every record statement is discarded by if constexpr
+// and the kernel's signature is the one without recording.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -105,6 +118,9 @@
 #ifndef FS_WIND_BF16
 #define FS_WIND_BF16 0
 #endif
+#ifndef FS_RECORD
+#define FS_RECORD 0
+#endif
 #if FS_WIND_BF16
 #include <cuda_bf16.h>
 #endif
@@ -124,6 +140,7 @@ constexpr bool kTiered = FS_TIERED;                // descent_dt_scale > 1
 constexpr bool kAscentGate = FS_ASCENT_GATE;       // ascent_q_threshold > 0, tiered
 constexpr bool kTerminate = FS_TERMINATE_NONFINITE;
 constexpr bool kSpeedGuard = FS_SPEED_GUARD;       // a finite speed_guard
+constexpr bool kRecord = FS_RECORD;                // the recording build
 static_assert(!kAscentGate || kTiered, "the ascent gate is part of the tiered loop");
 static_assert(!kSpeedGuard || kTerminate, "the speed guard stops a lane as diverged");
 
@@ -136,6 +153,7 @@ __device__ __forceinline__ float m_sqrt(float x) { return sqrtf(x); }
 __device__ __forceinline__ float m_exp(float x) { return expf(x); }
 __device__ __forceinline__ float m_pow(float x, float y) { return powf(x, y); }
 __device__ __forceinline__ float m_atan2(float y, float x) { return atan2f(y, x); }
+__device__ __forceinline__ float m_asin(float x) { return asinf(x); }
 __device__ __forceinline__ float m_abs(float x) { return fabsf(x); }
 __device__ __forceinline__ bool m_finite(float x) { return isfinite(x); }
 
@@ -171,6 +189,7 @@ __device__ __forceinline__ double m_sqrt(double x) { return sqrt(x); }
 __device__ __forceinline__ double m_exp(double x) { return exp(x); }
 __device__ __forceinline__ double m_pow(double x, double y) { return pow(x, y); }
 __device__ __forceinline__ double m_atan2(double y, double x) { return atan2(y, x); }
+__device__ __forceinline__ double m_asin(double x) { return asin(x); }
 __device__ __forceinline__ double m_abs(double x) { return fabs(x); }
 __device__ __forceinline__ bool m_finite(double x) { return isfinite(x); }
 __device__ __forceinline__ void m_sincos(double x, double& s, double& c) {
@@ -213,6 +232,7 @@ __device__ __forceinline__ T safe_sqrt(T x) { return !(x <= T(0)) ? m_sqrt(x) : 
 constexpr double kStall = 0.2617993877991494;        // radians(15)
 constexpr double kStallRange = 0.7853981633974483 - 0.2617993877991494;  // radians(45) - radians(15)
 constexpr double kTwoPi = 6.283185307179586;
+constexpr double kHalfPi = 1.5707963267948966;
 constexpr double kEarthRadius = 6.371e6;
 constexpr double kPsl = 101325.0;
 
@@ -278,6 +298,21 @@ enum OutF {
   O_QW, O_QX, O_QY, O_QZ, N_OUT_F
 };
 enum OutI { O_PARA, O_DIV, O_NSTEPS, N_OUT_I };
+
+// The recording build's outputs: frames [n_frames][n_channels][B] (the time
+// since rail exit, the state, then the derived channels of `mask`, bit j for
+// engine/component.py DERIVED_KEYS[j], in that order) and stop [B], the
+// frame each lane stopped at. A frame is written every `stride` steps.
+struct Rec {
+  T* frames = nullptr;
+  int32_t* stop = nullptr;
+  int stride = 1, n_channels = 0;
+  unsigned mask = 0;
+};
+enum Derived {
+  D_MASS, D_CG, D_IXX, D_IYY, D_IZZ, D_ROLL, D_PITCH, D_YAW, D_THRUST, D_DRAG, D_CD, D_CL,
+  D_CM, D_CP, D_MARGIN, D_AOA, D_SIDESLIP, D_SPEED, D_ALTITUDE, D_MACH, N_DERIVED
+};
 
 // Per-lane parameters (constant over the flight) plus lane-constant
 // sub-expressions the JAX code recomputes on every call; the values are
@@ -736,10 +771,85 @@ __device__ __forceinline__ T leaf(const Leaves& lv, int k, long long lane) {
   return lv.p[k][lane * lv.stride[k]];
 }
 
+// The recording build's epilogue: frame f of the lane at state s, t_off
+// after rail exit. The derived channels are engine/component.py derived_c,
+// expression for expression: the mass properties of the unclamped
+// propellant fraction, thrust at t_off gated by the burn only, the Euler
+// angles of the quaternion with the +-90 degree pitch clamp.
+__device__ __forceinline__ void record_frame(const Tables& tb, const Lane& ln, const Rec& rec,
+                                             long long B, long long lane, int f, T t_off,
+                                             const T s[N_STATE]) {
+  T* o = rec.frames + static_cast<long long>(f) * rec.n_channels * B + lane;
+  o[0] = t_off;
+#pragma unroll
+  for (int i = 0; i < N_STATE; ++i) o[(i + 1) * B] = s[i];
+  if (rec.mask == 0) return;
+  const T pz = s[S_PZ], vx = s[S_VX], vy = s[S_VY], vz = s[S_VZ];
+  const T qw = s[S_QW], qx = s[S_QX], qy = s[S_QY], qz = s[S_QZ], frac = s[S_FRAC];
+  const Mass mp = mass_props(ln, frac);
+  const Atm atm = atmosphere(ln, pz);
+  T wnd[3];
+  wind_at(tb, ln, pz, wnd);
+  const T rvx = vx - wnd[0], rvy = vy - wnd[1], rvz = vz - wnd[2];
+  T r[9];
+  rotmat(qw, qx, qy, qz, r);
+  const T ub = r[0] * rvx + r[3] * rvy + r[6] * rvz;
+  const T vb = r[1] * rvx + r[4] * rvy + r[7] * rvz;
+  const T wb = r[2] * rvx + r[5] * rvy + r[8] * rvz;
+  const T rel_sq = rvx * rvx + rvy * rvy + rvz * rvz;
+  const T mach = safe_sqrt(rel_sq) / atm.sound;
+  T aoa, beta;
+  aero_angles(ub, vb, wb, aoa, beta);
+  const T cp = ln[LF_CP_LOCATION] + interp_table(mach, tb.cp, s_flags[F_CP] != 0);
+  const Aero co = aero(tb, ln, mach, aoa, beta, mp.cg, frac > T(0));
+  const T q_dyn = T(0.5) * atm.density * rel_sq;
+  const T sinp = T(2) * (qw * qy - qz * qx);
+  T d[N_DERIVED];
+  d[D_MASS] = mp.mass;
+  d[D_CG] = mp.cg;
+  d[D_IXX] = mp.ixx;
+  d[D_IYY] = mp.iyy;
+  d[D_IZZ] = mp.iyy;
+  d[D_ROLL] = m_atan2(T(2) * (qw * qx + qy * qz), T(1) - T(2) * (qx * qx + qy * qy));
+  d[D_PITCH] = m_abs(sinp) >= T(1) ? nsign(sinp) * T(kHalfPi) : m_asin(nclip(sinp, T(-1), T(1)));
+  d[D_YAW] = m_atan2(T(2) * (qw * qz + qx * qy), T(1) - T(2) * (qy * qy + qz * qz));
+  d[D_THRUST] = thrust_at(tb, ln, t_off, atm.pressure);
+  d[D_DRAG] = q_dyn * co.cd * ln[LF_REF_AREA];
+  d[D_CD] = co.cd;
+  d[D_CL] = co.cl;
+  d[D_CM] = co.cpitch;
+  d[D_CP] = cp;
+  d[D_MARGIN] = (cp - mp.cg) / ln[LF_REF_DIAM];
+  d[D_AOA] = aoa;
+  d[D_SIDESLIP] = beta;
+  d[D_SPEED] = safe_sqrt(vx * vx + vy * vy + vz * vz);
+  d[D_ALTITUDE] = pz;
+  d[D_MACH] = mach;
+  int c = 1 + N_STATE;
+#pragma unroll
+  for (int j = 0; j < N_DERIVED; ++j)
+    if ((rec.mask >> j) & 1u) o[(c++) * B] = d[j];
+}
+
+// the record build's kernel takes the Rec; the other builds' signature is
+// the one without recording
+#if FS_RECORD
+#define FS_REC_KPARAM , Rec rec
+#define FS_REC_PARAM , const Rec& rec
+#define FS_REC_ARG , rec
+#else
+#define FS_REC_KPARAM
+#define FS_REC_PARAM
+#define FS_REC_ARG
+#endif
+
 // one lane's whole flight
 __device__ __forceinline__ void fly(const Leaves& lv, const Tables& tb, const Cfg& cfg,
                                     T* __restrict__ out_f, int32_t* __restrict__ out_i,
-                                    int n_lanes, long long lane) {
+                                    int n_lanes, long long lane FS_REC_PARAM) {
+#if !FS_RECORD
+  constexpr Rec rec{};  // read by no statement: the record code is discarded
+#endif
 
   Lane ln;
   ln.field = smem() + tb.lane_base + threadIdx.x;
@@ -870,6 +980,12 @@ __device__ __forceinline__ void fly(const Leaves& lv, const Tables& tb, const Cf
   T t_lane = rail_time, dep_t = T(INFINITY);
   T wstep[3];  // wind_eval_per_step: the wind at the step's starting altitude
   constexpr int kStages = kRk2 ? 2 : 4;
+  // the recording build: the frame last written, and the steps since
+  int frame = 0, since = 0;
+  if constexpr (kRecord) {
+    record_frame(tb, ln, rec, n_lanes, lane, 0,
+                 (kTiered ? t_lane : step_time(rail_time, step, cfg.dt)) - rail_time, s);
+  }
 
   while (done == 0 && ((kTiered ? t_lane : step_time(rail_time, step, cfg.dt)) < cfg.max_time) &&
          step < cfg.max_steps) {
@@ -954,6 +1070,20 @@ __device__ __forceinline__ void fly(const Leaves& lv, const Tables& tb, const Cf
       t_lane = t_new;
     }
     step = step_new;
+    if constexpr (kRecord) {
+      if (++since == rec.stride) {
+        since = 0;
+        record_frame(tb, ln, rec, n_lanes, lane, ++frame, t_new - rail_time, s);
+      }
+    }
+  }
+  if constexpr (kRecord) {
+    // a lane that stopped inside a block: its terminal frame ends the block
+    if (since > 0) {
+      record_frame(tb, ln, rec, n_lanes, lane, ++frame,
+                   (kTiered ? t_lane : step_time(rail_time, step, cfg.dt)) - rail_time, s);
+    }
+    rec.stop[lane] = frame;
   }
 
   const long long B = n_lanes;
@@ -994,7 +1124,7 @@ __device__ __forceinline__ void fly(const Leaves& lv, const Tables& tb, const Cf
 
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 flight_summary_kernel(Leaves lv, Tables tb, Cfg cfg, T* __restrict__ out_f,
-                      int32_t* __restrict__ out_i, int n_lanes) {
+                      int32_t* __restrict__ out_i, int n_lanes FS_REC_KPARAM) {
   stage_knots(tb.cd, tb.cd_mach, tb.cd0, tb.cda);
   stage_knots(tb.cp, tb.cp_mach, tb.cp_shift, nullptr);
   stage_knots(tb.th, tb.curve_t, tb.curve_f, nullptr);
@@ -1005,7 +1135,7 @@ flight_summary_kernel(Leaves lv, Tables tb, Cfg cfg, T* __restrict__ out_f,
   // idle threads skip only the flight
   __syncthreads();
   const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane < n_lanes) fly(lv, tb, cfg, out_f, out_i, n_lanes, lane);
+  if (lane < n_lanes) fly(lv, tb, cfg, out_f, out_i, n_lanes, lane FS_REC_ARG);
 }
 
 // the places of the shared tables and the lane constants in the block's
@@ -1032,11 +1162,32 @@ __host__ int layout(Tables& tb, int k_cd, int k_cp, int k_th, int n_wind) {
 // and the int flags; table_sizes the knots of the Mach, CP and thrust
 // tables and of the grid; cfg the N_CFG numbers of Cfg. Launches on
 // `stream`, allocates nothing, returns cudaGetLastError() after the launch.
+// The recording build's entry is flight_record_f32 / _f64, with five more
+// arguments: the frames [n_frames][n_channels][B] and stop [B] (device
+// pointers), record_stride, n_channels and the derived-channel mask (Rec).
+#if FS_RECORD
+extern "C" int FS_CAT(flight_record_, FS_SUFFIX)(
+    const void* const* leaf_ptrs, const int* leaf_strides, int n_leaves,
+    const void* const* table_ptrs, const int* table_sizes,
+    long long wind_lane_stride, const double* cfg_in, int n_cfg, int max_steps,
+    int max_rail_steps, void* out_f, void* out_i, int n_lanes, void* stream, void* frames,
+    void* stop, int record_stride, int n_channels, unsigned channel_mask) {
+  if (record_stride < 1 || n_channels != 1 + N_STATE + __builtin_popcount(channel_mask) ||
+      (channel_mask >> N_DERIVED) != 0)
+    return -1;
+  Rec rec;
+  rec.frames = static_cast<T*>(frames);
+  rec.stop = static_cast<int32_t*>(stop);
+  rec.stride = record_stride;
+  rec.n_channels = n_channels;
+  rec.mask = channel_mask;
+#else
 extern "C" int FS_CAT(flight_summary_, FS_SUFFIX)(
     const void* const* leaf_ptrs, const int* leaf_strides, int n_leaves,
     const void* const* table_ptrs, const int* table_sizes,
     long long wind_lane_stride, const double* cfg_in, int n_cfg, int max_steps,
     int max_rail_steps, void* out_f, void* out_i, int n_lanes, void* stream) {
+#endif
   if (n_leaves != N_LEAVES || n_cfg != N_CFG) return -1;
   if (n_lanes <= 0) return 0;
   Leaves lv;
@@ -1090,7 +1241,7 @@ extern "C" int FS_CAT(flight_summary_, FS_SUFFIX)(
   cfg.max_rail_steps = max_rail_steps;
   const int blocks = (n_lanes + kThreads - 1) / kThreads;
   flight_summary_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      lv, tb, cfg, static_cast<T*>(out_f), static_cast<int32_t*>(out_i), n_lanes);
+      lv, tb, cfg, static_cast<T*>(out_f), static_cast<int32_t*>(out_i), n_lanes FS_REC_ARG);
   return static_cast<int>(cudaGetLastError());
 }
 

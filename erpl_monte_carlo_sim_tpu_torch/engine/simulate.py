@@ -1,7 +1,9 @@
-"""Flight summary type (``erpl_monte_carlo_sim_tpu/engine/simulate.py``).
+"""Flight summary and trajectory types
+(``erpl_monte_carlo_sim_tpu/engine/simulate.py``).
 
-Only the type is ported; batched flights run through
-``engine.batch.simulate_summary_batch``."""
+Only the types are ported; batched flights run through
+``engine.batch.simulate_summary_batch`` and, recorded,
+``engine.batch.simulate_flight_batch``."""
 
 from __future__ import annotations
 
@@ -11,7 +13,7 @@ import torch
 
 from .rail import RailInfo
 
-__all__ = ["FlightSummary"]
+__all__ = ["FlightSummary", "Trajectory"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,3 +32,22 @@ class FlightSummary:
     diverged: torch.Tensor  # bool
     n_steps: torch.Tensor  # int32
     rail: RailInfo
+
+
+@dataclasses.dataclass(frozen=True)
+class Trajectory:
+    """A recorded history, ``[B, T, ...]`` leaves. ``valid[:, k]`` is True
+    for the frames the reference would have recorded (before the lane
+    stopped); frame 0 is the rail-exit state, times are offset by the rail
+    exit time. ``derived`` maps the recorded ``derived_c`` channels to
+    ``[B, T]`` tensors, the Euler angles stacked as ``euler_angles [B, T,
+    3]`` (empty without ``record_derived``)."""
+
+    time: torch.Tensor  # [B, T]
+    position: torch.Tensor  # [B, T, 3]
+    velocity: torch.Tensor  # [B, T, 3]
+    quaternion: torch.Tensor  # [B, T, 4]
+    angular_velocity: torch.Tensor  # [B, T, 3]
+    propellant_fraction: torch.Tensor  # [B, T]
+    valid: torch.Tensor  # [B, T] bool
+    derived: dict

@@ -22,6 +22,12 @@ the compilers of several flag sets at once. The parity flag set
 (``PARITY``) compiles to the same code as before the flags existed.
 ``launches`` counts kernel launches, of every flag set.
 
+The recording build (``KernelFlags.record``, ``-DFS_RECORD=1``) is the same
+flight with an epilogue that writes a frame of
+``engine.component.flight_components_trajectory`` every ``record_stride``
+steps: ``flight_record`` launches it on CUDA tensors (its summary is the
+summary build's, bit for bit), and runs that recorder on CPU tensors.
+
 Besides the inputs, the wrapper hands the kernel a lane-minor ``[N, 3, B]``
 copy of a per-lane wind table (a warp's loads of one knot are then
 contiguous; bfloat16 under ``wind_table_bf16``) and the table flags of
@@ -42,10 +48,13 @@ from typing import NamedTuple
 
 import torch
 
-from ..engine.component import INT_KEYS, SUMMARY_KEYS, flight_components, table_wind_fn
+from ..engine.component import (DERIVED_KEYS, FRAME_KEYS, INT_KEYS, SUMMARY_KEYS,
+                                flight_components, flight_components_trajectory,
+                                n_frames, record_names, table_wind_fn)
 from ..engine.config import SimConfig
 
-__all__ = ["flight_summary", "flight_summary_reference", "build", "build_many",
+__all__ = ["flight_summary", "flight_summary_reference", "flight_record",
+           "flight_record_reference", "record_layout", "build", "build_many",
            "launches", "SOURCE", "KernelFlags", "PARITY", "kernel_flags", "flags_name",
            "stored_wind", "cfg_values", "ops_per_step", "bound_ms", "input_bytes"]
 
@@ -75,19 +84,22 @@ class KernelFlags(NamedTuple):
     terminate_nonfinite: bool = True   # terminate_nonfinite
     speed_guard: bool = False          # terminate_nonfinite and speed_guard != inf
     wind_bf16: bool = False            # wind_table_bf16
+    record: bool = False               # the recording build (flight_record)
 
 
 PARITY = KernelFlags()
 _DEFINES = ("FS_RK2", "FS_WIND_PER_STEP", "FS_ENERGY_AERO", "FS_STALL_MOMENTS",
             "FS_TIERED", "FS_ASCENT_GATE", "FS_TERMINATE_NONFINITE", "FS_SPEED_GUARD",
-            "FS_WIND_BF16")
+            "FS_WIND_BF16", "FS_RECORD")
 
 
-def kernel_flags(cfg: SimConfig, stall_limited_moments: bool = False) -> KernelFlags:
-    """The build that runs ``cfg`` (and a rocket's ``stall_limited_moments``).
-    A flag that changes nothing is off: the ascent gate acts only in the
-    tiered loop, an infinite speed guard never trips where the non-finite
-    stop does not, and neither guard acts without ``terminate_nonfinite``."""
+def kernel_flags(cfg: SimConfig, stall_limited_moments: bool = False,
+                 record: bool = False) -> KernelFlags:
+    """The build that runs ``cfg`` (and a rocket's ``stall_limited_moments``),
+    its recording build with ``record``. A flag that changes nothing is off:
+    the ascent gate acts only in the tiered loop, an infinite speed guard
+    never trips where the non-finite stop does not, and neither guard acts
+    without ``terminate_nonfinite``."""
     tiered = cfg.descent_dt_scale > 1
     return KernelFlags(
         rk2=cfg.integrator == "rk2", wind_per_step=cfg.wind_eval_per_step,
@@ -96,7 +108,7 @@ def kernel_flags(cfg: SimConfig, stall_limited_moments: bool = False) -> KernelF
         ascent_gate=tiered and cfg.ascent_q_threshold > 0.0,
         terminate_nonfinite=cfg.terminate_nonfinite,
         speed_guard=cfg.terminate_nonfinite and cfg.speed_guard != math.inf,
-        wind_bf16=cfg.wind_table_bf16)
+        wind_bf16=cfg.wind_table_bf16, record=bool(record))
 
 
 def flags_name(flags: KernelFlags) -> str:
@@ -203,20 +215,32 @@ def build(flags: KernelFlags = PARITY, verbose: bool = False) -> tuple[str, str]
     return build_many([flags], verbose)[0]
 
 
+# the C entry's arguments (csrc/flight_summary.cu), and the recording
+# build's five more
+_ENTRY_ARGS = [
+    ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
+    ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
+    ctypes.POINTER(ctypes.c_int), ctypes.c_int64,
+    ctypes.POINTER(ctypes.c_double), ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+]
+_RECORD_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_uint]
+
+
+def entry_name(flags: KernelFlags, suffix: str) -> str:
+    """The C entry of a build: ``flight_record_*`` for a recording build,
+    ``flight_summary_*`` otherwise."""
+    return f"flight_{'record' if flags.record else 'summary'}_{suffix}"
+
+
 def _load(flags: KernelFlags = PARITY):
     lib = _libs.get(flags)
     if lib is None:
         path, _ = build(flags)
         lib = ctypes.CDLL(path)
         for _, suffix in _PRECISIONS.values():
-            fn = getattr(lib, f"flight_summary_{suffix}")
-            fn.argtypes = [
-                ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
-                ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
-                ctypes.POINTER(ctypes.c_int), ctypes.c_int64,
-                ctypes.POINTER(ctypes.c_double), ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-            ]
+            fn = getattr(lib, entry_name(flags, suffix))
+            fn.argtypes = _ENTRY_ARGS + (_RECORD_ARGS if flags.record else [])
             fn.restype = ctypes.c_int
             occ = getattr(lib, f"flight_summary_occupancy_{suffix}")
             occ.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
@@ -324,7 +348,7 @@ def cfg_values(cfg: SimConfig) -> list:
             cfg.ascent_q_threshold]
 
 
-def _kernel_args(scene_nw, grid, wind, ics, cfg: SimConfig) -> KernelArgs:
+def _kernel_args(scene_nw, grid, wind, ics, cfg: SimConfig, record: bool = False) -> KernelArgs:
     """Check the inputs against what the kernel takes and lay them out as its
     C entry wants them. A scalar leaf's stride is 0 when it is shared and 1
     when it is per lane; the tables are the fixed ``_TABLES`` list, always
@@ -383,29 +407,48 @@ def _kernel_args(scene_nw, grid, wind, ics, cfg: SimConfig) -> KernelArgs:
     sizes.append(n_wind)
 
     return KernelArgs(n, ptrs, strides, table_ptrs, sizes, wind, wind_stride, flags,
-                      cfg_values(cfg), kernel_flags(cfg, scene_nw.rocket.stall_limited_moments))
+                      cfg_values(cfg),
+                      kernel_flags(cfg, scene_nw.rocket.stall_limited_moments, record))
 
 
-def _launch(scene_nw, grid, wind, ics, cfg: SimConfig) -> dict:
-    a = _kernel_args(scene_nw, grid, wind, ics, cfg)
+def entry_args(a: KernelArgs, cfg: SimConfig, out_f, out_i, stream, rec=None) -> list:
+    """The C entry's arguments for ``a``, the outputs and the stream (host
+    pointers where the emulated tests run it), and a recording build's
+    ``rec = (frames, stop, RecordLayout)``."""
+    args = [(ctypes.c_void_p * _N_LEAVES)(*a.ptrs), (ctypes.c_int * _N_LEAVES)(*a.strides),
+            _N_LEAVES, (ctypes.c_void_p * len(a.table_ptrs))(*a.table_ptrs),
+            (ctypes.c_int * len(a.sizes))(*a.sizes), ctypes.c_int64(a.wind_lane_stride),
+            (ctypes.c_double * len(a.cfg_vals))(*a.cfg_vals), len(a.cfg_vals),
+            cfg.max_steps, cfg.max_rail_steps, ctypes.c_void_p(out_f.data_ptr()),
+            ctypes.c_void_p(out_i.data_ptr()), a.n, stream]
+    if rec is not None:
+        frames, stop, lay = rec
+        args += [ctypes.c_void_p(frames.data_ptr()), ctypes.c_void_p(stop.data_ptr()),
+                 lay.stride, lay.n_channels, ctypes.c_uint(lay.mask)]
+    return args
+
+
+def _launch(scene_nw, grid, wind, ics, cfg: SimConfig, rec=None) -> dict:
+    """Launch the build of ``cfg`` on CUDA tensors: the summary build, or
+    with ``rec = (frames, stop, RecordLayout)`` the recording build."""
+    a = _kernel_args(scene_nw, grid, wind, ics, cfg, record=rec is not None)
     dtype, device = ics[0].dtype, ics[0].device
     out_f = torch.empty((len(_FLOAT_KEYS), a.n), dtype=dtype, device=device)
     out_i = torch.empty((len(INT_KEYS), a.n), dtype=torch.int32, device=device)
 
-    fn = getattr(_load(a.build), f"flight_summary_{_PRECISIONS[dtype][1]}")
+    fn = getattr(_load(a.build), entry_name(a.build, _PRECISIONS[dtype][1]))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn((ctypes.c_void_p * _N_LEAVES)(*a.ptrs),
-                (ctypes.c_int * _N_LEAVES)(*a.strides), _N_LEAVES,
-                (ctypes.c_void_p * len(a.table_ptrs))(*a.table_ptrs),
-                (ctypes.c_int * len(a.sizes))(*a.sizes), a.wind_lane_stride,
-                (ctypes.c_double * len(a.cfg_vals))(*a.cfg_vals), len(a.cfg_vals),
-                cfg.max_steps, cfg.max_rail_steps, out_f.data_ptr(), out_i.data_ptr(),
-                a.n, stream)
+        rc = fn(*entry_args(a, cfg, out_f, out_i, stream, rec))
     if rc != 0:
-        raise RuntimeError(f"flight_summary kernel launch failed (CUDA error {rc})")
+        raise RuntimeError(f"flight_summary kernel launch failed ({flags_name(a.build)}, "
+                           f"CUDA error {rc})")
     global launches
     launches += 1
+    return _outputs(out_f, out_i)
+
+
+def _outputs(out_f, out_i) -> dict:
     res = {k: out_f[i] for i, k in enumerate(_FLOAT_KEYS)}
     res.update({k: out_i[i] for i, k in enumerate(INT_KEYS)})
     return res
@@ -433,6 +476,83 @@ def flight_summary(scene_nw, grid: torch.Tensor, wind: torch.Tensor, ics,
     if device.type != "cuda":
         raise ValueError(f"flight_summary runs on cpu or cuda, not {device}")
     return _launch(scene_nw, grid, wind, ics, cfg)
+
+
+class RecordLayout(NamedTuple):
+    """A recording's frames as the recording build writes them."""
+    names: tuple      # the derived channels (``record_names``)
+    mask: int         # bit j set for ``DERIVED_KEYS[j]`` in ``names``
+    stride: int       # record_stride
+    n_frames: int     # T
+    n_channels: int   # the time, the 14 state values, the derived channels
+
+
+def record_layout(cfg: SimConfig) -> RecordLayout:
+    names = record_names(cfg)
+    return RecordLayout(names, sum(1 << DERIVED_KEYS.index(k) for k in names),
+                        max(1, cfg.record_stride), n_frames(cfg),
+                        len(FRAME_KEYS) + len(names))
+
+
+def _check_room(lay: RecordLayout, n: int, dtype, device) -> None:
+    """Raise, with the numbers, unless the card has room for a recording of
+    ``n`` lanes: its frames, their filled copy and the fill's index."""
+    frames = lay.n_frames * lay.n_channels * n * torch.finfo(dtype).bits // 8
+    need = 2 * frames + lay.n_frames * n * 8
+    free, _ = torch.cuda.mem_get_info(device)
+    free += torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+    if need > free:
+        raise RuntimeError(
+            f"recording {n} lanes x {lay.n_frames} frames x {lay.n_channels} channels "
+            f"needs {need / 2**30:.2f} GiB on {device}, {free / 2**30:.2f} GiB are free: "
+            "record fewer lanes, fewer channels (record_channels) or fewer frames "
+            "(record_stride, max_time)")
+
+
+def unpack_frames(frames: torch.Tensor, stop: torch.Tensor, lay: RecordLayout) -> dict:
+    """The recording build's ``frames [T, C, B]`` and ``stop [B]`` as the
+    recorder's records (``flight_components_trajectory``): each lane's
+    frames after its stop frame are that frame (one gather), and ``valid``
+    is frame <= stop."""
+    t = torch.arange(lay.n_frames, device=frames.device)[:, None]
+    upto = torch.minimum(t, stop.to(torch.int64)[None, :])
+    full = frames.gather(0, upto[:, None, :].expand_as(frames))
+    recs = {k: full[:, c] for c, k in enumerate(FRAME_KEYS)}
+    recs["valid"] = t <= stop[None, :]
+    recs["derived"] = {k: full[:, len(FRAME_KEYS) + j] for j, k in enumerate(lay.names)}
+    return recs
+
+
+def flight_record_reference(scene_nw, grid: torch.Tensor, wind: torch.Tensor, ics,
+                            cfg: SimConfig):
+    """The recording build's plain version: ``flight_components_trajectory``
+    over the tent-basis lookup of ``stored_wind``, on any device."""
+    return flight_components_trajectory(
+        scene_nw, cfg, table_wind_fn(grid, stored_wind(wind, cfg)), ics)
+
+
+def flight_record(scene_nw, grid: torch.Tensor, wind: torch.Tensor, ics, cfg: SimConfig):
+    """``flight_summary``'s flights with their trajectories recorded under
+    ``cfg`` (``record_stride``, ``record_derived``, ``record_channels``):
+    ``(summary dict, records)`` as ``flight_components_trajectory`` returns
+    them, ``[T, B]`` time-major records.
+
+    CPU tensors run that recorder; CUDA tensors launch the recording build
+    of ``kernel_flags(cfg, ..., record=True)``, whose summary is the summary
+    build's bit for bit, after checking that the card holds the frames (it
+    raises with the numbers, never truncates)."""
+    device = ics[0].device
+    if device.type == "cpu":
+        return flight_record_reference(scene_nw, grid, wind, ics, cfg)
+    if device.type != "cuda":
+        raise ValueError(f"flight_record runs on cpu or cuda, not {device}")
+    lay = record_layout(cfg)
+    n, dtype = ics[0].shape[0], ics[0].dtype
+    _check_room(lay, n, dtype, device)
+    frames = torch.empty((lay.n_frames, lay.n_channels, n), dtype=dtype, device=device)
+    stop = torch.empty(n, dtype=torch.int32, device=device)
+    res = _launch(scene_nw, grid, wind, ics, cfg, rec=(frames, stop, lay))
+    return res, unpack_frames(frames, stop, lay)
 
 
 # ------------------------------------------------------------------ the bound
@@ -510,6 +630,25 @@ TIERED_OPS = {  # descent_dt_scale > 1, beside the events
 }
 
 
+# one recorded frame's derived channels (csrc/flight_summary.cu
+# record_frame), counted as DYNAMICS_OPS; the thrust lookup is left out, as
+# there, and the stores are free
+DERIVED_OPS = {
+    "mass, cg, Ixx, Iyy": 12,
+    "troposphere": 11,
+    "wind": 34,
+    "rotation matrix with its normalize": 52,
+    "air-relative velocity 3, body frame 15, |v|^2 5, Mach 2": 25,
+    "angle of attack and sideslip": 8,
+    "dynamic CP: window and sum 20, + 1": 21,
+    "aero (as in dynamics)": 76,
+    "dynamic pressure": 2,
+    "Euler angles: sin(pitch) 4, clip 2, asin 1; roll and yaw 12 each": 31,
+    "drag 2, stability margin 2, speed 6": 10,
+}
+OPS_PER_FRAME = sum(DERIVED_OPS.values())
+
+
 def ops_per_step(flags: KernelFlags = None) -> int:
     """Operations of one main-loop step of a build: two or four dynamics
     evaluations and the rest of the step. Under ``wind_per_step`` the wind
@@ -563,18 +702,27 @@ def input_bytes(scene_nw, grid, wind, ics, cfg: SimConfig = SimConfig()) -> int:
     return wind_bytes + sum(t.numel() * t.element_size() for t in (*leaves, grid, *ics))
 
 
-def bound_ms(out: dict, cfg: SimConfig, dtype, in_bytes: int) -> Bound:
+def bound_ms(out: dict, cfg: SimConfig, dtype, in_bytes: int, recs: dict = None) -> Bound:
     """The least time an H100 SXM at 700 W could take for the flights in
     ``out`` (a ``flight_summary`` result of ``cfg``): the larger of their
     operations (``n_steps`` main-loop steps at ``ops_per_step`` of the build
     of ``cfg``, a tiered step counting one step whatever its length, plus
     ``round(rail_exit_time / rail_dt)`` rail steps at ``OPS_PER_RAIL_STEP``)
     over the FP32 or FP64 peak, and of ``in_bytes`` read once plus the
-    outputs written once over the memory rate."""
+    outputs written once over the memory rate. With ``recs``, the records of
+    ``flight_record``: each lane's frames up to its stop, each at
+    ``OPS_PER_FRAME`` where derived channels are recorded, and every frame
+    of the records written once."""
     steps = int(out["n_steps"].to(torch.int64).sum())
     rail = int(torch.round(out["rail_exit_time"].double() / cfg.rail_dt).sum())
     ops = float(steps * ops_per_step(kernel_flags(cfg)) + rail * OPS_PER_RAIL_STEP)
     nbytes = in_bytes + sum(t.numel() * t.element_size() for t in out.values())
+    if recs is not None:
+        frames = int(recs["valid"].sum())
+        ops += float(frames * OPS_PER_FRAME) if recs["derived"] else 0.0
+        nbytes += sum(t.numel() * t.element_size() for k, t in recs.items()
+                      if k != "derived")
+        nbytes += sum(t.numel() * t.element_size() for t in recs["derived"].values())
     t_ops = ops / H100_FLOPS[dtype] * 1e3
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     return Bound(max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",

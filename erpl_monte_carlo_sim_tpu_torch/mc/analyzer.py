@@ -11,6 +11,12 @@ or as streams past ``stats_stream_threshold`` lanes), an optional mid-run
 checkpoint, and ``run_to_precision``'s sequential stop. Options of the JAX
 analyzer that the port does not have yet raise ``NotImplementedError``
 naming the ROADMAP item that brings them.
+
+Each run remembers its lanes (``_last_batch``: the single call's batch, or
+a slabbed run's recipe), so that ``resimulate_trajectories``, ``lane_scenes``
+and ``flight_envelope`` (``mc.resimulate``) can fly any of them again. Both
+draws go through one seam each, ``_draw_single`` and ``_draw_slab``, which
+the tests replace to feed the JAX package's lanes through the analyzer.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from ..models.scene import Scene, nominal_scene
 from ..utils.convert import to_numpy
 from .dispersions import UncertaintyParams, sample_dispersions
 from .filter import OutlierBounds, decode_reasons, outlier_mask
+from .resimulate import ResimulationMixin
 from .stats import PERCENTILES, landing_footprint, masked_stats, percentile_ci
 
 __all__ = ["MonteCarloAnalyzer", "slab_seed"]
@@ -50,6 +57,18 @@ def slab_seed(seed: int, k: int) -> int:
     are independent of each other and of the single-call run's."""
     state = np.random.SeedSequence([seed % 2**64, k]).generate_state(1, np.uint64)
     return int(state[0]) & (2**63 - 1)
+
+
+def _draw_single(analyzer, ic, n: int, seed: int, base_wind):
+    """A single-call run's ``(scene_b, ic_b, sample)``: ``n`` lanes from a
+    generator seeded ``seed``. The run's one draw; tests replace it to feed
+    other lanes through the run."""
+    gen = torch.Generator(device=analyzer.device)
+    gen.manual_seed(seed)
+    return sample_dispersions(gen, analyzer.scene, ic, analyzer.uncertainty_params, n,
+                              base_wind=base_wind,
+                              wind_grid_points=analyzer.wind_grid_points,
+                              wind_grid_top=analyzer.wind_grid_top)
 
 
 def _draw_slab(analyzer, ic, k: int, slab: int, seed: int, base_wind):
@@ -95,7 +114,7 @@ def _stats_to_py(s: dict) -> dict:
     }
 
 
-class MonteCarloAnalyzer:
+class MonteCarloAnalyzer(ResimulationMixin):
     """Dispersion analysis over a scene: pass ``scene=`` or at least a
     ``motor`` (the other parts default to the nominal vehicle). The device
     and dtype are the scene's."""
@@ -160,6 +179,9 @@ class MonteCarloAnalyzer:
         # a single forecast (altitudes[N], wind[N,3]) each lane perturbs
         self.base_altitude_profile = None
         self.base_wind_profile = None
+        # the last run's lanes, and the last re-simulation (mc.resimulate)
+        self._last_batch = None
+        self._resim_memo = None
 
     @property
     def device(self) -> torch.device:
@@ -223,6 +245,7 @@ class MonteCarloAnalyzer:
             raise ValueError("checkpoint_every must be >= 1")
         ic = self._as_ic(initial_conditions)
         base_wind = self._base_wind()
+        self._last_batch = self._resim_memo = None
         if n_samples > slab:
             return self._run_slabbed(ic, n_samples, slab, seed, materialize_results,
                                      base_wind, checkpoint_path, checkpoint_every)
@@ -231,12 +254,7 @@ class MonteCarloAnalyzer:
                              "lane_slab); this run fits one device call")
 
         t_start = time.time()
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(seed)
-        scene_b, ic_b, sample = sample_dispersions(
-            gen, self.scene, ic, self.uncertainty_params, n_samples,
-            base_wind=base_wind, wind_grid_points=self.wind_grid_points,
-            wind_grid_top=self.wind_grid_top)
+        scene_b, ic_b, sample = _draw_single(self, ic, n_samples, seed, base_wind)
         summary = simulate_summary_batch(scene_b, ic_b, self.sim_config)
         valid, reasons = outlier_mask(summary, self.bounds)
         stats = {k: masked_stats(getattr(summary, k), valid) for k in _METRICS}
@@ -249,6 +267,7 @@ class MonteCarloAnalyzer:
         for k in stats_py:
             stats_py[k]["percentile_ci"] = percentile_ci(getattr(summary_np, k), valid_np)
         elapsed = time.time() - t_start
+        self._last_batch = (scene_b, ic_b)
 
         n_valid = int(valid_np.sum())
         sample_np = to_numpy(sample)
@@ -318,6 +337,7 @@ class MonteCarloAnalyzer:
                 c.update(slab_metrics[c.metric][valid_np])
             return all(c.satisfied() for c in crits)
 
+        self._last_batch = self._resim_memo = None
         analysis = self._run_slabbed(ic, max_samples, slab, seed, materialize_results,
                                      self._base_wind(), stop_rule=stop_rule,
                                      min_samples=min_samples)
@@ -399,6 +419,9 @@ class MonteCarloAnalyzer:
         if ckpt_fp is not None and os.path.exists(checkpoint_path):
             os.remove(checkpoint_path)
         elapsed = time.time() - t_start
+        # the recipe that draws any slab again (mc.resimulate)
+        self._last_batch = {"slabbed": True, "seed": seed, "slab": slab,
+                            "n_samples": n_samples, "ic": ic, "base_wind": base_wind}
 
         if streaming:
             stats_blocks = by_key["stream"].stats_blocks()

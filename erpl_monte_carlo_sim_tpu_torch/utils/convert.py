@@ -22,8 +22,8 @@ from ..models.scene import Scene
 from ..models.wind import WindField, WindModelParams
 from .tree import is_static, tree_map
 
-__all__ = ["scene_from_numpy", "ic_from_numpy", "sample_from_numpy", "to_numpy",
-           "summary_to_numpy"]
+__all__ = ["scene_from_numpy", "ic_from_numpy", "sample_from_numpy",
+           "trajectory_from_numpy", "to_numpy", "summary_to_numpy"]
 
 _SCENE_PARTS = {"rocket": RocketParams, "motor": MotorParams,
                 "atmosphere": AtmosphereParams, "wind": WindField,
@@ -75,6 +75,17 @@ def sample_from_numpy(obj, device, dtype=None):
     from ..mc.dispersions import DispersionSample
 
     return _convert(DispersionSample, obj, device, dtype)
+
+
+def trajectory_from_numpy(obj, device, dtype=None):
+    """A port ``Trajectory`` from a JAX one (or a dict): ``[B, T, ...]``
+    leaves and the ``derived`` dict, leaf by leaf (``valid`` stays bool)."""
+    from ..engine.simulate import Trajectory
+
+    kwargs = {f.name: _leaf(_get(obj, f.name), device, dtype)
+              for f in dataclasses.fields(Trajectory) if f.name != "derived"}
+    derived = {k: _leaf(v, device, dtype) for k, v in dict(_get(obj, "derived")).items()}
+    return Trajectory(**kwargs, derived=derived)
 
 
 def to_numpy(obj):

@@ -40,9 +40,12 @@ def _is_params(x) -> bool:
 
 def tree_map(fn, obj):
     """Apply ``fn`` to every non-static leaf of a parameter dataclass (or a
-    bare leaf), rebuilding the same structure. ``None`` leaves stay None."""
+    bare leaf), rebuilding the same structure; a dict field (a trajectory's
+    ``derived``) is mapped value by value. ``None`` leaves stay None."""
     if obj is None:
         return None
+    if isinstance(obj, dict):
+        return {k: tree_map(fn, v) for k, v in obj.items()}
     if not _is_params(obj):
         return fn(obj)
     kwargs = {}

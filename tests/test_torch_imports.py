@@ -18,7 +18,8 @@ FORBIDDEN = {"jax", "jaxlib", "flax"}
 
 def test_every_module_imports_with_jax_and_flax_blocked():
     assert {f"erpl_monte_carlo_sim_tpu_torch.mc.{m}" for m in (
-        "slab_accumulators", "slab_checkpoint", "sequential", "checkpoint", "tail")} <= set(MODULES)
+        "slab_accumulators", "slab_checkpoint", "sequential", "checkpoint", "tail",
+        "envelope", "resimulate")} <= set(MODULES)
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -28,6 +29,8 @@ def test_every_module_imports_with_jax_and_flax_blocked():
         "    importlib.import_module(m)\n"
         "from erpl_monte_carlo_sim_tpu_torch.kernels import flight_summary\n"
         "assert flight_summary.launches == 0\n"
+        "from erpl_monte_carlo_sim_tpu_torch.engine import simulate_flight_batch\n"
+        "from erpl_monte_carlo_sim_tpu_torch.mc import EnvelopeAccumulator, ResimulationMixin\n"
         "assert 'jax' not in [k for k, v in sys.modules.items() if v is not None]\n"
         "print('ok')\n"
     )

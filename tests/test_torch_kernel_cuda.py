@@ -17,8 +17,10 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import compare, kernel_and_plain, sample_batch, slab_reference
-from erpl_monte_carlo_sim_tpu_torch.engine import InitialConditions, SimConfig
+from chip_smoke import (compare, compare_records, head, kernel_and_plain, records_of,
+                        sample_batch, slab_reference)
+from erpl_monte_carlo_sim_tpu_torch.engine import (InitialConditions, SimConfig,
+                                                   simulate_flight_batch, simulate_summary_batch)
 from erpl_monte_carlo_sim_tpu_torch.engine.batch import prepare_batch
 from erpl_monte_carlo_sim_tpu_torch.kernels import flight_summary as fs
 from erpl_monte_carlo_sim_tpu_torch.engine import component
@@ -232,3 +234,103 @@ def test_slabbed_run_is_its_single_calls_on_cuda():
     assert 0 < a["n_samples"]
     for k in ("apogee_altitude", "range", "flight_time"):
         np.testing.assert_equal(a[k], _host_stats(metrics[k], valid), err_msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,n", [(torch.float32, 256), (torch.float64, 64)],
+                         ids=["f32-256", "f64-64"])
+def test_record_build_matches_plain_recorder_on_cuda(dtype, n):
+    """The recording build against the plain recorder (graph-replayed on
+    the card) on 64 of the lanes, a frame every 3 steps for 6 s; its summary
+    the summary build's bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc; the CPU records with the plain version only")
+    cfg = SimConfig(max_time=6.0, record_stride=3)
+    args = prepare_batch(*sample_batch(n, dtype))
+    before = fs.launches
+    got, recs = fs.flight_record(*args, cfg)
+    assert fs.launches == before + 1
+    summary = fs.flight_summary(*args, cfg)
+    assert digest(got) == digest(summary)
+    part = head(args, n, 64)
+    ref, ref_recs = fs.flight_record_reference(*part, cfg)
+    compare(ref, head(got, n, 64), dtype)
+    compare_records(ref_recs, {k: ({c: x[:, :64] for c, x in v.items()} if k == "derived"
+                                   else v[:, :64]) for k, v in recs.items()}, dtype)
+    assert bool((recs["valid"].sum(0) > 300).all())
+
+
+@pytest.mark.cuda
+def test_simulate_flight_batch_records_through_the_kernel_on_cuda():
+    """``simulate_flight_batch`` on CUDA tensors launches the recording
+    build once; its summary is ``simulate_summary_batch``'s bit for bit and
+    its trajectory the records the wrapper returns."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc; the CPU records with the plain version only")
+    scene_b, ic_b = sample_batch(128, torch.float32)
+    cfg = SimConfig(max_time=2.0, record_stride=2, record_channels=("mach", "euler_angles"))
+    before = fs.launches
+    s, traj = simulate_flight_batch(scene_b, ic_b, cfg)
+    assert fs.launches == before + 1
+    want = simulate_summary_batch(scene_b, ic_b, cfg)
+    assert torch.equal(s.apogee_altitude, want.apogee_altitude)
+    assert torch.equal(s.n_steps, want.n_steps)
+    _, recs = fs.flight_record(*prepare_batch(scene_b, ic_b), cfg)
+    mine = records_of(traj, 128)
+    assert set(mine["derived"]) == set(recs["derived"]) == {"mach", "euler_roll",
+                                                            "euler_pitch", "euler_yaw"}
+    for k in ("time", "pz", "qw", "valid"):
+        assert torch.equal(mine[k], recs[k]), k
+
+
+@pytest.mark.cuda
+def test_record_room_check_raises_before_the_launch_on_cuda():
+    """60,001 frames of 35 channels for 16,384 lanes (2 x 138 GB) do not
+    fit the card: the wrapper raises with the numbers, and launches
+    nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args = prepare_batch(*sample_batch(16_384, torch.float32))
+    before = fs.launches
+    with pytest.raises(RuntimeError, match="GiB are free"):
+        fs.flight_record(*args, SimConfig())
+    assert fs.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("what", ["recorder", "envelope"])
+def test_graph_replayed_blocks_are_the_eager_loop_on_cuda(what, monkeypatch):
+    """On the card the plain recorder and the in-loop envelope replay one
+    captured block of steps (``engine/component.py _replay_blocks``): the
+    recorder's every bit as the eager loop's; the envelope's counts,
+    histograms, min and max too, its sums (scattered with atomic adds, in
+    no fixed order) at rtol 1e-12, float64, 128 lanes for 2 s."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the CPU runs the eager loop only")
+    cfg = SimConfig(max_time=2.0, record_stride=2)
+    args = prepare_batch(*sample_batch(128, torch.float64))
+    wind_fn = component.table_wind_fn(args[1], args[2])
+
+    def run():
+        if what == "recorder":
+            return fs.flight_record_reference(*args, cfg)
+        channels = ("altitude", "speed", "mach")
+        lo = torch.zeros((3, 8), dtype=torch.float32, device="cuda")
+        width = torch.full((3, 8), 100.0, dtype=torch.float32, device="cuda")
+        return component.flight_components_envelope(args[0], cfg, wind_fn, args[3], channels,
+                                                    8, 16, 0.25, lo, width, 2)
+
+    graphed = run()
+    monkeypatch.setattr(component, "_replay_blocks",
+                        lambda block, carry, n, running, stride: component._run_blocks(
+                            block, carry, n, running))
+    eager = run()
+    assert digest(graphed[0]) == digest(eager[0])
+    for k, a in graphed[1].items():
+        b = eager[1][k]
+        if isinstance(a, dict):
+            assert all(torch.equal(a[c], b[c]) for c in a), k
+        elif k in ("mean", "m2"):
+            torch.testing.assert_close(a, b, rtol=1e-12, atol=0.0)
+        else:
+            assert torch.equal(a, b), k

@@ -12,7 +12,10 @@ idle threads must still reach the barrier, a shared wind table, the solid
 motor's 10-knot thrust curve, float32 and float64; and every flag set's
 build (``kernel_flags``) on a window of dispersed lanes (the tiered ones
 also fly the low-apogee scenes of tests/test_descent.py to landing, in
-tests/test_torch_landing_f64.py and _f32.py).
+tests/test_torch_landing_f64.py and _f32.py). The recording build
+(``flight_record``) against the plain recorder, its summary against the
+summary build's: parity windows in both precisions, and a low-apogee scene
+to landing under the tiered set with a subset of the derived channels.
 The CPU's math library stands in for CUDA's, so this checks the kernel's
 logic and order of operations, not its last bits on the card (chip_smoke.py
 does that). It skips without g++. This file imports no JAX.
@@ -27,14 +30,16 @@ import subprocess
 import pytest
 import torch
 
-from chip_smoke import compare
+from chip_smoke import compare, compare_records
 from erpl_monte_carlo_sim_tpu_torch.engine import InitialConditions, SimConfig
 from erpl_monte_carlo_sim_tpu_torch.engine.batch import prepare_batch
 from erpl_monte_carlo_sim_tpu_torch.engine.component import INT_KEYS
 from erpl_monte_carlo_sim_tpu_torch.kernels import flight_summary as fs
-from erpl_monte_carlo_sim_tpu_torch.kernels.measure import COMBINED, combined
+from erpl_monte_carlo_sim_tpu_torch.kernels.measure import (COMBINED, FULL_FLIGHTS,
+                                                            LOW_APOGEE_PROPELLANT, combined)
 from erpl_monte_carlo_sim_tpu_torch.mc import sample_dispersions
-from erpl_monte_carlo_sim_tpu_torch.models import liquid_motor, nominal_scene, solid_motor
+from erpl_monte_carlo_sim_tpu_torch.models import (RocketParams, WindField, liquid_motor,
+                                                   nominal_scene, solid_motor)
 
 torch.set_num_threads(1)
 
@@ -168,17 +173,26 @@ def build_emulated(tmp_path_factory, builds) -> dict:
     for flags, dtype, suffix, lib, p in jobs:
         out, _ = p.communicate(timeout=600)
         assert p.returncode == 0, f"g++ failed for {flags}:\n{out}"
-        fn = getattr(ctypes.CDLL(str(lib)), f"flight_summary_{suffix}")
+        fn = getattr(ctypes.CDLL(str(lib)), fs.entry_name(flags, suffix))
         fn.restype = ctypes.c_int
         libs.setdefault(flags, {})[dtype] = fn
     return libs
 
 
+# the recording builds: parity, and the tiered set to landing
+RECORD_WINDOW = SimConfig(max_time=2.0, record_stride=3)
+RECORD_LANDING = SimConfig(**FULL_FLIGHTS, record_stride=4,
+                           record_channels=("mach", "euler_angles", "thrust", "drag"))
+
+
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
-    """The parity build and each ``COMBINED`` flag set's, emulated."""
+    """The parity build and each ``COMBINED`` flag set's, and the recording
+    builds, emulated."""
     return build_emulated(tmp_path_factory,
-                          {fs.PARITY} | {flags_of(name)[2] for name in COMBINED})
+                          {fs.PARITY} | {flags_of(name)[2] for name in COMBINED}
+                          | {fs.kernel_flags(c, record=True)
+                             for c in (RECORD_WINDOW, RECORD_LANDING)})
 
 
 def run_emulated(libs, scene_nw, grid, wind, ics, cfg) -> dict:
@@ -188,16 +202,24 @@ def run_emulated(libs, scene_nw, grid, wind, ics, cfg) -> dict:
     fn = libs[a.build][ics[0].dtype]
     out_f = torch.empty((len(fs._FLOAT_KEYS), a.n), dtype=ics[0].dtype)
     out_i = torch.empty((len(INT_KEYS), a.n), dtype=torch.int32)
-    rc = fn((ctypes.c_void_p * len(a.ptrs))(*a.ptrs), (ctypes.c_int * len(a.strides))(*a.strides),
-            len(a.ptrs), (ctypes.c_void_p * len(a.table_ptrs))(*a.table_ptrs),
-            (ctypes.c_int * len(a.sizes))(*a.sizes), ctypes.c_int64(a.wind_lane_stride),
-            (ctypes.c_double * len(a.cfg_vals))(*a.cfg_vals), len(a.cfg_vals), cfg.max_steps,
-            cfg.max_rail_steps, ctypes.c_void_p(out_f.data_ptr()),
-            ctypes.c_void_p(out_i.data_ptr()), a.n, None)
-    assert rc == 0
-    res = {k: out_f[i] for i, k in enumerate(fs._FLOAT_KEYS)}
-    res.update({k: out_i[i] for i, k in enumerate(INT_KEYS)})
-    return res
+    assert fn(*fs.entry_args(a, cfg, out_f, out_i, None)) == 0
+    return fs._outputs(out_f, out_i)
+
+
+def record_emulated(libs, scene_nw, grid, wind, ics, cfg):
+    """``flight_record`` through the emulated recording build of ``cfg``'s
+    flags: ``(summary dict, records)``, the frames filled as the wrapper
+    fills them (``unpack_frames``)."""
+    a = fs._kernel_args(scene_nw, grid, wind, ics, cfg, record=True)
+    lay = fs.record_layout(cfg)
+    fn = libs[a.build][ics[0].dtype]
+    out_f = torch.empty((len(fs._FLOAT_KEYS), a.n), dtype=ics[0].dtype)
+    out_i = torch.empty((len(INT_KEYS), a.n), dtype=torch.int32)
+    # NaN where no frame is written, so that a frame left out shows
+    frames = torch.full((lay.n_frames, lay.n_channels, a.n), float("nan"), dtype=ics[0].dtype)
+    stop = torch.full((a.n,), -1, dtype=torch.int32)
+    assert fn(*fs.entry_args(a, cfg, out_f, out_i, None, (frames, stop, lay))) == 0
+    return fs._outputs(out_f, out_i), fs.unpack_frames(frames, stop, lay)
 
 
 def batch(n, dtype, motor=liquid_motor, seed=0):
@@ -281,3 +303,53 @@ def test_emulated_flag_set_window(emulated, name, dtype):
         assert bool((got["rail_exit_angle_of_attack"].abs() > 0.2618).any())
     else:
         assert not bool(got["diverged"].any()) and bool((got["n_steps"] > 200).all())
+
+
+def check_record_build(libs, args, cfg, dtype):
+    """The emulated recording build against the plain recorder on prepared
+    inputs ``args``; its summary the summary build's, bit for bit, and the
+    plain version's within the bars. Returns ``(summary, records)``."""
+    got, recs = record_emulated(libs, *args, cfg)
+    ref, ref_recs = fs.flight_record_reference(*args, cfg)
+    compare(ref, got, dtype)
+    if fs.kernel_flags(cfg) in libs:
+        summary = run_emulated(libs, *args, cfg)
+        for k in got:
+            assert torch.equal(got[k].nan_to_num(-1.0), summary[k].nan_to_num(-1.0)), k
+    compare_records(ref_recs, recs, dtype)
+    assert not any(bool(v.isnan().any()) for k, v in recs.items() if k not in ("valid", "derived"))
+    return got, recs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_emulated_record_build_window(emulated, dtype):
+    """64 dispersed lanes for 2 s, a frame every 3 steps (lanes stop inside
+    a block), every derived channel."""
+    args = prepare_batch(*batch(64, dtype, seed=9))
+    got, recs = check_record_build(emulated, args, RECORD_WINDOW, dtype)
+    steps = got["n_steps"].to(torch.int64)
+    assert bool((steps % 3 != 0).any())
+    assert torch.equal(recs["valid"].sum(0), -(-steps // 3) + 1)
+    assert len(recs["derived"]) == len(fs.DERIVED_KEYS)
+
+
+def test_emulated_record_build_tiered_to_landing(emulated):
+    """The 5 kg low-apogee scene of tests/test_descent.py to landing under
+    scripts/full_flights.py's set in float64: coarse quiet coast, fine steps
+    through the chute latch, coarse canopy descent, the lane's own time; the
+    mask records four derived channels (six with the Euler angles)."""
+    f64 = torch.float64
+    pm = LOW_APOGEE_PROPELLANT[0]
+    scene = dataclasses.replace(
+        nominal_scene(liquid_motor("cpu", f64, propellant_mass=pm), WindField.zero("cpu", f64)),
+        rocket=RocketParams.create("cpu", f64, propellant_mass=pm))
+    ic = InitialConditions.vertical_launch("cpu", f64)
+    args = prepare_batch(scene, InitialConditions(*(v[None] for v in (
+        ic.position, ic.velocity, ic.attitude, ic.angular_velocity))))
+    got, recs = check_record_build(emulated, args, RECORD_LANDING, torch.float64)
+    assert bool(got["parachute_deployed"].all()) and bool((got["final_pz"] <= 0.5).all())
+    assert set(recs["derived"]) == {"euler_roll", "euler_pitch", "euler_yaw", "mach",
+                                    "thrust", "drag"}
+    t = recs["time"][recs["valid"][:, 0], 0]
+    dt = t.diff()
+    assert float(dt.max() / dt[dt > 0].min()) > 8  # coarse and fine frames

@@ -6,8 +6,9 @@ that choose the kernel's paths. The rules behind the kernel's shortcuts,
 checked in NumPy with the expressions of ``ops/interp.py``: where a table is
 window-exact, the four knots around the query's segment give the full tent
 sum bit for bit, and each knot's weight needs one division where the kernel
-takes one. And the bound the kernel's time is held against. This file
-imports no JAX.
+takes one. And the bound the kernel's time is held against, and the
+recording build's frames: their layout, the wrapper's fill after each
+lane's stop frame and its room check. This file imports no JAX.
 """
 
 import dataclasses
@@ -166,7 +167,8 @@ def test_each_flag_set_is_its_own_build():
     parity, defines = fs._library(fs.PARITY, src)
     assert defines == ["-DFS_RK2=0", "-DFS_WIND_PER_STEP=0", "-DFS_ENERGY_AERO=0",
                        "-DFS_STALL_MOMENTS=0", "-DFS_TIERED=0", "-DFS_ASCENT_GATE=0",
-                       "-DFS_TERMINATE_NONFINITE=1", "-DFS_SPEED_GUARD=0", "-DFS_WIND_BF16=0"]
+                       "-DFS_TERMINATE_NONFINITE=1", "-DFS_SPEED_GUARD=0", "-DFS_WIND_BF16=0",
+                       "-DFS_RECORD=0"]
     assert fs._library(fs.PARITY, src + b" ")[0] != parity
 
 
@@ -382,3 +384,84 @@ def test_input_bytes_counts_each_input_once():
     leaves = [getattr(getattr(scene_nw, p), f) for p, f in fs._SCENE_LEAVES + fs._TABLES]
     expect = 4 * (sum(t.numel() for t in leaves) + n_wind + 6 * n_wind * 3 + 12 * 6)
     assert fs.input_bytes(scene_nw, grid, wind, ics) == expect
+
+
+# ------------------------------------------------------- the recording build
+def test_record_layout_and_build():
+    """A recording's frames: the rail-exit frame and one every
+    record_stride steps, the time, the 14 state values and the derived
+    channels asked for (their mask bits in DERIVED_KEYS order); the
+    recording build of a flag set is that set with ``record``, its own
+    library, named by its own C entry."""
+    lay = fs.record_layout(SimConfig(max_time=6.0, record_stride=4))
+    assert lay.n_frames == 1 + 300 and lay.stride == 4
+    assert lay.names == fs.DERIVED_KEYS and lay.n_channels == 15 + 20
+    assert lay.mask == (1 << 20) - 1
+    sub = fs.record_layout(SimConfig(record_channels=("mach", "euler_angles")))
+    assert sub.names == ("euler_roll", "euler_pitch", "euler_yaw", "mach")
+    assert sub.mask == 0b111 << 5 | 1 << 19 and sub.n_channels == 19
+    assert sub.n_frames == 60_001
+    bare = fs.record_layout(SimConfig(record_derived=False, record_stride=7))
+    assert bare.mask == 0 and bare.n_channels == 15 and bare.n_frames == 1 + 8572
+    full = SimConfig(energy_consistent_aero=True, descent_dt_scale=16)
+    rec = fs.kernel_flags(full, record=True)
+    assert rec == fs.kernel_flags(full)._replace(record=True)
+    assert fs.flags_name(rec) == "energy_aero+tiered+record"
+    assert fs.entry_name(rec, "f32") == "flight_record_f32"
+    assert fs.entry_name(fs.PARITY, "f64") == "flight_summary_f64"
+    with open(fs.SOURCE, "rb") as f:
+        src = f.read()
+    path, defines = fs._library(fs.PARITY._replace(record=True), src)
+    assert defines[-1] == "-DFS_RECORD=1" and path != fs._library(fs.PARITY, src)[0]
+    a = fs._kernel_args(*cpu_batch(3), WINDOW, record=True)
+    assert a.build == fs.PARITY._replace(record=True)
+
+
+def test_unpack_frames_fills_after_each_stop():
+    """The wrapper's one gather: a lane's frames after its stop frame are
+    that frame, ``valid`` is frame <= stop, the channels split into the
+    time, the state and the derived channels."""
+    lay = fs.record_layout(SimConfig(max_time=0.05, record_channels=("mach",)))
+    assert lay.n_frames == 11 and lay.n_channels == 16
+    frames = torch.arange(11 * 16 * 3, dtype=torch.float64).reshape(11, 16, 3)
+    stop = torch.tensor([0, 4, 10], dtype=torch.int32)
+    recs = fs.unpack_frames(frames, stop, lay)
+    assert set(recs) == set(fs.FRAME_KEYS) | {"valid", "derived"}
+    assert set(recs["derived"]) == {"mach"}
+    for lane, s in enumerate(stop.tolist()):
+        want = frames[torch.clamp(torch.arange(11), max=s), :, lane]
+        got = torch.stack([recs[k][:, lane] for k in fs.FRAME_KEYS]
+                          + [recs["derived"]["mach"][:, lane]], dim=1)
+        assert torch.equal(got, want)
+        assert recs["valid"][:, lane].tolist() == [f <= s for f in range(11)]
+
+
+def test_record_room_check_raises_with_the_numbers(monkeypatch):
+    """The wrapper never truncates a recording: it raises, with the bytes
+    needed and free, before it allocates."""
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda device=None: (2**30, 2**34))
+    monkeypatch.setattr(torch.cuda, "memory_reserved", lambda device=None: 2**29)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda device=None: 0)
+    lay = fs.record_layout(SimConfig())  # 60,001 frames of 35 channels
+    fs._check_room(lay, 64, torch.float32, "cuda")  # 1.0 GiB of 1.5 GiB
+    with pytest.raises(RuntimeError, match=r"needs 2\.0\d GiB on cuda, 1\.50 GiB are free"):
+        fs._check_room(lay, 128, torch.float32, "cuda")
+
+
+def test_bound_counts_recorded_frames():
+    """A recording adds, per frame up to each lane's stop, the derived
+    channels' operations (when any is recorded), and its frames' bytes."""
+    assert fs.OPS_PER_FRAME == sum(fs.DERIVED_OPS.values()) == 282
+    out = {"n_steps": torch.tensor([100, 40], dtype=torch.int32),
+           "rail_exit_time": torch.tensor([0.80, 0.87], dtype=torch.float64)}
+    base = fs.bound_ms(out, SimConfig(), torch.float64, in_bytes=1000)
+    valid = torch.zeros(60, 2, dtype=torch.bool)
+    valid[:51, 0], valid[:21, 1] = True, True
+    frames = {k: torch.zeros(60, 2, dtype=torch.float64) for k in fs.FRAME_KEYS}
+    recs = {**frames, "valid": valid,
+            "derived": {"mach": torch.zeros(60, 2, dtype=torch.float64)}}
+    b = fs.bound_ms(out, SimConfig(), torch.float64, 1000, recs)
+    assert b.ops == base.ops + 72 * 282
+    assert b.bytes == base.bytes + 16 * 60 * 2 * 8 + 60 * 2
+    bare = fs.bound_ms(out, SimConfig(), torch.float64, 1000, {**recs, "derived": {}})
+    assert bare.ops == base.ops
