@@ -11,8 +11,10 @@ raises and the run exits non-zero:
   2. the kernel against its plain PyTorch version, both on the card, on the
      same dispersed lanes (``SimConfig(max_time=6.0)``): 1024 lanes in
      float32, 256 in float64 with one NaN-wind lane;
-  3. the golden flight (nominal liquid motor, no wind, to landing) through
-     the kernel against tests/golden/flight_liquid_nowind.json;
+  3. the golden flights (nominal liquid and solid motors, no wind, to
+     landing) through the kernel against tests/golden/flight_*_nowind.json
+     at tests/test_flight.py's bars: the liquid motor in float64 and
+     float32, the solid motor in float64;
   4. the main path at the bench size: ``MonteCarloAnalyzer.run_monte_carlo``
      with 262,144 lanes and ``SimConfig(max_time=6.0)``, launch count from
      that run, then the kernel against its plain version at that shape,
@@ -83,7 +85,33 @@ raises and the run exits non-zero:
      envelope fed by the plain recorder (counts and histograms exact,
      moments at 1e-9), the in-loop envelope against the frame path, and
      the in-loop reduction alone timed on 2,048 lanes. The recording
-     builds are timed in both precisions beside their bound.
+     builds are timed in both precisions beside their bound;
+ 11. the user's entry point, in a temporary working directory: (a)
+     ``example.main(n_samples=262,144, stabilized=True, device="cuda")``,
+     each stage clocked and its launches counted (``StageClock``): the
+     report, the 50 per-sim exports and the six figures written (each
+     figure over 10 kB; on a host without matplotlib the smoke lets the
+     figures' ImportError pass after their data are gathered, prints that
+     the PNG gate and the figures' wall were not run, and holds the six
+     PNGs again where matplotlib is installed), the report's stats blocks the analysis', each
+     export's headline values the run's lane bit for bit, the single flight
+     the summary build's on the same inputs, the post-hoc CLIs on the
+     exports (quaternion norm drift under 1e-6), the recording build
+     launched once for the single flight and once for the exports and not
+     again for the two trajectory clouds; (b) the parity example at its
+     default 50 lanes, whose CSV-wind single flight diverges as the
+     reference's does, run to its end with its artifacts; (c) the golden
+     CSV-wind flight on the reference forecast recovered from
+     tests/golden/mc_forecast.jsonl, float64: the recording build in an
+     11 s window at tests/test_wind_flight_parity.py's bars, and the
+     stabilized flight to landing at tests/test_stabilized.py's checks; (d)
+     the ``launch_window`` CLI at its default config, 65,536 lanes a
+     candidate (each candidate's valid lanes and go printed), and on
+     tests/test_launch_window.py's 3 s window, where the mean impact must
+     move with the wind's direction.
+
+The kernels JSON gives each flight_summary and recording row the launches
+of phase 11's example runs (``example_launches``).
 
 Phases 2, 4, 5 and 6 also print ``digest`` lines: the SHA-256 of the
 kernel's outputs with NaN made canonical (``kernels/measure.py digest``). A
@@ -1184,6 +1212,415 @@ def recordings(dev, ic, mc4, run4, record_usage, record_flags) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------- phase 11
+EXAMPLE_LANES = 262_144
+EXAMPLE_PNGS = ("landing_footprint.png", "monte_carlo_distributions.png",
+                "monte_carlo_trajectories.png", "monte_carlo_trajectories_3d.png",
+                "single_simulation_results.png", "thrust_twr.png")
+EXAMPLE_REPORTS = ("monte_carlo_report.json", "monte_carlo_report.txt")
+# the stages of example.main, each timed and its launches counted
+STAGES = {"simulate_flight_batch": "single", "save_report": "report",
+          "save_simulation_results": "exports", "plot_results": "plots",
+          "plot_landing_footprint": "plots", "plot_trajectory_cloud": "clouds",
+          "plot_trajectory_cloud_3d": "clouds", "plot_single_simulation": "plots",
+          "plot_thrust_twr": "plots"}
+LAUNCH_WINDOW_LANES = 65_536
+
+
+def figures_drawn() -> bool:
+    """Whether this host can draw the example's figures (matplotlib is
+    installed); where it cannot, the example leaves them out."""
+    import importlib.util
+
+    return importlib.util.find_spec("matplotlib") is not None
+
+
+class StageClock:
+    """Wraps the stages of ``example.main`` (the module's own names) so that
+    each adds its wall and its launches of the summary and recording builds
+    to ``rows[stage]``; the card is synchronized at each boundary."""
+
+    def __init__(self, example_mod):
+        from erpl_monte_carlo_sim_tpu_torch.kernels import flight_summary as fs
+
+        self.fs, self.mod, self.rows, self.saved = fs, example_mod, {}, {}
+        self.not_drawn = []
+        for name, stage in STAGES.items():
+            self.saved[name] = getattr(example_mod, name)
+            setattr(example_mod, name, self.timed(stage, self.saved[name]))
+        base = example_mod.MonteCarloAnalyzer
+        self.saved["MonteCarloAnalyzer"] = base
+        clock = self
+
+        class TimedAnalyzer(base):
+            def run_monte_carlo(self, *a, **kw):
+                return clock.timed("mc", super().run_monte_carlo)(*a, **kw)
+
+        example_mod.MonteCarloAnalyzer = TimedAnalyzer
+
+    def timed(self, stage, fn):
+        def run(*a, **kw):
+            fs = self.fs
+            torch.cuda.synchronize()
+            k0, r0, t0 = fs.launches, fs.record_launches, time.time()
+            try:
+                return fn(*a, **kw)
+            except ImportError as e:
+                # a host without matplotlib: the figure's data are gathered
+                # (the clouds' recordings too) and the figure is not drawn;
+                # where matplotlib is installed the error stands
+                if stage not in ("plots", "clouds") or figures_drawn():
+                    raise
+                self.not_drawn.append(fn.__name__)
+                print(f"[11] {fn.__name__} not drawn: {e}", flush=True)
+                return None
+            finally:
+                torch.cuda.synchronize()
+                row = self.rows.setdefault(stage, {"wall_s": 0.0, "k1": 0, "k1_rec": 0})
+                row["wall_s"] += time.time() - t0
+                row["k1_rec"] += fs.record_launches - r0
+                row["k1"] += (fs.launches - k0) - (fs.record_launches - r0)
+        return run
+
+    def restore(self):
+        for name, fn in self.saved.items():
+            setattr(self.mod, name, fn)
+
+
+def run_example(n: int, stabilized: bool):
+    """``example.main`` on the card, the stages clocked, the launches
+    counted from 0 just before it: ``(results, analysis, output_dir,
+    stages, k1, k1_rec, wall, not_drawn)``, ``not_drawn`` the figures a host
+    without matplotlib left out."""
+    from erpl_monte_carlo_sim_tpu_torch import example
+    from erpl_monte_carlo_sim_tpu_torch.kernels import flight_summary as fs
+
+    clock = StageClock(example)
+    try:
+        torch.cuda.synchronize()
+        fs.launches = fs.record_launches = 0
+        t0 = time.time()
+        results, analysis, out = example.main(n, stabilized=stabilized, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        k1, k1_rec = fs.launches - fs.record_launches, fs.record_launches
+    finally:
+        clock.restore()
+    return results, analysis, out, clock.rows, k1, k1_rec, wall, clock.not_drawn
+
+
+def same_json(a, b) -> bool:
+    """Equal as JSON values (NaN meets NaN)."""
+    return json.dumps(a, sort_keys=True) == json.dumps(b, sort_keys=True)
+
+
+def check_exports(out: str, analysis: dict, tag: str) -> list:
+    """Each ``sim_<id>.json`` of ``out``: the run's ``results`` lane ids, and
+    its headline values the run's summary for that lane bit for bit (the
+    re-simulation contract). Returns the file names."""
+    sims = os.path.join(out, "simulation_results")
+    ids = [r["simulation_id"] for r in analysis["results"][:50]]
+    names = sorted(os.listdir(sims)) if os.path.isdir(sims) else []
+    if names != sorted(f"sim_{i}.json" for i in ids):
+        raise AssertionError(f"{tag}: exports {names[:5]}... are not the lanes {ids[:5]}...")
+    summary = analysis["summary"]
+    for i in ids:
+        with open(os.path.join(sims, f"sim_{i}.json")) as f:
+            sim = json.load(f)
+        for k in ("apogee_altitude", "range", "flight_time"):
+            want = float(np.asarray(getattr(summary, k))[i])
+            if not (sim[k] == want or (math.isnan(sim[k]) and math.isnan(want))):
+                raise AssertionError(f"{tag}: sim_{i}.json {k} {sim[k]!r} is not the "
+                                     f"run's {want!r}")
+    return names
+
+
+def run_clis(sims: str) -> dict:
+    """find_max_apogee and analyze_outlier on the exports, their prints kept
+    out of this script's output."""
+    import contextlib
+    import io
+
+    from erpl_monte_carlo_sim_tpu_torch.cli.analyze_outlier import main as analyze
+    from erpl_monte_carlo_sim_tpu_torch.cli.find_max_apogee import main as find_max
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        sim_id, apo = find_max(sims)
+        info = analyze(sims, sim_id) if sim_id is not None else {}
+    return {"max_apogee_sim": sim_id, "max_apogee": apo,
+            "max_quat_norm_drift": info.get("max_quat_norm_drift")}
+
+
+def stage_numbers(stages: dict) -> dict:
+    """The stages' walls and launches; without matplotlib the ``plots``
+    stage drew nothing, so its wall is not a figure's time."""
+    out = {f"{k}_{m}": (f"{v:.3f}" if m == "wall_s" else v)
+           for k, row in sorted(stages.items()) for m, v in row.items()}
+    if not figures_drawn() and "plots_wall_s" in out:
+        out["plots_wall_s"] = "not measured (no matplotlib on this host)"
+    return out
+
+
+def example_stabilized(dev) -> dict:
+    """11a: the stabilized example at full size."""
+    from erpl_monte_carlo_sim_tpu_torch import example
+    from erpl_monte_carlo_sim_tpu_torch.engine import (InitialConditions, SimConfig,
+                                                       simulate_summary_batch)
+    from erpl_monte_carlo_sim_tpu_torch.models import (WindField, liquid_motor,
+                                                       load_wind_profile_from_csv,
+                                                       nominal_scene)
+    from erpl_monte_carlo_sim_tpu_torch.utils.serialize import to_serializable
+
+    results, analysis, out, stages, k1, k1_rec, wall, not_drawn = run_example(EXAMPLE_LANES,
+                                                                              True)
+    # the files: the report, 50 exports, the six figures where they are drawn
+    pngs = EXAMPLE_PNGS if figures_drawn() else ()
+    drawn = sorted(n for n in os.listdir(out) if n.endswith(".png"))
+    if drawn != sorted(pngs):
+        raise AssertionError(f"11a: figures {drawn}, expected {sorted(pngs)}")
+    if len(drawn) + len(not_drawn) != len(EXAMPLE_PNGS):
+        raise AssertionError(f"11a: figures drawn {drawn}, left out {not_drawn}")
+    for name in EXAMPLE_REPORTS + pngs:
+        path = os.path.join(out, name)
+        size = os.path.getsize(path) if os.path.exists(path) else 0
+        if size == 0 or (name.endswith(".png") and size <= 10_000):
+            raise AssertionError(f"11a: {name} is missing or too small ({size} bytes)")
+    names = check_exports(out, analysis, "11a")
+    if len(names) != 50:
+        raise AssertionError(f"11a: {len(names)} exports, 50 expected")
+    sims = os.path.join(out, "simulation_results")
+    export_bytes = sum(os.path.getsize(os.path.join(sims, n)) for n in names)
+    if min(os.path.getsize(os.path.join(sims, n)) for n in names) == 0:
+        raise AssertionError("11a: an empty export")
+    with open(os.path.join(out, "monte_carlo_report.json")) as f:
+        report = json.load(f)
+    for key, block in (("apogee_altitude_stats", "apogee_altitude"), ("range_stats", "range"),
+                       ("flight_time_stats", "flight_time")):
+        if not same_json(report[key], to_serializable(analysis[block])):
+            raise AssertionError(f"11a: the report's {key} is not the analysis'")
+    # the single flight against the summary build on the same B=1 inputs
+    alts, wind = load_wind_profile_from_csv(example.SAMPLE_WIND)
+    scene = dataclasses.replace(nominal_scene(liquid_motor(dev)),
+                                wind=WindField.from_arrays(alts, wind, dev))
+    ic = InitialConditions.vertical_launch(dev)
+    ic1 = InitialConditions(*(v[None] for v in (ic.position, ic.velocity, ic.attitude,
+                                                ic.angular_velocity)))
+    s = simulate_summary_batch(scene, ic1, SimConfig(energy_consistent_aero=True))
+    for k, v in (("apogee_altitude", s.apogee_altitude), ("apogee_time", s.apogee_time),
+                 ("range", s.range), ("flight_time", s.flight_time),
+                 ("rail_exit_speed", s.rail.rail_exit_speed)):
+        if results[k] != float(v[0]):
+            raise AssertionError(f"11a: the single flight's {k} {results[k]!r} is not the "
+                                 f"summary build's {float(v[0])!r}")
+    # the scene as JSON and back onto the card flies the same flight
+    from erpl_monte_carlo_sim_tpu_torch.utils.scene_io import load_scene, save_scene
+
+    save_scene(scene, os.path.join(out, "scene.json"))
+    loaded = load_scene(os.path.join(out, "scene.json"), dev)
+    if loaded.rocket.dry_mass.device.type != "cuda":
+        raise AssertionError("11a: load_scene(path, dev) left the scene off the card")
+    s2 = simulate_summary_batch(loaded, ic1, SimConfig(energy_consistent_aero=True))
+    if not (torch.equal(s2.apogee_altitude, s.apogee_altitude)
+            and torch.equal(s2.range, s.range)):
+        raise AssertionError("11a: the scene loaded from JSON flies another flight")
+    clis = run_clis(sims)
+    if not clis["max_quat_norm_drift"] < 1e-6:
+        raise AssertionError(f"11a: quaternion norm drift {clis['max_quat_norm_drift']}")
+    # K1 for the run; K1-Rec for the single flight and once for the exports;
+    # the clouds re-use the exports' recording (the memo)
+    if not (k1 >= 1 and k1_rec == 2 and stages["single"]["k1_rec"] == 1
+            and stages["exports"]["k1_rec"] == 1 and stages["mc"]["k1"] >= 1
+            and stages["clouds"]["k1"] + stages["clouds"]["k1_rec"] == 0):
+        raise AssertionError(f"11a: launches k1={k1} k1_rec={k1_rec} by stage {stages}")
+    phase("11a example stabilized", lanes=EXAMPLE_LANES, n_valid=analysis["n_samples"],
+          n_outliers=analysis["n_outliers"], k1_launches=k1, k1_rec_launches=k1_rec,
+          main_wall_s=f"{wall:.3f}", files=len(names) + 2 + len(drawn),
+          figures=len(drawn) if figures_drawn() else
+          "not drawn, PNG gate not run (no matplotlib on this host)",
+          export_bytes=export_bytes, scene_json_on_card="the same flight bit for bit",
+          single_apogee_m=results["apogee_altitude"],
+          single_flight_time_s=results["flight_time"],
+          apogee_mean=analysis["apogee_altitude"]["mean"], **clis, **stage_numbers(stages))
+    return {"k1": k1, "k1_rec": k1_rec}
+
+
+def example_parity() -> dict:
+    """11b: the parity example at its default 50 lanes: the CSV-wind single
+    flight diverges, as the reference's does; the run must still write its
+    artifacts."""
+    results, analysis, out, stages, k1, k1_rec, wall, _ = run_example(50, False)
+    pngs = ("monte_carlo_distributions.png", "single_simulation_results.png",
+            "thrust_twr.png") if figures_drawn() else ()
+    for name in EXAMPLE_REPORTS + pngs:
+        if not os.path.exists(os.path.join(out, name)) or \
+                os.path.getsize(os.path.join(out, name)) == 0:
+            raise AssertionError(f"11b: {name} is missing or empty")
+    names = check_exports(out, analysis, "11b")
+    if k1 < 1 or k1_rec != 1 + (1 if names else 0):
+        raise AssertionError(f"11b: launches k1={k1} k1_rec={k1_rec}")
+    n_files = sum(len(f) for _, _, f in os.walk(out))
+    phase("11b example parity", lanes=50, n_valid=analysis["n_samples"],
+          n_outliers=analysis["n_outliers"], k1_launches=k1, k1_rec_launches=k1_rec,
+          files=n_files, main_wall_s=f"{wall:.3f}",
+          single_apogee_m=results["apogee_altitude"], single_range_m=results["range"],
+          single_flight_time_s=results["flight_time"], **stage_numbers(stages))
+    return {"k1": k1, "k1_rec": k1_rec}
+
+
+def recovered_csv(dev) -> None:
+    """11c: the reference forecast recovered from tests/golden/mc_forecast.jsonl,
+    float64: the golden CSV-wind flight through the recording build in an
+    11 s window (tests/test_wind_flight_parity.py's bars), and the same
+    scene stabilized to landing through the summary build
+    (tests/test_stabilized.py's checks)."""
+    from erpl_monte_carlo_sim_tpu_torch.engine import (InitialConditions, SimConfig,
+                                                       simulate_flight_batch,
+                                                       simulate_summary_batch)
+    from erpl_monte_carlo_sim_tpu_torch.kernels import flight_summary as fs
+    from erpl_monte_carlo_sim_tpu_torch.models import (WindField, liquid_motor,
+                                                       load_wind_profile_from_csv,
+                                                       nominal_scene)
+
+    f64 = torch.float64
+    alts, wind = load_wind_profile_from_csv(os.path.join(
+        ROOT, "erpl_monte_carlo_sim_tpu_torch", "data", "reference_sample_wind.csv"))
+    scene = dataclasses.replace(nominal_scene(liquid_motor(dev, f64)),
+                                wind=WindField.from_arrays(alts, wind, dev, f64))
+    ic = InitialConditions.vertical_launch(dev, f64)
+    ic1 = InitialConditions(*(v[None] for v in (ic.position, ic.velocity, ic.attitude,
+                                                ic.angular_velocity)))
+    with open(os.path.join(ROOT, "tests", "golden", "flight_liquid_csvwind.json")) as f:
+        g = json.load(f)
+    fs.launches = fs.record_launches = 0
+    s, t = simulate_flight_batch(scene, ic1, SimConfig(max_time=11.0))
+    rec_launched = fs.record_launches
+    rail = {"speed": float(s.rail.rail_exit_speed[0]),
+            "aoa": float(s.rail.rail_exit_angle_of_attack[0]),
+            "sideslip": float(s.rail.rail_exit_sideslip[0])}
+    ok = {"rail_exit_speed": abs(rail["speed"] / g["rail_exit_speed"] - 1) <= 1e-5,
+          "rail_exit_aoa": abs(rail["aoa"] / g["rail_exit_aoa"] - 1) <= 1e-3,
+          "rail_exit_sideslip": abs(rail["sideslip"] - g["rail_exit_sideslip"])
+          <= max(1e-2 * abs(g["rail_exit_sideslip"]), 1e-6)}
+    valid = t.valid[0].cpu().numpy()
+    time_ = t.time[0].cpu().numpy()[valid]
+    pos = t.position[0].cpu().numpy()[valid]
+    speed = t.derived["speed"][0].cpu().numpy()[valid]
+    aoa = t.derived["angle_of_attack"][0].cpu().numpy()[valid]
+    worst = {"alt": 0.0, "speed": 0.0, "x": 0.0, "y": 0.0, "aoa": 0.0}
+    probes = 0
+    for p in g["probes"]:
+        if p["t"] > 10.5:
+            continue
+        i = int(np.argmin(np.abs(time_ - p["t"])))
+        probes += 1
+        got = {"alt": pos[i, 2], "speed": speed[i], "x": pos[i, 0], "y": pos[i, 1],
+               "aoa": aoa[i]}
+        bars = {"alt": 2e-3 * abs(p["alt"]), "speed": 2e-3 * abs(p["speed"]),
+                "x": max(0.05 * abs(p["x"]), 0.5), "y": max(0.05 * abs(p["y"]), 0.5),
+                "aoa": 3e-3}
+        for k in got:
+            err = abs(float(got[k]) - p[k])
+            worst[k] = max(worst[k], err / bars[k])
+            ok[f"probe {p['t']:.1f} {k}"] = err <= bars[k]
+    # stabilized to landing through the summary build, and parity's blow-up
+    fs.launches = 0
+    bad = simulate_summary_batch(scene, ic1, SimConfig())
+    good = simulate_summary_batch(scene, ic1, SimConfig(energy_consistent_aero=True))
+    launched = fs.launches
+    bad_range = float(bad.range[0])
+    ok["parity diverges"] = (not math.isfinite(bad_range)) or bad_range > 1e6
+    ok["stabilized flight"] = (float(good.flight_time[0]) > 100.0
+                               and float(good.max_speed[0]) < 1500.0
+                               and math.isfinite(float(good.range[0]))
+                               and float(good.range[0]) < 50_000.0
+                               and bool(good.parachute_deployed[0])
+                               and not bool(good.diverged[0]))
+    if not all(ok.values()) or rec_launched != 1 or launched != 2:
+        raise AssertionError(f"11c: {[k for k, v in ok.items() if not v]}, launches "
+                             f"{rec_launched} recording, {launched} summary")
+    phase("11c recovered reference csv", rail_exit_speed=rail["speed"],
+          rail_exit_aoa=rail["aoa"], rail_exit_sideslip=rail["sideslip"], probes=probes,
+          worst_share_of_bar=json.dumps({k: round(v, 6) for k, v in worst.items()}),
+          k1_rec_launches=rec_launched, k1_launches=launched, parity_range_m=bad_range,
+          stabilized_flight_time_s=float(good.flight_time[0]),
+          stabilized_range_m=float(good.range[0]),
+          stabilized_max_speed=float(good.max_speed[0]))
+
+
+def sweep_cli(argv):
+    """The launch_window CLI's ``main(argv)`` on the card (its default
+    device), its printed JSON kept out of this script's output and checked
+    against the returned sweep; ``(sweep, wall s, launches)``."""
+    import contextlib
+    import io
+
+    from erpl_monte_carlo_sim_tpu_torch.cli.launch_window import main as launch_window
+    from erpl_monte_carlo_sim_tpu_torch.kernels import flight_summary as fs
+
+    torch.cuda.synchronize()
+    fs.launches = 0
+    t0 = time.time()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        sweep = launch_window(argv)
+    wall = time.time() - t0
+    if json.loads(buf.getvalue())["go_count"] != sweep["go_count"]:
+        raise AssertionError("launch_window printed another sweep than it returned")
+    return sweep, wall, fs.launches
+
+
+def impact_shifts(sweep) -> tuple:
+    """The mean impact's x at direction 0 less at 180 degrees, for 8 and 2
+    m/s."""
+    x = {(r["wind_speed"], r["wind_direction_deg"]): r["landing_footprint"]["mean_m"][0]
+         for r in sweep["candidates"]}
+    return x[(8.0, 0.0)] - x[(8.0, 180.0)], x[(2.0, 0.0)] - x[(2.0, 180.0)]
+
+
+def launch_window_on_card() -> None:
+    """11d: the launch_window CLI on the card. At its default config
+    (``SimConfig()``, parity physics to landing) most lanes diverge (ROADMAP
+    F5), so the mean impact is that of the few survivors: printed, not
+    held. tests/test_launch_window.py's direction check is held on its own
+    3 s window, at the same lanes."""
+    args = ["--speeds", "2,8", "--directions", "0,180", "--n", str(LAUNCH_WINDOW_LANES),
+            "--range-limit", "3000"]
+    sweep, wall, launched = sweep_cli(args)
+    shift8, shift2 = impact_shifts(sweep)
+    window, wall3, launched3 = sweep_cli(args + ["--max-time", "3.0"])
+    w8, w2 = impact_shifts(window)
+    if launched != 4 or launched3 != 4 or not (w8 > 0.2 and abs(w2) < w8):
+        raise AssertionError(f"11d: launches {launched}, {launched3}; 3 s window impact x "
+                             f"shift {w8} at 8 m/s, {w2} at 2 m/s")
+    phase("11d launch window", lanes_per_candidate=LAUNCH_WINDOW_LANES, launches=launched,
+          wall_s=f"{wall:.3f}", go_count=sweep["go_count"], x_shift_8_m=shift8,
+          x_shift_2_m=shift2,
+          candidates=json.dumps([{"speed": r["wind_speed"],
+                                  "direction": r["wind_direction_deg"],
+                                  "n_valid": r["n_valid"], "go": r["go"]}
+                                 for r in sweep["candidates"]]))
+    phase("11d launch window 3 s", lanes_per_candidate=LAUNCH_WINDOW_LANES,
+          launches=launched3, wall_s=f"{wall3:.3f}", x_shift_8_m=w8, x_shift_2_m=w2,
+          n_valid=json.dumps([r["n_valid"] for r in window["candidates"]]))
+
+
+def entry_point(dev) -> dict:
+    """Phase 11 in a temporary working directory (the example writes into
+    ``outputs/`` under it); returns the example runs' launches."""
+    import tempfile
+
+    cwd, tmp = os.getcwd(), tempfile.mkdtemp(prefix="chip_smoke_example_")
+    os.chdir(tmp)
+    try:
+        launches = {"11a stabilized": example_stabilized(dev), "11b parity": example_parity()}
+        recovered_csv(dev)
+        launch_window_on_card()
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     start = time.time()
     # ---------------------------------------------------------------- 0
@@ -1213,8 +1650,12 @@ def main() -> int:
     # phase 10's recording builds
     record_builds = {"parity": fs.PARITY._replace(record=True),
                      "full_flights": flag_set("full_flights")[2]._replace(record=True)}
+    # phase 11's: the stabilized example's single flight and exports record
+    # through the energy_consistent_aero build
+    example_builds = [builds["energy_consistent_aero"]._replace(record=True)]
     t0 = time.time()
-    logs = fs.build_many([fs.PARITY, *builds.values(), *record_builds.values()], verbose=True)
+    logs = fs.build_many([fs.PARITY, *builds.values(), *record_builds.values(),
+                          *example_builds], verbose=True)
     build_s = time.time() - t0
     usage = ptxas_usage(logs[0][1])
     set_usage = {name: ptxas_usage(log) for name, (_, log) in zip(builds, logs[1:])}
@@ -1226,6 +1667,9 @@ def main() -> int:
         phase(f"1 build {name}", build=fs.flags_name(builds[name]), ptxas=json.dumps(use))
     for (name, use), flags in zip(record_usage.items(), record_builds.values()):
         phase(f"1 build record {name}", build=fs.flags_name(flags), ptxas=json.dumps(use))
+    for flags, (_, log) in zip(example_builds, logs[1 + len(builds) + len(record_builds):]):
+        phase("1 build record example", build=fs.flags_name(flags),
+              ptxas=json.dumps(ptxas_usage(log)))
 
     # ---------------------------------------------------------------- 2
     cfg = SimConfig(max_time=WINDOW)
@@ -1250,11 +1694,21 @@ def main() -> int:
     from erpl_monte_carlo_sim_tpu_torch.engine import simulate_summary_batch
     from erpl_monte_carlo_sim_tpu_torch.models import nominal_scene
 
-    with open(os.path.join(ROOT, "tests", "golden", "flight_liquid_nowind.json")) as f:
-        golden = json.load(f)
-    # the bars of tests/test_flight.py: apogee 1e-5 in float64, 0.1% in float32
-    for dtype, apogee_rel in ((torch.float64, 1e-5), (torch.float32, 1e-3)):
-        scene = nominal_scene(liquid_motor(dev, dtype))
+    from erpl_monte_carlo_sim_tpu_torch.models import solid_motor
+
+    goldens = {}
+    for motor in ("liquid", "solid"):
+        with open(os.path.join(ROOT, "tests", "golden", f"flight_{motor}_nowind.json")) as f:
+            goldens[motor] = json.load(f)
+    # the bars of tests/test_flight.py: the liquid motor in float64 (apogee
+    # 1e-5, and _check_summary's other bars) and in float32 (0.1%), the
+    # solid motor in float64 (apogee 5e-4)
+    for motor, dtype, apogee_rel in (("liquid", torch.float64, 1e-5),
+                                     ("liquid", torch.float32, 1e-3),
+                                     ("solid", torch.float64, 5e-4)):
+        golden = goldens[motor]
+        make = liquid_motor if motor == "liquid" else solid_motor
+        scene = nominal_scene(make(dev, dtype))
         ic = InitialConditions.vertical_launch(dev, dtype)
         ic1 = InitialConditions(*(v[None] for v in (ic.position, ic.velocity, ic.attitude,
                                                     ic.angular_velocity)))
@@ -1272,14 +1726,29 @@ def main() -> int:
             "not_diverged": not bool(s.diverged[0]),
         }
         if dtype == torch.float64:
+            rel = {"apogee_time": 1e-2, "range": 5e-3, "flight_time": 1e-2}
+            for k, r in rel.items():
+                checks[k] = abs(float(getattr(s, k)[0]) / golden[k] - 1) <= r
+            checks["rail_exit_aoa"] = abs(float(s.rail.rail_exit_angle_of_attack[0])
+                                          - golden["rail_exit_aoa"]) <= 1e-6
+            pos = s.rail.rail_exit_position[0].cpu().numpy()
+            checks["rail_exit_position"] = bool(np.all(
+                np.abs(pos - golden["rail_exit_position"])
+                <= 1e-6 + 1e-3 * np.abs(golden["rail_exit_position"])))
+        if motor == "liquid" and dtype == torch.float64:
             checks["n_steps"] = abs(int(s.n_steps[0]) - (golden["n_steps"] - 1)) <= 20
         if not all(checks.values()):
-            raise AssertionError(f"golden flight ({dtype}): {checks}, apogee {apogee}")
-        phase(f"3 golden {str(dtype).split('.')[-1]}", apogee_m=apogee,
+            raise AssertionError(f"golden flight ({motor}, {dtype}): {checks}, apogee {apogee}")
+        tag = "" if motor == "liquid" else f" {motor}"
+        extra = {} if dtype == torch.float32 else {
+            "range_m": float(s.range[0]), "golden_range_m": golden["range"],
+            "flight_time_s": float(s.flight_time[0]),
+            "golden_flight_time_s": golden["flight_time"]}
+        phase(f"3 golden{tag} {str(dtype).split('.')[-1]}", apogee_m=apogee,
               golden_m=golden["apogee_altitude"],
               rail_exit_speed=float(s.rail.rail_exit_speed[0]),
               rail_exit_time=float(s.rail.rail_exit_time[0]),
-              n_steps=int(s.n_steps[0]), seconds=f"{secs:.3f}")
+              n_steps=int(s.n_steps[0]), seconds=f"{secs:.3f}", **extra)
 
     # ---------------------------------------------------------------- 4
     ic = InitialConditions.vertical_launch(dev)
@@ -1469,11 +1938,17 @@ def main() -> int:
     record_rows = recordings(dev, ic, mc, analysis, record_usage, record_builds)
     phase("10 done", phase_10_s=f"{time.time() - t0:.1f}", script_s=f"{time.time() - start:.1f}")
 
+    # ---------------------------------------------------------------- 11
+    t0 = time.time()
+    example_launches = entry_point(dev)
+    phase("11 done", phase_11_s=f"{time.time() - t0:.1f}", script_s=f"{time.time() - start:.1f}")
+
     report = {"kernels": [
         {"name": f"flight_summary ({name})", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": where, "launches": launches, "max_abs_err": main_err,
          "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
-         "large_run_launches": large_launches, **costs}
+         "large_run_launches": large_launches,
+         "example_launches": {k: v["k1"] for k, v in example_launches.items()}, **costs}
         for name, where in REPLACES
     ] + [
         {"name": f"flight_summary [{name}]", "route": "cuda", "source": KERNEL_SOURCE,
@@ -1484,7 +1959,8 @@ def main() -> int:
         for name, row in rows.items()
     ] + [
         {"name": f"flight_summary [record {name}]", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": REPLACES[0][1], "library_ms": None, **row}
+         "replaces": REPLACES[0][1], "library_ms": None,
+         "example_launches": {k: v["k1_rec"] for k, v in example_launches.items()}, **row}
         for name, row in record_rows.items()
     ]}
     print(card, flush=True)

@@ -5,11 +5,16 @@ The JAX package ``erpl_monte_carlo_sim_tpu`` is the reference this port is
 held against. Main path: ``mc.MonteCarloAnalyzer.run_monte_carlo`` ->
 ``mc.sample_dispersions`` -> ``engine.simulate_summary_batch`` (the CUDA
 kernel ``kernels/flight_summary.py`` on the card) -> ``mc.outlier_mask`` ->
-``mc.masked_stats``.
+``mc.masked_stats``. The user's entry point is ``example.main``; the
+reports and plots are in ``reporting``, the post-hoc tools in ``cli``.
 """
 
+from . import cli, engine, mc, models, ops, reporting, utils  # noqa: F401
 from .engine import InitialConditions, SimConfig, simulate_summary_batch
-from .models import liquid_motor, nominal_scene, solid_motor
+from .models import (AtmosphereParams, MotorParams, RocketParams, Scene, WindField,
+                     WindModelParams, liquid_motor, nominal_scene, solid_motor)
 
 __all__ = ["InitialConditions", "SimConfig", "simulate_summary_batch",
-           "liquid_motor", "nominal_scene", "solid_motor"]
+           "AtmosphereParams", "MotorParams", "RocketParams", "Scene", "WindField",
+           "WindModelParams", "liquid_motor", "nominal_scene", "solid_motor",
+           "cli", "engine", "mc", "models", "ops", "reporting", "utils"]

@@ -20,7 +20,8 @@ content hash of the source, the flags and the defines names the library, so
 an edited source rebuilds) and bound with ``ctypes``; ``build_many`` starts
 the compilers of several flag sets at once. The parity flag set
 (``PARITY``) compiles to the same code as before the flags existed.
-``launches`` counts kernel launches, of every flag set.
+``launches`` counts kernel launches, of every flag set and both builds;
+``record_launches`` counts those of the recording build alone.
 
 The recording build (``KernelFlags.record``, ``-DFS_RECORD=1``) is the same
 flight with an epilogue that writes a frame of
@@ -55,15 +56,17 @@ from ..engine.config import SimConfig
 
 __all__ = ["flight_summary", "flight_summary_reference", "flight_record",
            "flight_record_reference", "record_layout", "build", "build_many",
-           "launches", "SOURCE", "KernelFlags", "PARITY", "kernel_flags", "flags_name",
+           "launches", "record_launches", "SOURCE", "KernelFlags", "PARITY", "kernel_flags", "flags_name",
            "stored_wind", "cfg_values", "ops_per_step", "bound_ms", "input_bytes"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "flight_summary.cu")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
-# kernel launches so far (the count a run reads to show the kernel ran)
+# kernel launches so far (the count a run reads to show the kernel ran), and
+# of them the recording build's
 launches = 0
+record_launches = 0
 
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # -fmad=false: no a*b+c contraction, so the kernel rounds as the eager
@@ -443,8 +446,10 @@ def _launch(scene_nw, grid, wind, ics, cfg: SimConfig, rec=None) -> dict:
     if rc != 0:
         raise RuntimeError(f"flight_summary kernel launch failed ({flags_name(a.build)}, "
                            f"CUDA error {rc})")
-    global launches
+    global launches, record_launches
     launches += 1
+    if rec is not None:
+        record_launches += 1
     return _outputs(out_f, out_i)
 
 

@@ -301,6 +301,13 @@ class MonteCarloAnalyzer(ResimulationMixin):
             summary_np, sample_np, valid_np, reasons_np, want_valid=False, limit=limit)
         return analysis
 
+    def run_optimized_monte_carlo(self, initial_conditions, n_samples=1000,
+                                  chunk_size=None, **kw) -> dict:
+        """The reference's API name for ``run_monte_carlo``: the batched
+        path is the optimized one, and ``chunk_size`` has no meaning here."""
+        del chunk_size
+        return self.run_monte_carlo(initial_conditions, n_samples, **kw)
+
     def run_to_precision(self, initial_conditions, *, criteria, max_samples: int,
                          min_samples: int = 0, seed: int = 0,
                          lane_slab: Optional[int] = None,

@@ -8,7 +8,7 @@ from .rocket import (AeroCoefficients, MassProperties, RocketParams,
                      stability_margin)
 from .scene import Scene, nominal_scene
 from .wind import (WindField, WindModelParams, generate_stochastic_profile,
-                   perturb_wind_profile, power_law_profile)
+                   load_wind_profile_from_csv, perturb_wind_profile, power_law_profile)
 
 __all__ = [
     "AtmosphereParams", "AtmosProperties", "atmosphere_properties", "gravity_at",
@@ -17,5 +17,5 @@ __all__ = [
     "RocketParams", "aero_coefficients", "barrowman_cp", "dynamic_cp",
     "mass_properties", "stability_margin", "Scene", "nominal_scene",
     "WindField", "WindModelParams", "generate_stochastic_profile",
-    "perturb_wind_profile", "power_law_profile",
+    "perturb_wind_profile", "power_law_profile", "load_wind_profile_from_csv",
 ]

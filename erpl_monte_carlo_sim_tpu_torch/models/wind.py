@@ -17,12 +17,13 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
-from ..utils.tree import materialize
+from ..utils.tree import default_dtype, materialize
 
 __all__ = ["WindField", "WindModelParams", "power_law_profile", "generate_stochastic_profile",
-           "perturb_wind_profile"]
+           "perturb_wind_profile", "load_wind_profile_from_csv"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,6 +38,14 @@ class WindField:
         """No wind: a degenerate 2-point zero table."""
         return cls(altitudes=torch.tensor([0.0, 1.0], dtype=dtype, device=device),
                    wind=torch.zeros((2, 3), dtype=dtype, device=device))
+
+    @classmethod
+    def from_arrays(cls, altitudes, wind, device, dtype=None) -> "WindField":
+        """A field from host arrays (``load_wind_profile_from_csv``'s), on
+        ``device`` in ``dtype`` (``utils.tree.default_dtype``)."""
+        dtype = default_dtype(device, dtype)
+        return cls(altitudes=torch.as_tensor(np.asarray(altitudes), dtype=dtype, device=device),
+                   wind=torch.as_tensor(np.asarray(wind), dtype=dtype, device=device))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,3 +132,17 @@ def perturb_wind_profile(p: WindModelParams, altitudes, base_profile, noise=None
     return _ar1_scan(p, altitudes, base_profile[..., :2],
                      mean_w=base_profile[..., 2], noise=noise,
                      generator=generator)
+
+
+def load_wind_profile_from_csv(file_path: str):
+    """Load an ``altitude,u,v[,w]`` CSV forecast: host NumPy arrays
+    ``(altitudes [N], wind [N, 3])`` for ``WindField.from_arrays`` or the
+    analyzer's ``base_altitude_profile`` / ``base_wind_profile`` (a missing
+    ``w`` column is zero)."""
+    data = np.genfromtxt(file_path, delimiter=",", names=True)
+    altitudes = np.atleast_1d(data["altitude"])
+    if "w" in data.dtype.names:
+        wind = np.vstack([data["u"], data["v"], data["w"]]).T
+    else:
+        wind = np.vstack([data["u"], data["v"], np.zeros_like(altitudes)]).T
+    return altitudes, wind

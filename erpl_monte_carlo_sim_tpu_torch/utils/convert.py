@@ -89,8 +89,10 @@ def trajectory_from_numpy(obj, device, dtype=None):
 
 
 def to_numpy(obj):
-    """Every tensor leaf of a port dataclass as a NumPy array."""
-    return tree_map(lambda t: t.detach().cpu().numpy(), obj)
+    """Every tensor leaf of a port dataclass (or a bare tensor) as a NumPy
+    array, from any device; leaves that are host arrays already pass."""
+    return tree_map(lambda t: t.detach().cpu().numpy() if isinstance(t, torch.Tensor)
+                    else np.asarray(t), obj)
 
 
 summary_to_numpy = to_numpy

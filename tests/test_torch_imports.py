@@ -20,6 +20,10 @@ def test_every_module_imports_with_jax_and_flax_blocked():
     assert {f"erpl_monte_carlo_sim_tpu_torch.mc.{m}" for m in (
         "slab_accumulators", "slab_checkpoint", "sequential", "checkpoint", "tail",
         "envelope", "resimulate")} <= set(MODULES)
+    assert {f"erpl_monte_carlo_sim_tpu_torch.{m}" for m in (
+        "example", "reporting", "reporting.plots", "reporting.report", "reporting.results",
+        "cli", "cli.find_max_apogee", "cli.analyze_outlier", "cli.launch_window",
+        "utils.serialize", "utils.logging", "utils.scene_io", "utils.debug")} <= set(MODULES)
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -31,6 +35,10 @@ def test_every_module_imports_with_jax_and_flax_blocked():
         "assert flight_summary.launches == 0\n"
         "from erpl_monte_carlo_sim_tpu_torch.engine import simulate_flight_batch\n"
         "from erpl_monte_carlo_sim_tpu_torch.mc import EnvelopeAccumulator, ResimulationMixin\n"
+        "from erpl_monte_carlo_sim_tpu_torch.example import main\n"
+        "from erpl_monte_carlo_sim_tpu_torch.cli.launch_window import main as lw\n"
+        "from erpl_monte_carlo_sim_tpu_torch.reporting import save_report, plot_results\n"
+        "from erpl_monte_carlo_sim_tpu_torch import Scene, WindField, RocketParams, cli\n"
         "assert 'jax' not in [k for k, v in sys.modules.items() if v is not None]\n"
         "print('ok')\n"
     )
@@ -77,3 +85,28 @@ def test_no_source_imports_jax_or_flax(path):
             assert name.split(".")[0] not in FORBIDDEN, (path, name)
             assert not name.startswith("erpl_monte_carlo_sim_tpu.") and \
                 name != "erpl_monte_carlo_sim_tpu", (path, name)
+
+
+def test_package_imports_without_matplotlib():
+    """The figures import matplotlib when drawn: the package, its reports,
+    exports and CLIs need no plotting library, and a figure raises naming
+    the missing one."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['matplotlib'] = None\n"
+        "import erpl_monte_carlo_sim_tpu_torch as p\n"
+        "from erpl_monte_carlo_sim_tpu_torch.example import main\n"
+        "from erpl_monte_carlo_sim_tpu_torch.reporting import plot_convergence\n"
+        "h = [{'n_valid': n, **{k: {'mean': 1.0, 'stderr': 0.1} for k in "
+        "('apogee_altitude', 'range', 'flight_time')}} for n in (1, 2)]\n"
+        "try:\n"
+        "    plot_convergence({'convergence': h}, '.')\n"
+        "except ImportError as e:\n"
+        "    print('matplotlib' in str(e))\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=ROOT, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "True"
