@@ -110,8 +110,31 @@ raises and the run exits non-zero:
      tests/test_launch_window.py's 3 s window, where the mean impact must
      move with the wind's direction.
 
+ 12. the sampling variants at the main path's width (262,144 float32 lanes,
+     ``max_time=6.0``), each through ``run_monte_carlo`` on the card with its
+     K1 launches counted from 0 and its draws timed (the card synchronized
+     around each), K1 then timed on the run's own lanes and held to its plain
+     version on the first 1024: (a) scrambled Sobol, 8 scrambles and 8
+     turbulence modes, its integer points equal to the CPU's for the same
+     seeds bit for bit and its normals within 4 ulp, the run's wind speeds
+     those points', 8 finite RQMC block means, the apogee's RQMC stderr
+     printed beside phase 4's i.i.d. std/sqrt(n); (b) antithetic pairs, every
+     scalar channel's second half the mirror of its first as the port forms
+     it, bit for bit; (c) ``importance_shift={"motor_thrust": 2.0}``, the
+     mean weight within 4 stderr of 1 and the weighted apogee mean within 4
+     stderr of phase 4's; (d) a three-member forecast ensemble written as
+     CSVs (the recovered reference forecast and copies offset by +-3 m/s in
+     u) in 4 slabs of 65,536, the ensemble block a NumPy group-by of the
+     run's metrics on its members, one lane of each slab re-simulated to the
+     run's metrics bit for bit with its member drawn again; (e) 1,048,576
+     Sobol lanes in 4 slabs, ``run_to_precision`` on ``qmc_mean_stderr``
+     stopping at the 4th slab with the run's analysis, and the run killed
+     after 2 slabs and resumed, bit for bit.
+
 The kernels JSON gives each flight_summary and recording row the launches
-of phase 11's example runs (``example_launches``).
+of phase 11's example runs (``example_launches``), and the summary rows
+(and the parity recording row) those of phase 12's runs
+(``variant_launches``).
 
 Phases 2, 4, 5 and 6 also print ``digest`` lines: the SHA-256 of the
 kernel's outputs with NaN made canonical (``kernels/measure.py digest``). A
@@ -174,6 +197,10 @@ RESIM_LANES = 256
 HELD_LANES = 64
 ENVELOPE_LANES = 4096
 ENVELOPE_HELD = 1024
+# phase 12: the sampling variants at the main path's width; the Sobol run's
+# options, and the forecast ensemble's slab
+SOBOL = {"sampler": "sobol", "sobol_scrambles": 8, "sobol_wind_modes": 8}
+ENSEMBLE_SLAB = 65_536
 
 
 def phase(name: str, **numbers) -> None:
@@ -1621,6 +1648,355 @@ def entry_point(dev) -> dict:
     return launches
 
 
+def variant_run(mc, ic, n: int, want_launches: int, **kw):
+    """One run of the main path under ``mc``'s sampling options: K1's
+    launches counted from 0 just before it and read just after (one a slab),
+    each draw through the analyzer's seams timed with the card synchronized
+    around it. Returns ``(analysis, draw ms per call, wall s, launches)``."""
+    from erpl_monte_carlo_sim_tpu_torch.kernels import flight_summary as fs
+    from erpl_monte_carlo_sim_tpu_torch.mc import analyzer as analyzer_mod
+
+    draws = []
+    seams = {name: getattr(analyzer_mod, name) for name in ("_draw_single", "_draw_slab")}
+
+    def timed(fn):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            draws.append(1e3 * (time.perf_counter() - t0))
+            return out
+        return call
+
+    for name, fn in seams.items():
+        setattr(analyzer_mod, name, timed(fn))
+    try:
+        torch.cuda.synchronize()
+        fs.launches = 0
+        t0 = time.time()
+        analysis = mc.run_monte_carlo(ic, n_samples=n, seed=0, **kw)
+        wall = time.time() - t0
+        launched = fs.launches
+    finally:
+        for name, fn in seams.items():
+            setattr(analyzer_mod, name, fn)
+    if launched != want_launches:
+        raise AssertionError(f"{launched} launches of the flight kernel, {want_launches} "
+                             "expected")
+    return analysis, draws, wall, launched
+
+
+def warm_draw_ms(mc, ic, n: int, slab=None) -> float:
+    """The median of 3 warm draws of ``n`` lanes (a slab of a slabbed run
+    with ``slab``) through the analyzer's seam under ``mc``'s options, the
+    card synchronized around each: the sampling stage without first-call
+    costs."""
+    from erpl_monte_carlo_sim_tpu_torch.mc import analyzer as analyzer_mod
+
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if slab is None:
+            analyzer_mod._draw_single(mc, ic, n, 0, mc._base_wind())
+        else:
+            analyzer_mod._draw_slab(mc, ic, 0, slab, 0, mc._base_wind())
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def k1_on_lanes(scene_b, ic_b, cfg) -> dict:
+    """K1 on a run's own lanes: timed (CUDA events) beside its bound, and
+    held to its plain version on the first ``SLICE_LANES`` lanes at the
+    float32 bars (``compare``). These launches are not the run's."""
+    from erpl_monte_carlo_sim_tpu_torch.engine.batch import prepare_batch
+    from erpl_monte_carlo_sim_tpu_torch.kernels import flight_summary as fs
+
+    args = prepare_batch(scene_b, ic_b)
+    t = time_kernel(fs, args, cfg, torch.float32, reps=2)
+    got = fs.flight_summary(*args, cfg)
+    ref, got_n, plain_ms = plain_on_head(args, got, cfg, n=SLICE_LANES)
+    return {"kernel_ms": t["ms"], "bound_ms": t["bound_ms"],
+            "share_of_bound": t["share_of_bound"], "held_lanes": SLICE_LANES,
+            "max_abs_err": compare(ref, got_n, torch.float32), "plain_ms": plain_ms}
+
+
+def ulps32(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The largest difference of two float32 tensors in ulps of the larger
+    magnitude."""
+    a, b = a.cpu().numpy(), b.cpu().numpy()
+    return float((np.abs(a - b) / np.spacing(np.maximum(np.abs(a), np.abs(b)))).max())
+
+
+def mirrored_channels(sample, std: dict, params, motor, n: int) -> int:
+    """Every scalar channel of an antithetic run against the mirror of its
+    first half as the port forms it from the standard draws ``std`` (drawn
+    again from the run's seed): an offset's second half is ``0 - d``, a
+    multiplier's ``1 + (0 - d)`` (``d`` the first half's ``z * sigma``), a
+    uniform's ``2 * centre - v``. Bit for bit; returns the channels held."""
+    half = n // 2
+    f32 = torch.float32
+    dev = std["mass_mult"].device
+
+    def d(key, sigma):
+        return std[key][:half] * torch.as_tensor(sigma, dtype=f32, device=dev)
+
+    expect = {}
+    for field, key, sigma in (
+            ("initial_position_offset", "pos_off", params.initial_position),
+            ("initial_velocity_offset", "vel_off", params.initial_velocity),
+            ("initial_attitude_offset", "att_off", params.initial_attitude),
+            ("initial_angular_velocity_offset", "omg_off", params.initial_angular_velocity)):
+        x = d(key, sigma)
+        expect[field] = torch.cat([x, 0.0 - x])
+    for field, key, sigma in (
+            ("mass_multiplier", "mass_mult", params.mass_uncertainty),
+            ("thrust_multiplier", "thrust_mult_recorded", params.thrust_uncertainty),
+            ("motor_thrust_multiplier", "motor_thrust_mult", motor.thrust_uncertainty),
+            ("motor_flow_multiplier", "motor_flow_mult", motor.mass_flow_uncertainty),
+            ("density_multiplier", "density_mult", params.atmospheric_density_uncertainty)):
+        x = d(key, sigma)
+        expect[field] = 1.0 + torch.cat([x, 0.0 - x])
+    for field, key, (lo, hi) in (("wind_speed", "wind_speed", params.wind_speed_range),
+                                 ("wind_direction", "wind_dir", params.wind_direction_range)):
+        v = lo + (hi - lo) * std[key][:half]
+        expect[field] = torch.cat([v, 2 * (0.5 * (lo + hi)) - v])
+    for field, want in expect.items():
+        if not np.array_equal(getattr(sample, field), want.cpu().numpy()):
+            raise AssertionError(f"12b: {field} is not the mirror of its first half")
+    return len(expect)
+
+
+def write_ensemble(tmp: str) -> list:
+    """Three forecast members as CSVs: the recovered reference forecast and
+    two copies of it offset by +3 and -3 m/s in ``u``."""
+    from erpl_monte_carlo_sim_tpu_torch.models.wind import load_wind_profile_from_csv
+
+    src = os.path.join(ROOT, "erpl_monte_carlo_sim_tpu_torch", "data",
+                       "reference_sample_wind.csv")
+    alt, wind = load_wind_profile_from_csv(src)
+    paths = []
+    for i, du in enumerate((0.0, 3.0, -3.0)):
+        path = os.path.join(tmp, f"member_{i}.csv")
+        with open(path, "w") as f:
+            f.write("altitude,u,v,w\n")
+            for h, (u, v, w) in zip(alt, wind):
+                f.write(",".join(repr(float(x)) for x in (h, u + du, v, w)) + "\n")
+        paths.append(path)
+    return paths
+
+
+def ensemble_groupby(a: dict, k: int) -> None:
+    """The ensemble block against a NumPy group-by of the run's metrics on
+    its members: counts exact, means to 1e-12 relative."""
+    members, valid = a["wind_members"], a["valid_mask"]
+    for j, row in enumerate(a["ensemble"]["members"]):
+        mine = members == j
+        if (row["n_drawn"], row["n_valid"]) != (int(mine.sum()), int((mine & valid).sum())):
+            raise AssertionError(f"12d: member {j} counts {row}")
+        for metric in ("apogee_altitude", "range", "flight_time"):
+            v = a["metrics"][metric].astype(np.float64)
+            sel = mine & valid & np.isfinite(v)
+            want = v[sel].mean() if sel.any() else float("nan")
+            if row[metric]["n"] != int(sel.sum()) or not (
+                    abs(row[metric]["mean"] / want - 1) <= 1e-12
+                    or math.isnan(want) and math.isnan(row[metric]["mean"])):
+                raise AssertionError(f"12d: member {j} {metric} {row[metric]} against "
+                                     f"{int(sel.sum())} lanes, mean {want!r}")
+    if len(a["ensemble"]["members"]) != k or set(np.unique(members)) != set(range(k)):
+        raise AssertionError("12d: not every member was drawn")
+
+
+def sampling_variants(dev, ic, mc4, run4) -> dict:
+    """Phase 12; returns each run's K1 launches (and the recording build's
+    of 12d)."""
+    import tempfile
+
+    from erpl_monte_carlo_sim_tpu_torch.engine import SimConfig
+    from erpl_monte_carlo_sim_tpu_torch.kernels import flight_summary as fs
+    from erpl_monte_carlo_sim_tpu_torch.mc import MonteCarloAnalyzer, QmcMeanStderr
+    from erpl_monte_carlo_sim_tpu_torch.mc import analyzer as analyzer_mod
+    from erpl_monte_carlo_sim_tpu_torch.mc import dispersions
+    from erpl_monte_carlo_sim_tpu_torch.models import liquid_motor, load_wind_ensemble_from_csvs
+    from erpl_monte_carlo_sim_tpu_torch.ops import sobol
+
+    cfg = SimConfig(max_time=WINDOW)
+    f32 = torch.float32
+    launches = {}
+
+    def analyzer(**kw):
+        return MonteCarloAnalyzer(motor=liquid_motor(dev), sim_config=cfg, **kw)
+
+    # the prng run's numbers, for comparison in the same call
+    _, prng_draw, prng_wall, _ = variant_run(mc4, ic, BENCH_LANES, 1)
+    prng_warm = warm_draw_ms(mc4, ic, BENCH_LANES)
+    prng = run4["apogee_altitude"]
+    prng_stderr = prng["std"] / math.sqrt(run4["n_samples"])
+
+    # ---- 12a: scrambled Sobol, 8 scrambles, 8 turbulence modes
+    mc_a = analyzer(**SOBOL)
+    mc_a.run_monte_carlo(ic, n_samples=4096, seed=1)  # the Sobol path's first calls
+    a, draw, wall, launches["12a"] = variant_run(mc_a, ic, BENCH_LANES, 1)
+    d = 19 + 3 * SOBOL["sobol_wind_modes"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)  # the run's seed: its first draw is the scramble seeds
+    seeds = sobol.draw_seeds(gen, SOBOL["sobol_scrambles"], d)
+    points = sobol.sobol_points(BENCH_LANES, d, seeds)
+    t0 = time.time()
+    points_cpu = sobol.sobol_points(BENCH_LANES, d, seeds.cpu())
+    cpu_s = time.time() - t0
+    if not torch.equal(points.cpu(), points_cpu):
+        raise AssertionError("12a: the card's Sobol points are not the CPU's")
+    u = sobol._to_unit(points, f32)
+    normal_ulps = ulps32(sobol.ndtri(u), sobol.ndtri(sobol._to_unit(points_cpu, f32)))
+    lo, hi = mc_a.uncertainty_params.wind_speed_range
+    if normal_ulps > 4 or not np.array_equal(a["sample"].wind_speed,
+                                             (lo + (hi - lo) * u[:, 16]).cpu().numpy()):
+        raise AssertionError(f"12a: normals {normal_ulps} ulps from the CPU's, or the run "
+                             "did not draw these points")
+    q = a["qmc_error"]["apogee_altitude"]
+    if len(q["block_means"]) != SOBOL["sobol_scrambles"] or not all(
+            math.isfinite(x) for x in q["block_means"] + [q["mean_stderr"]]):
+        raise AssertionError(f"12a: qmc_error {q}")
+    k1 = k1_on_lanes(*mc_a._last_batch, cfg)
+    phase("12a sobol", lanes=BENCH_LANES, scrambles=SOBOL["sobol_scrambles"],
+          wind_modes=SOBOL["sobol_wind_modes"], launches=launches["12a"], wall_s=f"{wall:.3f}",
+          sampling_ms=f"{draw[0]:.3f}", prng_sampling_ms=f"{prng_draw[0]:.3f}",
+          sampling_warm_ms=f"{warm_draw_ms(mc_a, ic, BENCH_LANES):.3f}",
+          prng_sampling_warm_ms=f"{prng_warm:.3f}", prng_wall_s=f"{prng_wall:.3f}",
+          points_equal_cpu=True, cpu_points_s=f"{cpu_s:.2f}",
+          normal_max_ulps=normal_ulps, n_valid=a["n_samples"],
+          apogee_mean=a["apogee_altitude"]["mean"], qmc_block_means=len(q["block_means"]),
+          apogee_qmc_stderr=q["mean_stderr"], apogee_prng_iid_stderr=prng_stderr, **k1)
+    del a, points, points_cpu, u
+
+    # ---- 12b: antithetic pairs
+    mc_b = analyzer(antithetic=True)
+    b, draw, wall, launches["12b"] = variant_run(mc_b, ic, BENCH_LANES, 1)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    std = dispersions._prng_draws(gen, BENCH_LANES, f32, dev)
+    held = mirrored_channels(b["sample"], std, mc_b.uncertainty_params, mc_b.scene.motor,
+                             BENCH_LANES)
+    k1 = k1_on_lanes(*mc_b._last_batch, cfg)
+    phase("12b antithetic", lanes=BENCH_LANES, launches=launches["12b"], wall_s=f"{wall:.3f}",
+          sampling_ms=f"{draw[0]:.3f}",
+          sampling_warm_ms=f"{warm_draw_ms(mc_b, ic, BENCH_LANES):.3f}",
+          channels_mirrored=held, n_valid=b["n_samples"],
+          apogee_mean=b["apogee_altitude"]["mean"], **k1)
+    del b, std
+
+    # ---- 12c: importance tilt of the motor's thrust
+    mc_c = analyzer(importance_shift={"motor_thrust": 2.0})
+    c, draw, wall, launches["12c"] = variant_run(mc_c, ic, BENCH_LANES, 1)
+    imp = c["importance"]
+    w = np.exp(imp["log_weights"])
+    w_se = w.std() / math.sqrt(w.size)
+    mine = imp["apogee_altitude"]
+    apogee_z = (mine["mean"] - prng["mean"]) / math.hypot(mine["stderr"], prng_stderr)
+    if not (abs(w.mean() - 1.0) <= 4 * w_se and abs(apogee_z) <= 4):
+        raise AssertionError(f"12c: mean weight {w.mean()} (stderr {w_se}), weighted apogee "
+                             f"{mine} against the prng run's {prng['mean']} ({apogee_z} sigma)")
+    k1 = k1_on_lanes(*mc_c._last_batch, cfg)
+    phase("12c importance", lanes=BENCH_LANES, shift="motor_thrust:2.0",
+          launches=launches["12c"], wall_s=f"{wall:.3f}", sampling_ms=f"{draw[0]:.3f}",
+          sampling_warm_ms=f"{warm_draw_ms(mc_c, ic, BENCH_LANES):.3f}",
+          mean_weight=float(w.mean()), weight_stderr=w_se, n_eff=mine["n_eff"],
+          apogee_weighted=mine["mean"], apogee_weighted_stderr=mine["stderr"],
+          apogee_prng=prng["mean"], apogee_z=apogee_z,
+          apogee_tilted=c["apogee_altitude"]["mean"], **k1)
+    del c, w
+
+    # ---- 12d: a three-member forecast ensemble, 4 slabs
+    with tempfile.TemporaryDirectory() as tmp:
+        grid, ens = load_wind_ensemble_from_csvs(write_ensemble(tmp))
+    mc_d = analyzer()
+    mc_d.base_altitude_profile, mc_d.base_wind_profile = grid, ens
+    dd, draw, wall, launches["12d"] = variant_run(mc_d, ic, BENCH_LANES, 4,
+                                                  lane_slab=ENSEMBLE_SLAB)
+    ensemble_groupby(dd, ens.shape[0])
+    # one lane of each slab
+    ids = np.arange(4) * ENSEMBLE_SLAB + np.array([11, 4321, 99, ENSEMBLE_SLAB - 1]) % ENSEMBLE_SLAB
+    s, _, launches["12d record"], resim_wall = resimulated(mc_d, ids, "12d", 4)
+    same_summary(s, dd, ids, "12d")
+    members = [int(analyzer_mod._draw_slab(mc_d, ic, g // ENSEMBLE_SLAB, ENSEMBLE_SLAB, 0,
+                                           (grid, ens))[2].wind_member[g % ENSEMBLE_SLAB])
+               for g in ids]
+    if members != dd["wind_members"][ids].tolist():
+        raise AssertionError(f"12d: re-drawn members {members}")
+    k1 = k1_on_lanes(*analyzer_mod._draw_slab(mc_d, ic, 0, ENSEMBLE_SLAB, 0, (grid, ens))[:2],
+                     cfg)
+    post = dd["ensemble"]["post_stratified"]["apogee_altitude"]
+    phase("12d forecast ensemble", lanes=BENCH_LANES, slabs=4, members=ens.shape[0],
+          launches=launches["12d"], wall_s=f"{wall:.3f}",
+          sampling_ms=json.dumps([round(x, 3) for x in draw]),
+          sampling_warm_ms=f"{warm_draw_ms(mc_d, ic, ENSEMBLE_SLAB, slab=ENSEMBLE_SLAB):.3f}",
+          members_drawn=[row["n_drawn"] for row in dd["ensemble"]["members"]],
+          members_valid=[row["n_valid"] for row in dd["ensemble"]["members"]],
+          apogee_by_member=[float(row["apogee_altitude"]["mean"])
+                            for row in dd["ensemble"]["members"]],
+          apogee_post_stratified=post["mean"], apogee_post_stratified_stderr=post["stderr"],
+          groupby_equal=True, resimulated=ids.tolist(), record_launches=launches["12d record"],
+          resim_wall_s=f"{resim_wall:.3f}", members_equal=True, **k1)
+    del dd, s
+
+    # ---- 12e: slabbed Sobol: 4 slabs, run_to_precision, kill and resume
+    e, draw, wall, launches["12e"] = variant_run(mc_a, ic, LARGE_LANES, 4, lane_slab=BENCH_LANES)
+    q = e["qmc_error"]["apogee_altitude"]
+    crit = QmcMeanStderr("apogee_altitude", 1.0)
+    for k in range(4):
+        part = slice(k * BENCH_LANES, (k + 1) * BENCH_LANES)
+        crit.update(e["metrics"]["apogee_altitude"][part][e["valid_mask"][part]])
+    target = crit.stderr()  # met after the 4th slab, the criterion's minimum
+    torch.cuda.synchronize()
+    fs.launches = 0
+    t0 = time.time()
+    p = mc_a.run_to_precision(ic, criteria=[{"metric": "apogee_altitude",
+                                             "qmc_mean_stderr": target}],
+                              max_samples=2 * LARGE_LANES, seed=0, lane_slab=BENCH_LANES)
+    wall_p, launches["12e precision"] = time.time() - t0, fs.launches
+    seq = p.pop("sequential")
+    if (seq["n_used"], seq["satisfied"], launches["12e precision"]) != (LARGE_LANES, True, 4):
+        raise AssertionError(f"12e: run_to_precision {seq}, {fs.launches} launches")
+    same_analysis(p, e)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "run.ckpt.npz")
+        draw_slab, calls = analyzer_mod._draw_slab, []
+
+        def dying(*args, **kw):
+            if len(calls) == 2:
+                raise RuntimeError("simulated crash")
+            calls.append(1)
+            return draw_slab(*args, **kw)
+
+        analyzer_mod._draw_slab = dying
+        try:
+            mc_a.run_monte_carlo(ic, n_samples=LARGE_LANES, seed=0, lane_slab=BENCH_LANES,
+                                 checkpoint_path=path, checkpoint_every=1)
+            raise AssertionError("12e: the run did not stop at its third draw")
+        except RuntimeError as err:
+            if "simulated crash" not in str(err):
+                raise
+        finally:
+            analyzer_mod._draw_slab = draw_slab
+        r, _, wall_r, launches["12e resume"] = variant_run(
+            mc_a, ic, LARGE_LANES, 2, lane_slab=BENCH_LANES, checkpoint_path=path,
+            checkpoint_every=1)
+        same_analysis(r, e)
+        if os.path.exists(path):
+            raise AssertionError("12e: the checkpoint outlived the run")
+    phase("12e slabbed sobol", lanes=LARGE_LANES, slabs=4, launches=launches["12e"],
+          wall_s=f"{wall:.3f}", sampling_ms=json.dumps([round(x, 3) for x in draw]),
+          qmc_block_means=len(q["block_means"]), apogee_qmc_stderr=q["mean_stderr"],
+          precision_target=target, precision_n_used=seq["n_used"],
+          precision_launches=launches["12e precision"], precision_wall_s=f"{wall_p:.3f}",
+          precision_equal_to_run=True, resume_launches=launches["12e resume"],
+          resume_wall_s=f"{wall_r:.3f}", resume_equal_to_run=True)
+    return launches
+
+
 def main() -> int:
     start = time.time()
     # ---------------------------------------------------------------- 0
@@ -1943,12 +2319,19 @@ def main() -> int:
     example_launches = entry_point(dev)
     phase("11 done", phase_11_s=f"{time.time() - t0:.1f}", script_s=f"{time.time() - start:.1f}")
 
+    # ---------------------------------------------------------------- 12
+    t0 = time.time()
+    variant_launches = sampling_variants(dev, ic, mc, analysis)
+    phase("12 done", phase_12_s=f"{time.time() - t0:.1f}", script_s=f"{time.time() - start:.1f}")
+
     report = {"kernels": [
         {"name": f"flight_summary ({name})", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": where, "launches": launches, "max_abs_err": main_err,
          "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
          "large_run_launches": large_launches,
-         "example_launches": {k: v["k1"] for k, v in example_launches.items()}, **costs}
+         "example_launches": {k: v["k1"] for k, v in example_launches.items()},
+         "variant_launches": {k: v for k, v in variant_launches.items() if "record" not in k},
+         **costs}
         for name, where in REPLACES
     ] + [
         {"name": f"flight_summary [{name}]", "route": "cuda", "source": KERNEL_SOURCE,
@@ -1960,7 +2343,9 @@ def main() -> int:
     ] + [
         {"name": f"flight_summary [record {name}]", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": REPLACES[0][1], "library_ms": None,
-         "example_launches": {k: v["k1_rec"] for k, v in example_launches.items()}, **row}
+         "example_launches": {k: v["k1_rec"] for k, v in example_launches.items()},
+         **({"variant_launches": {"12d": variant_launches["12d record"]}}
+            if name == "parity" else {}), **row}
         for name, row in record_rows.items()
     ]}
     print(card, flush=True)

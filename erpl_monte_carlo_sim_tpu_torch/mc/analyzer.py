@@ -8,9 +8,13 @@ the reference-schema analysis dict. A run that fits one device call
 (``_run_slabbed``), each slab drawn from its own generator seeded by
 ``slab_seed(seed, k)``, with the statistics accumulated on the host (exactly,
 or as streams past ``stats_stream_threshold`` lanes), an optional mid-run
-checkpoint, and ``run_to_precision``'s sequential stop. Options of the JAX
-analyzer that the port does not have yet raise ``NotImplementedError``
-naming the ROADMAP item that brings them.
+checkpoint, and ``run_to_precision``'s sequential stop. The sampling
+variants (``sampler="sobol"`` with ``sobol_scrambles`` and
+``sobol_wind_modes``, ``antithetic``, ``importance_shift``, an ensemble base
+wind) add the JAX analyzer's ``qmc_error``, ``importance``, ``ensemble`` and
+``wind_members`` blocks. Options of the JAX analyzer that the port does not
+have yet raise ``NotImplementedError`` naming the ROADMAP item that brings
+them.
 
 Each run remembers its lanes (``_last_batch``: the single call's batch, or
 a slabbed run's recipe), so that ``resimulate_trajectories``, ``lane_scenes``
@@ -36,7 +40,9 @@ from ..engine.state import InitialConditions
 from ..models.scene import Scene, nominal_scene
 from ..utils.convert import to_numpy
 from .dispersions import UncertaintyParams, sample_dispersions
+from .ensemble import EnsembleAccumulator
 from .filter import OutlierBounds, decode_reasons, outlier_mask
+from .importance import log_weights, weighted_mean
 from .resimulate import ResimulationMixin
 from .stats import PERCENTILES, landing_footprint, masked_stats, percentile_ci
 
@@ -59,28 +65,34 @@ def slab_seed(seed: int, k: int) -> int:
     return int(state[0]) & (2**63 - 1)
 
 
+def _draw(analyzer, ic, n: int, seed: int, base_wind):
+    """``n`` lanes from a generator seeded ``seed`` on the analyzer's device,
+    under its sampling options."""
+    gen = torch.Generator(device=analyzer.device)
+    gen.manual_seed(seed)
+    return sample_dispersions(gen, analyzer.scene, ic, analyzer.uncertainty_params, n,
+                              base_wind=base_wind, wind_grid_points=analyzer.wind_grid_points,
+                              wind_grid_top=analyzer.wind_grid_top, sampler=analyzer.sampler,
+                              sobol_scrambles=analyzer.sobol_scrambles,
+                              sobol_wind_modes=analyzer.sobol_wind_modes,
+                              antithetic=analyzer.antithetic,
+                              importance_shift=analyzer.importance_shift)
+
+
 def _draw_single(analyzer, ic, n: int, seed: int, base_wind):
     """A single-call run's ``(scene_b, ic_b, sample)``: ``n`` lanes from a
     generator seeded ``seed``. The run's one draw; tests replace it to feed
     other lanes through the run."""
-    gen = torch.Generator(device=analyzer.device)
-    gen.manual_seed(seed)
-    return sample_dispersions(gen, analyzer.scene, ic, analyzer.uncertainty_params, n,
-                              base_wind=base_wind,
-                              wind_grid_points=analyzer.wind_grid_points,
-                              wind_grid_top=analyzer.wind_grid_top)
+    return _draw(analyzer, ic, n, seed, base_wind)
 
 
 def _draw_slab(analyzer, ic, k: int, slab: int, seed: int, base_wind):
     """Slab ``k``'s ``(scene_b, ic_b, sample)``: always a full slab of lanes,
-    so a lane's values depend only on ``(seed, k, slab)``. The slab loop's
-    one draw; tests replace it to feed other lanes through the loop."""
-    gen = torch.Generator(device=analyzer.device)
-    gen.manual_seed(slab_seed(seed, k))
-    return sample_dispersions(gen, analyzer.scene, ic, analyzer.uncertainty_params, slab,
-                              base_wind=base_wind,
-                              wind_grid_points=analyzer.wind_grid_points,
-                              wind_grid_top=analyzer.wind_grid_top)
+    so a lane's values depend only on ``(seed, k, slab)``; under
+    ``sampler="sobol"`` each slab is its own scramble, an independent
+    randomized-QMC replicate. The slab loop's one draw; tests replace it to
+    feed other lanes through the loop."""
+    return _draw(analyzer, ic, slab, slab_seed(seed, k), base_wind)
 
 
 def _host_stats(values: np.ndarray, mask: np.ndarray) -> dict:
@@ -150,12 +162,6 @@ class MonteCarloAnalyzer(ResimulationMixin):
                     scene = dataclasses.replace(scene, **{name: part})
         if mesh is not None:
             _not_ported("mesh (multi-device runs)", "P16")
-        if sampler != "prng" or sobol_scrambles != 1 or sobol_wind_modes:
-            _not_ported(f"sampler={sampler!r} / sobol options", "P12")
-        if antithetic:
-            _not_ported("antithetic sampling", "P12")
-        if importance_shift:
-            _not_ported("importance_shift", "P12/P13")
         if control_variates or cv_wind_modes or cv_wind_speed:
             _not_ported("control_variates", "P13")
         if two_level_lanes:
@@ -164,10 +170,24 @@ class MonteCarloAnalyzer(ResimulationMixin):
             _not_ported("wind_table_modes", "P8")
         if stats_stream_threshold < 1 or metrics_sample_cap < 1:
             raise ValueError("stats_stream_threshold and metrics_sample_cap must be >= 1")
+        if importance_shift and (sampler != "prng" or antithetic):
+            raise ValueError("importance_shift requires sampler='prng', no antithetic")
         self.scene = scene
         self.uncertainty_params = uncertainty_params
         self.sim_config = sim_config
         self.bounds = bounds
+        # the sampling options of mc.sample_dispersions; slabbed runs and
+        # re-simulation draw every lane again under them. With sobol,
+        # sobol_scrambles > 1 splits a single call into independently
+        # scrambled blocks, whose means give the qmc_error block
+        self.sampler = sampler
+        self.sobol_scrambles = sobol_scrambles
+        self.sobol_wind_modes = sobol_wind_modes
+        self.antithetic = antithetic
+        # the headline stats then describe the shifted population; the
+        # importance block weighs the lanes back to the nominal one
+        self.importance_shift = tuple(sorted(importance_shift.items())) \
+            if importance_shift else ()
         # a run of more lanes goes slab by slab; past stats_stream_threshold
         # lanes the statistics stream and only the first metrics_sample_cap
         # lanes' metrics are kept
@@ -176,7 +196,9 @@ class MonteCarloAnalyzer(ResimulationMixin):
         self.metrics_sample_cap = metrics_sample_cap
         self.wind_grid_points = wind_grid_points
         self.wind_grid_top = wind_grid_top
-        # a single forecast (altitudes[N], wind[N,3]) each lane perturbs
+        # a forecast (altitudes[N], wind[N,3]) each lane perturbs, or an
+        # ensemble wind[K,N,3] (models.load_wind_ensemble_from_csvs) of which
+        # each lane perturbs a uniformly drawn member
         self.base_altitude_profile = None
         self.base_wind_profile = None
         # the last run's lanes, and the last re-simulation (mc.resimulate)
@@ -294,6 +316,26 @@ class MonteCarloAnalyzer(ResimulationMixin):
                 "cores_used": 1,
             },
         }
+        headline = {k: np.asarray(getattr(summary_np, k)) for k in _METRICS}
+        ens_acc = EnsembleAccumulator.from_base_wind(base_wind)
+        if ens_acc is not None:  # post-stratified forecast-ensemble stats
+            ens_acc.add(sample_np.wind_member, valid_np, headline)
+            analysis["ensemble"] = ens_acc.block()
+            analysis["wind_members"] = np.asarray(sample_np.wind_member)
+        if self.importance_shift:
+            analysis["importance"] = self._importance_block(
+                headline, valid_np, log_weights(sample_np, self.uncertainty_params,
+                                                self.scene.motor, self.importance_shift))
+        if self.sampler == "sobol" and self.sobol_scrambles > 1:
+            # each scramble's block of lanes is one randomized-QMC replicate
+            size = n_samples // self.sobol_scrambles
+            means = {k: [] for k in headline}
+            for i in range(self.sobol_scrambles):
+                part = slice(i * size, (i + 1) * size)
+                ok = valid_np[part]
+                for k, v in headline.items():
+                    means[k].append(float(np.mean(v[part][ok])) if ok.any() else float("nan"))
+            analysis["qmc_error"] = self._qmc_error(means)
         limit = 1000 if materialize_results is None else materialize_results
         analysis["results"] = self._materialize_records(
             summary_np, sample_np, valid_np, reasons_np, want_valid=True, limit=limit)
@@ -326,12 +368,17 @@ class MonteCarloAnalyzer(ResimulationMixin):
         if not criteria:
             raise ValueError("criteria must be a non-empty list")
         crits = [parse_criterion(c) for c in criteria]
-        if any(getattr(c, "requires_sobol", False) for c in crits):
+        if self.sampler != "sobol" and any(getattr(c, "requires_sobol", False) for c in crits):
             raise ValueError(
                 "qmc_mean_stderr criteria need sampler='sobol' (slab "
                 "means are independent RQMC replicates only under the "
                 "per-slab Owen scrambles); on prng draws use "
                 "mean_stderr, which is valid AND tighter there")
+        if self.importance_shift:
+            raise ValueError(
+                "run_to_precision counts unweighted lanes; "
+                "importance-sampled runs need weighted estimators (and IS "
+                "exists to make n small) — use run_monte_carlo")
         if max_samples < 1:
             raise ValueError("max_samples must be >= 1")
         if min_samples > max_samples:
@@ -376,7 +423,14 @@ class MonteCarloAnalyzer(ResimulationMixin):
         t_start = time.time()
         limit = 1000 if materialize_results is None else materialize_results
         streaming = n_samples > self.stats_stream_threshold
-        accs = build_registry(self, n_samples=n_samples, limit=limit, streaming=streaming)
+        if streaming and self.importance_shift:
+            # the weighted estimators need every lane's (weight, metric) pair
+            raise ValueError(
+                "importance_shift runs need per-lane weights: keep "
+                "n_samples <= stats_stream_threshold (IS makes small n "
+                "sufficient; that is its purpose)")
+        accs = build_registry(self, n_samples=n_samples, limit=limit, streaming=streaming,
+                              ens_acc=EnsembleAccumulator.from_base_wind(base_wind))
         by_key = {a.key: a for a in accs}
         n_done = n_valid_total = slab_idx = 0
         n_slabs = -(-n_samples // slab)
@@ -455,6 +509,32 @@ class MonteCarloAnalyzer(ResimulationMixin):
         for acc in accs:
             acc.finalize(analysis, self)
         return analysis
+
+    def _importance_block(self, values_by_name: dict, valid_np, lw) -> dict:
+        """The ``analysis["importance"]`` block of both layouts: the shift,
+        each lane's log weight, and each headline metric's weighted mean
+        under the nominal distribution (the stats blocks describe the
+        shifted population)."""
+        imp = {"shift": dict(self.importance_shift), "log_weights": lw,
+               "note": "self-normalized IS estimates under the nominal "
+                       "distribution; use mc.importance.weighted_tail or "
+                       "exceedance_from_analysis for tail probabilities"}
+        for name, vals in values_by_name.items():
+            imp[name] = weighted_mean(vals, valid_np, lw)
+        return imp
+
+    @staticmethod
+    def _qmc_error(block_means: dict) -> dict:
+        """Randomized-QMC error bars: ``block_means[metric]`` are the means of
+        independently scrambled Sobol blocks (i.i.d. estimates of the
+        target); stderr = std(blocks, ddof=1) / sqrt(K) over the finite
+        ones."""
+        out = {}
+        for name, means in block_means.items():
+            m = np.asarray([x for x in means if np.isfinite(x)], float)
+            stderr = float(m.std(ddof=1) / np.sqrt(m.size)) if m.size > 1 else float("nan")
+            out[name] = {"block_means": m.tolist(), "mean_stderr": stderr}
+        return out
 
     @staticmethod
     def _footprint_moments(landing: torch.Tensor, mask: torch.Tensor) -> tuple:

@@ -9,9 +9,18 @@ propellant mass scale together, the solid motor's mass flow follows its
 thrust multiplier, burn time re-syncs to propellant / mass flow, and the
 density multiplier scales density.
 
+The sampling variants are the JAX package's: scrambled Sobol points over
+the scalar channels (``sampler="sobol"``), with independently scrambled
+blocks for randomized-QMC error bars and optionally the turbulence's leading
+modes (``ops.sobol``); antithetic pairs; importance tilts of the Gaussian
+multipliers; and forecast ensembles, each lane perturbing a drawn member.
+
 The generator does not reproduce ``jax.random``'s bits: the same seed gives
-other lanes than the JAX package (ROADMAP P4). Tests feed both packages the
-same NumPy draws through ``_build_scene``.
+other lanes than the JAX package (ROADMAP P4). The draws pass through seams
+the tests feed with the JAX package's own: ``_channels`` takes the standard
+draws, ``_sobol_channels`` the Sobol points (``ops.sobol`` takes the
+scramble seeds), ``_build_scene`` the turbulence driver, its Sobol-mode tail
+and the ensemble members.
 """
 
 from __future__ import annotations
@@ -20,11 +29,16 @@ import dataclasses
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..engine.state import InitialConditions
 from ..models.scene import Scene
-from ..models.wind import WindField, generate_stochastic_profile, perturb_wind_profile
+from ..models.wind import (WindField, ar1_transfer_matrix, generate_stochastic_profile,
+                           perturb_wind_profile)
+from ..ops.sobol import max_dims, ndtri, sobol_uniform
+from ..utils.convert import to_numpy
+from .importance import TILTABLE
 
 __all__ = ["UncertaintyParams", "DispersionSample", "sample_dispersions",
            "inject_reference_lanes", "select_lane"]
@@ -77,33 +91,99 @@ class DispersionSample:
     wind_member: torch.Tensor  # int32, all zeros without a forecast ensemble
 
 
+def _prng_draws(generator: torch.Generator, n: int, dtype, device) -> dict:
+    """The prng path's standard draws of the 19 scalar channels, in the
+    generator's order: standard normals, and uniforms on [0, 1) for the wind
+    speed and direction."""
+    def z(shape):
+        return torch.randn(shape, dtype=dtype, device=device, generator=generator)
+
+    def u():
+        return torch.rand((n,), dtype=dtype, device=device, generator=generator)
+
+    return {"pos_off": z((n, 3)), "vel_off": z((n, 3)), "att_off": z((n, 3)),
+            "omg_off": z((n, 3)), "mass_mult": z((n,)), "thrust_mult_recorded": z((n,)),
+            "motor_thrust_mult": z((n,)), "motor_flow_mult": z((n,)), "wind_speed": u(),
+            "wind_dir": u(), "density_mult": z((n,))}
+
+
+def _sobol_draws(u: torch.Tensor) -> dict:
+    """The Sobol path's standard draws of the 19 scalar channels from the
+    ``[n, d]`` point matrix ``u``: its first 19 columns, taken in the JAX
+    package's fixed order (the inverse normal CDF for the Gaussian
+    channels)."""
+    n, col = u.shape[0], [0]
+
+    def take(width):
+        i = col[0]
+        col[0] += width
+        return u[:, i:i + width]
+
+    def z(shape):
+        return ndtri(take(shape[1] if len(shape) > 1 else 1)).reshape(shape)
+
+    return {"pos_off": z((n, 3)), "vel_off": z((n, 3)), "att_off": z((n, 3)),
+            "omg_off": z((n, 3)), "mass_mult": z((n,)), "thrust_mult_recorded": z((n,)),
+            "motor_thrust_mult": z((n,)), "motor_flow_mult": z((n,)),
+            "wind_speed": take(1)[:, 0], "wind_dir": take(1)[:, 0], "density_mult": z((n,))}
+
+
+def _channels(std: dict, scene: Scene, params: UncertaintyParams, antithetic: bool = False,
+              importance_shift=()) -> dict:
+    """The channel values of ``_build_scene`` from standard draws (``_prng_draws``'
+    or ``_sobol_draws``): normals times their sigma, uniforms onto their
+    range. ``antithetic``: the second half of every channel is ``2 * centre -
+    first half`` (centre 0 for the offsets, 1 for the multipliers, the
+    middle of a uniform's range). ``importance_shift``: ``(channel, theta)``
+    pairs; the named multiplier's mean moves by ``theta`` of its sigma."""
+    n = std["mass_mult"].shape[0]
+    dtype, device = std["mass_mult"].dtype, std["mass_mult"].device
+    shift = dict(importance_shift)
+
+    def mirror(d, center):
+        if not antithetic:
+            return d
+        half = d[: n // 2]
+        return torch.cat([half, 2 * center - half])
+
+    def normal(name, sigma):
+        return mirror(std[name] * torch.as_tensor(sigma, dtype=dtype, device=device), 0.0)
+
+    def multiplier(name, sigma, channel=None):
+        s = torch.as_tensor(sigma, dtype=dtype, device=device)
+        out = 1.0 + normal(name, s)
+        theta = shift.get(channel, 0.0)
+        return out + s * theta if theta else out
+
+    def uniform(name, lo, hi):
+        return mirror(lo + (hi - lo) * std[name], 0.5 * (lo + hi))
+
+    return {
+        "pos_off": normal("pos_off", params.initial_position),
+        "vel_off": normal("vel_off", params.initial_velocity),
+        "att_off": normal("att_off", params.initial_attitude),
+        "omg_off": normal("omg_off", params.initial_angular_velocity),
+        "mass_mult": multiplier("mass_mult", params.mass_uncertainty, "mass"),
+        "thrust_mult_recorded": multiplier("thrust_mult_recorded", params.thrust_uncertainty),
+        "motor_thrust_mult": multiplier("motor_thrust_mult", scene.motor.thrust_uncertainty,
+                                        "motor_thrust"),
+        "motor_flow_mult": multiplier("motor_flow_mult", scene.motor.mass_flow_uncertainty,
+                                      "motor_flow"),
+        "wind_speed": uniform("wind_speed", *params.wind_speed_range),
+        "wind_dir": uniform("wind_dir", *params.wind_direction_range),
+        "density_mult": multiplier("density_mult", params.atmospheric_density_uncertainty,
+                                   "density"),
+    }
+
+
 def _sample_impl(generator: torch.Generator, scene: Scene, ic: InitialConditions,
                  params: UncertaintyParams, n: int, base_wind, wind_grid_points: int,
-                 wind_grid_top: float, dtype):
-    """The prng path: draw every channel, then ``_build_scene``."""
+                 wind_grid_top: float, dtype, antithetic: bool = False,
+                 importance_shift=()):
+    """The prng path: the scalar draws, then ``_build_scene``."""
     device = scene.rocket.dry_mass.device
-
-    def normal(shape, sigma):
-        z = torch.randn(shape, dtype=dtype, device=device, generator=generator)
-        return z * torch.as_tensor(sigma, dtype=dtype, device=device)
-
-    def uniform(lo, hi):
-        u = torch.rand((n,), dtype=dtype, device=device, generator=generator)
-        return lo + (hi - lo) * u
-
-    ch = {
-        "pos_off": normal((n, 3), params.initial_position),
-        "vel_off": normal((n, 3), params.initial_velocity),
-        "att_off": normal((n, 3), params.initial_attitude),
-        "omg_off": normal((n, 3), params.initial_angular_velocity),
-        "mass_mult": 1.0 + normal((n,), params.mass_uncertainty),
-        "thrust_mult_recorded": 1.0 + normal((n,), params.thrust_uncertainty),
-        "motor_thrust_mult": 1.0 + normal((n,), scene.motor.thrust_uncertainty),
-        "motor_flow_mult": 1.0 + normal((n,), scene.motor.mass_flow_uncertainty),
-        "wind_speed": uniform(*params.wind_speed_range),
-        "wind_dir": uniform(*params.wind_direction_range),
-        "density_mult": 1.0 + normal((n,), params.atmospheric_density_uncertainty),
-    }
+    std = _prng_draws(generator, n, dtype, device)
+    ch = _channels(std, scene, params, antithetic, importance_shift)
     if base_wind is not None:
         grid = torch.as_tensor(base_wind[0], dtype=dtype, device=device)
     else:
@@ -112,12 +192,52 @@ def _sample_impl(generator: torch.Generator, scene: Scene, ic: InitialConditions
     return _build_scene(scene, ic, ch, base_wind, grid, generator)
 
 
+def _sobol_channels(u: torch.Tensor, scene: Scene, params: UncertaintyParams,
+                    sobol_wind_modes: int, grid_np: np.ndarray) -> dict:
+    """The Sobol path's channel values from the ``[n, 19 + 3 K]`` point
+    matrix ``u``: the 19 scalar channels from its first columns and, with
+    ``sobol_wind_modes = K``, each lane's leading ``min(K, N)`` turbulence
+    modes (``b_lead``) from the next ``3 K`` columns, of which the first ``3
+    min(K, N)`` are kept (the JAX package's column order), with the basis
+    ``vt`` they are taken along: the rows of ``V^T`` from the host SVD of
+    ``ar1_transfer_matrix``, the turbulence's directions in its
+    standard-normal driver by falling variance."""
+    ch = _channels(_sobol_draws(u), scene, params)
+    if sobol_wind_modes > 0:
+        n, k = u.shape[0], min(int(sobol_wind_modes), len(grid_np))
+        ch["b_lead"] = ndtri(u[:, 19:19 + 3 * k]).reshape(n, k, 3)
+        _, _, vt = np.linalg.svd(ar1_transfer_matrix(scene.wind_model, grid_np))
+        ch["vt"] = torch.as_tensor(vt, dtype=u.dtype, device=u.device)
+    return ch
+
+
+def _sample_sobol(generator: torch.Generator, scene: Scene, ic: InitialConditions,
+                  params: UncertaintyParams, n: int, base_wind, wind_grid_points: int,
+                  wind_grid_top: float, dtype, sobol_scrambles: int, sobol_wind_modes: int):
+    """The Sobol path: a ``[n, 19 + 3 sobol_wind_modes]`` scrambled Sobol
+    matrix on seeds from ``generator``, its channels (``_sobol_channels``),
+    then ``_build_scene``, which draws the rest of the turbulence from
+    ``generator``."""
+    device = scene.rocket.dry_mass.device
+    grid_np = (np.asarray(to_numpy(base_wind[0]), np.float64) if base_wind is not None
+               else np.linspace(0.0, float(wind_grid_top), int(wind_grid_points)))
+    d = 19 + 3 * int(sobol_wind_modes)
+    u = sobol_uniform(n, d, sobol_scrambles, dtype, generator=generator)
+    ch = _sobol_channels(u, scene, params, sobol_wind_modes, grid_np)
+    grid = torch.as_tensor(grid_np, dtype=dtype, device=device)
+    return _build_scene(scene, ic, ch, base_wind, grid, generator)
+
+
 def _build_scene(scene: Scene, ic: InitialConditions, ch: dict, base_wind, grid,
                  generator: Optional[torch.Generator] = None):
     """Batched ``(Scene, InitialConditions, DispersionSample)`` from channel
-    draws. ``ch["noise"]``, when present, is the explicit ``[n, N, 3]``
-    standard-normal noise of the AR(1) wind; otherwise it is drawn from
-    ``generator``."""
+    values. The turbulence's ``[n, N, 3]`` standard-normal driver is
+    ``ch["noise"]`` when given; with Sobol wind modes it is ``vt^T [b_lead;
+    b_tail]``, the tail ``ch["b_tail"]`` or drawn; otherwise it is drawn.
+    With a forecast ensemble (``base_wind[1]`` of ``[K, N, 3]``) each lane
+    perturbs the member ``ch["member"]``, or one drawn uniformly after every
+    other draw, so that a one-member ensemble gives the single forecast's
+    lanes bit for bit. Draws come from ``generator``."""
     n = ch["mass_mult"].shape[0]
     dtype, device = ch["pos_off"].dtype, ch["pos_off"].device
     mass_mult = ch["mass_mult"]
@@ -144,18 +264,31 @@ def _build_scene(scene: Scene, ic: InitialConditions, ch: dict, base_wind, grid,
         density_scale=scene.atmosphere.density_scale * ch["density_mult"],
     )
 
+    def normals(shape):
+        return torch.randn(shape, dtype=dtype, device=device, generator=generator)
+
+    n_knots = grid.shape[0]
     if "noise" in ch:
         noise = torch.as_tensor(ch["noise"], dtype=dtype, device=device)
+    elif "b_lead" in ch:
+        b_lead = torch.as_tensor(ch["b_lead"], dtype=dtype, device=device)
+        b_tail = (torch.as_tensor(ch["b_tail"], dtype=dtype, device=device) if "b_tail" in ch
+                  else normals((n, n_knots - b_lead.shape[1], 3)))
+        vt = torch.as_tensor(ch["vt"], dtype=dtype, device=device)
+        noise = torch.einsum("ij,njc->nic", vt.T, torch.cat([b_lead, b_tail], dim=1))
     else:
-        noise = torch.randn((n, grid.shape[0], 3), dtype=dtype, device=device,
-                            generator=generator)
+        noise = normals((n, n_knots, 3))
+    member = torch.zeros(n, dtype=torch.int32, device=device)
     if base_wind is not None:
         base_profile = torch.as_tensor(base_wind[1], dtype=dtype, device=device)
         if base_profile.ndim == 3:
-            raise NotImplementedError(
-                "forecast ensembles ([K,N,3] base wind) are not ported yet (ROADMAP P12)")
-        profiles = perturb_wind_profile(scene.wind_model, grid, base_profile,
-                                        noise=noise)
+            if "member" in ch:
+                member = torch.as_tensor(ch["member"], device=device).to(torch.int32)
+            else:
+                member = torch.randint(0, base_profile.shape[0], (n,), device=device,
+                                       generator=generator).to(torch.int32)
+            base_profile = base_profile[member.long()]  # one [n, N, 3] gather
+        profiles = perturb_wind_profile(scene.wind_model, grid, base_profile, noise=noise)
         offset = torch.stack([wind_speed * torch.cos(wind_dir),
                               wind_speed * torch.sin(wind_dir),
                               torch.zeros_like(wind_speed)], dim=-1)
@@ -190,9 +323,53 @@ def _build_scene(scene: Scene, ic: InitialConditions, ch: dict, base_wind, grid,
         wind_direction=wind_dir,
         density_multiplier=ch["density_mult"],
         random_seed=torch.arange(n, device=device),
-        wind_member=torch.zeros(n, dtype=torch.int32, device=device),
+        wind_member=member,
     )
     return batched_scene, batched_ic, sample
+
+
+def _validate_sampling(scene: Scene, params: UncertaintyParams, n: int, base_wind,
+                       antithetic: bool, sampler: str, sobol_scrambles: int,
+                       sobol_wind_modes: int, importance_shift) -> None:
+    """The JAX package's checks of the sampling options, with its messages."""
+    if antithetic and n % 2 != 0:
+        raise ValueError("antithetic sampling needs an even n")
+    if base_wind is not None:
+        alts, prof = (tuple(np.shape(x)) for x in base_wind)  # no copy of a tensor
+        if len(prof) not in (2, 3) or prof[-1] != 3 or prof[-2] != alts[0]:
+            raise ValueError("base_wind must be (altitudes[N], wind[N,3]) or an ensemble "
+                             f"(altitudes[N], wind[K,N,3]); got altitudes{alts}, wind{prof}")
+        if len(prof) == 3 and prof[0] < 1:
+            raise ValueError("base_wind ensemble needs at least one member")
+    if sampler not in ("prng", "sobol"):
+        raise ValueError(f"unknown sampler {sampler!r}")
+    if sampler == "sobol" and antithetic:
+        raise ValueError("sobol sampling is already balanced; drop antithetic")
+    if sobol_scrambles < 1 or (sampler == "sobol" and n % sobol_scrambles):
+        raise ValueError("n must be a positive multiple of sobol_scrambles")
+    if sobol_wind_modes and sampler != "sobol":
+        raise ValueError("sobol_wind_modes requires sampler='sobol'")
+    if importance_shift:
+        sigmas = {c: sigma(params, scene.motor) for c, (_, sigma) in TILTABLE.items()}
+        bad = [c for c, _ in importance_shift if c not in sigmas]
+        if bad:
+            raise ValueError(f"unknown importance channels {bad}; tiltable Gaussian "
+                             f"multiplier channels are {sorted(sigmas)}")
+        if sampler != "prng" or antithetic:
+            raise ValueError("importance_shift requires sampler='prng' without antithetic")
+        for c, _ in importance_shift:
+            # a zero-sigma channel cannot be tilted; the solid motor's flow
+            # multiplier never acts, so tilting it only adds weight variance
+            if sigmas[c] <= 0.0:
+                raise ValueError(f"importance channel {c!r} has zero sigma; it cannot be "
+                                 "tilted")
+            if c == "motor_flow" and scene.motor.mdot_follows_thrust:
+                raise ValueError("motor_flow is inert for this motor (mdot follows thrust); "
+                                 "tilting it only adds weight variance")
+    if sampler == "sobol" and 19 + 3 * sobol_wind_modes > max_dims():
+        raise ValueError(f"sobol draw needs {19 + 3 * sobol_wind_modes} dimensions but the "
+                         f"baked direction-number table has {max_dims()}; lower "
+                         "sobol_wind_modes or regenerate with scripts/gen_sobol_directions.py")
 
 
 def sample_dispersions(generator: torch.Generator, scene: Scene, ic: InitialConditions,
@@ -201,24 +378,41 @@ def sample_dispersions(generator: torch.Generator, scene: Scene, ic: InitialCond
                        wind_grid_top: float = 25000.0, dtype=None,
                        antithetic: bool = False, sampler: str = "prng",
                        sobol_scrambles: int = 1, sobol_wind_modes: int = 0,
-                       importance_shift: tuple = ()):
+                       importance_shift=()):
     """Draw ``n`` dispersed lanes on the scene's device from ``generator``
-    (which must live on that device). ``base_wind``: optional forecast
-    ``(altitudes[N], wind[N,3])`` each lane perturbs; without it each lane
-    synthesizes a profile on a ``wind_grid_points``-knot 0..``wind_grid_top``
-    grid. Returns ``(batched_scene, batched_ic, sample)``.
+    (which must live on that device). Returns ``(batched_scene, batched_ic,
+    sample)``.
 
-    Only the prng sampler is ported: ``sampler="sobol"``, ``antithetic``
-    and ``importance_shift`` raise (ROADMAP P12)."""
-    if sampler != "prng" or antithetic or sobol_scrambles != 1 or sobol_wind_modes \
-            or importance_shift:
-        raise NotImplementedError(
-            "only the prng sampler is ported; sobol, antithetic and "
-            "importance_shift come with ROADMAP P12")
+    ``base_wind``: an optional forecast ``(altitudes[N], wind[N,3])`` each
+    lane perturbs, or an ensemble ``(altitudes[N], wind[K,N,3])`` of which
+    each lane perturbs a uniformly drawn member (``sample.wind_member``);
+    without it each lane synthesizes a profile on a ``wind_grid_points``-knot
+    0..``wind_grid_top`` grid.
+
+    ``sampler``: ``"prng"`` (pseudo-random, the reference's) or ``"sobol"``
+    (scrambled Sobol quasi-Monte Carlo over the 19 scalar channels, the
+    marginals unchanged). ``sobol_scrambles``: the batch as that many
+    contiguous blocks, each under its own scramble (independent
+    randomized-QMC replicates, whose spread is a valid error bar).
+    ``sobol_wind_modes = K``: also the leading ``K`` principal directions of
+    each lane's AR(1) turbulence from Sobol columns, the rest pseudo-random
+    (the process's distribution stays exact). ``antithetic``: the second
+    half of every scalar channel mirrors the first (``n`` even); the
+    turbulence stays independent. ``importance_shift``: ``(channel, theta)``
+    pairs (or a dict) that shift the named Gaussian multipliers (``mass``,
+    ``motor_thrust``, ``motor_flow``, ``density``) by ``theta`` sigmas; the
+    likelihood ratios are ``mc.importance.log_weights``. Prng only, without
+    antithetic."""
+    importance_shift = tuple(sorted(dict(importance_shift).items()))
+    _validate_sampling(scene, params, n, base_wind, antithetic, sampler, sobol_scrambles,
+                       sobol_wind_modes, importance_shift)
     if dtype is None:
         dtype = scene.rocket.dry_mass.dtype
+    if sampler == "sobol":
+        return _sample_sobol(generator, scene, ic, params, n, base_wind, wind_grid_points,
+                             wind_grid_top, dtype, sobol_scrambles, sobol_wind_modes)
     return _sample_impl(generator, scene, ic, params, n, base_wind, wind_grid_points,
-                        wind_grid_top, dtype)
+                        wind_grid_top, dtype, antithetic, importance_shift)
 
 
 def inject_reference_lanes(scene: Scene, ic: InitialConditions, params: dict, wind_grid,

@@ -157,9 +157,8 @@ class ExceedanceHalfwidth(_Criterion):
 class QmcMeanStderr(_Criterion):
     """Stop when the randomized-QMC stderr of the mean (the spread of slab
     means, each slab its own scramble) is at most ``target``, after at least
-    ``min_replicates`` slabs. Meaningful only with ``sampler="sobol"``, which
-    the port does not have yet (ROADMAP P12): ``run_to_precision`` refuses
-    it."""
+    ``min_replicates`` slabs. Meaningful only with ``sampler="sobol"``;
+    ``run_to_precision`` refuses it on prng runs."""
 
     requires_sobol = True
 

@@ -7,9 +7,11 @@ folds in one slab through the shared ``SlabContext``, ``to_arrays`` /
 ``MonteCarloAnalyzer._run_slabbed`` only drives the registry that
 ``build_registry`` returns, in the JAX package's order.
 
-The concerns of the JAX package's sampling variants and estimators (QMC
-block means, importance weights, control variates, forecast-ensemble strata)
-come with ROADMAP P12 and P13; the analyzer refuses their knobs.
+The sampling variants add theirs: the Sobol slabs' block means
+(``QMCAccumulator``), the importance weights (``ImportanceAccumulator``) and
+the forecast ensemble's strata (``EnsembleStatsAccumulator``, with the
+member column in the prefix). The control variates come with ROADMAP P13;
+the analyzer refuses their knob.
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ import dataclasses
 import numpy as np
 
 __all__ = ["SlabContext", "SlabAccumulator", "PrefixAccumulator", "StreamAccumulator",
-           "ConvergenceAccumulator", "FootprintMomentsAccumulator", "RangesAccumulator",
+           "ConvergenceAccumulator", "QMCAccumulator", "FootprintMomentsAccumulator",
+           "ImportanceAccumulator", "EnsembleStatsAccumulator", "RangesAccumulator",
            "RecordsAccumulator", "build_registry"]
 
 HEADLINE_METRICS = ("apogee_altitude", "range", "flight_time")
@@ -39,7 +42,7 @@ class SlabContext:
     """One slab's data, shared by every accumulator: the device tensors, and
     host copies of the slab's first ``n_s`` lanes made lazily, at most once
     per array and only if an accumulator asks (``valid_np``, ``reasons_np``,
-    ``slab_metrics``, ``summary_np``, ``sample_np``)."""
+    ``slab_metrics``, ``mem_np``, ``summary_np``, ``sample_np``)."""
 
     def __init__(self, *, summary, sample, valid, reasons, ranges_mask, n_s: int,
                  slab: int, n_done: int):
@@ -71,6 +74,10 @@ class SlabContext:
     def slab_metrics(self) -> dict:
         return self._get("slab_metrics", lambda: {
             k: getattr(self.summary, k)[: self.n_s].cpu().numpy() for k in PREFIX_METRICS})
+
+    @property
+    def mem_np(self) -> np.ndarray:
+        return self._get("mem_np", lambda: self.sample.wind_member[: self.n_s].cpu().numpy())
 
     @property
     def summary_np(self):
@@ -107,19 +114,23 @@ class SlabAccumulator:
 
 class PrefixAccumulator(SlabAccumulator):
     """The first ``cap`` lanes' headline metrics and ``max_speed``, valid
-    mask, reason bits and landing x/y. Without streaming ``cap`` is the run's
-    size and the prefix is the whole run."""
+    mask, reason bits, landing x/y and, under a forecast ensemble
+    (``want_members``), forecast members. Without streaming ``cap`` is the
+    run's size and the prefix is the whole run."""
 
     key = "prefix"
+    _PARTS = ("valid_parts", "reason_parts", "landing_parts", "member_parts")
 
-    def __init__(self, cap: int, streaming: bool):
+    def __init__(self, cap: int, streaming: bool, want_members: bool = False):
         self.cap = cap
         self.streaming = streaming
+        self.want_members = want_members
         self.kept = 0
         self.metrics = {k: [] for k in PREFIX_METRICS}
         self.valid_parts: list = []
         self.reason_parts: list = []
         self.landing_parts: list = []
+        self.member_parts: list = []
 
     def update(self, ctx: SlabContext) -> None:
         take = min(ctx.n_s, self.cap - self.kept)
@@ -131,13 +142,15 @@ class PrefixAccumulator(SlabAccumulator):
         self.landing_parts.append(ctx.summary.landing_position[:take, :2].cpu().numpy())
         self.valid_parts.append(ctx.valid_np[:take])
         self.reason_parts.append(ctx.reasons_np[:take])
+        if self.want_members:
+            self.member_parts.append(ctx.mem_np[:take])
         self.kept += take
 
     def to_arrays(self, arrays: dict) -> None:
         for k in PREFIX_METRICS:
             parts = self.metrics[k]
             arrays["metrics." + k] = np.concatenate(parts) if parts else np.empty(0, np.float32)
-        for name in ("valid_parts", "reason_parts", "landing_parts"):
+        for name in self._PARTS:
             parts = getattr(self, name)
             if parts:
                 arrays[name] = np.concatenate(parts)
@@ -149,7 +162,7 @@ class PrefixAccumulator(SlabAccumulator):
         self.kept = meta["kept"]
         self.metrics = {k: ([z["metrics." + k]] if z["metrics." + k].size else [])
                         for k in PREFIX_METRICS}
-        for name in ("valid_parts", "reason_parts", "landing_parts"):
+        for name in self._PARTS:
             setattr(self, name, [z[name]] if name in z else [])
 
     def concatenated(self) -> tuple:
@@ -166,9 +179,14 @@ class PrefixAccumulator(SlabAccumulator):
         analysis["reasons"] = reasons_np
         analysis["landing_samples"] = (np.concatenate(self.landing_parts)
                                        if self.landing_parts else np.zeros((0, 2)))
-        # streaming runs keep only the first metrics_sample_cap lanes here;
-        # their stats blocks come from the streams, which see every lane
+        # streaming runs keep only the first metrics_sample_cap lanes here
+        # (an i.i.d. sample for prng runs only: a Sobol prefix is stratified
+        # and an antithetic one drops mirror partners); their stats blocks
+        # come from the streams, which see every lane
         analysis["metrics_is_sample"] = self.streaming
+        if self.want_members:
+            analysis["wind_members"] = (np.concatenate(self.member_parts)
+                                        if self.member_parts else np.zeros(0, np.int32))
 
 
 class StreamAccumulator(SlabAccumulator):
@@ -219,7 +237,9 @@ class StreamAccumulator(SlabAccumulator):
 
 class ConvergenceAccumulator(SlabAccumulator):
     """Running mean and stderr of each headline metric after every slab
-    (float64 sums, population variance, valid lanes as i.i.d.)."""
+    (float64 sums, population variance, valid lanes as i.i.d.: under
+    ``sampler="sobol"`` or ``antithetic`` the stderr is conservative, and
+    ``qmc_error`` is the Sobol run's valid error bar)."""
 
     key = "conv"
 
@@ -257,6 +277,34 @@ class ConvergenceAccumulator(SlabAccumulator):
         analysis["convergence"] = self.hist
 
 
+class QMCAccumulator(SlabAccumulator):
+    """Each slab's valid-lane mean of the headline metrics: every slab of a
+    Sobol run is its own scramble, so the slab means are independent
+    randomized-QMC replicates and their spread a valid error bar."""
+
+    key = "qmc"
+
+    def __init__(self):
+        self.blocks = {k: [] for k in HEADLINE_METRICS}
+
+    def update(self, ctx: SlabContext) -> None:
+        valid_np = ctx.valid_np
+        for k in self.blocks:
+            self.blocks[k].append(float(ctx.slab_metrics[k][valid_np].mean())
+                                  if valid_np.any() else float("nan"))
+
+    def to_arrays(self, arrays: dict) -> None:
+        for k in HEADLINE_METRICS:
+            arrays["qmc." + k] = np.asarray(self.blocks[k], np.float64)
+
+    def restore(self, z, meta) -> None:
+        self.blocks = {k: [float(x) for x in z["qmc." + k]] for k in HEADLINE_METRICS}
+
+    def finalize(self, analysis: dict, analyzer) -> None:
+        if len(self.blocks["apogee_altitude"]) > 1:
+            analysis["qmc_error"] = analyzer._qmc_error(self.blocks)
+
+
 class FootprintMomentsAccumulator(SlabAccumulator):
     """The landing footprint's moment merge: each slab reduces on its device
     to six numbers (``MonteCarloAnalyzer._footprint_moments``); the ellipses
@@ -287,6 +335,77 @@ class FootprintMomentsAccumulator(SlabAccumulator):
 
     def finalize(self, analysis: dict, analyzer) -> None:
         analysis["landing_footprint"] = self.acc.footprint()
+
+
+class ImportanceAccumulator(SlabAccumulator):
+    """Each lane's log likelihood ratio under the importance tilt
+    (``mc.importance.log_weights``). It finalizes after the prefix, whose
+    metrics it weighs: importance runs never stream, so the prefix holds
+    every lane."""
+
+    key = "lw"
+
+    def __init__(self, analyzer):
+        self.analyzer = analyzer
+        self.parts: list = []
+
+    def update(self, ctx: SlabContext) -> None:
+        from .importance import log_weights
+
+        a = self.analyzer
+        self.parts.append(log_weights(ctx.sample, a.uncertainty_params, a.scene.motor,
+                                      a.importance_shift)[: ctx.n_s])
+
+    def to_arrays(self, arrays: dict) -> None:
+        if self.parts:
+            arrays["lw"] = np.concatenate(self.parts)
+
+    def restore(self, z, meta) -> None:
+        self.parts = [z["lw"]] if "lw" in z else []
+
+    def finalize(self, analysis: dict, analyzer) -> None:
+        analysis["importance"] = analyzer._importance_block(
+            {k: analysis["metrics"][k] for k in HEADLINE_METRICS}, analysis["valid_mask"],
+            np.concatenate(self.parts))
+
+
+class EnsembleStatsAccumulator(SlabAccumulator):
+    """The forecast ensemble's per-member moments (``mc.ensemble``), merged
+    slab by slab; the members of the kept lanes are the prefix's column."""
+
+    key = "ens"
+
+    def __init__(self, ens_acc):
+        self.acc = ens_acc
+
+    def update(self, ctx: SlabContext) -> None:
+        self.acc.add(ctx.mem_np, ctx.valid_np, ctx.slab_metrics)
+
+    def to_arrays(self, arrays: dict) -> None:
+        from .ensemble import METRICS
+
+        ens = self.acc
+        arrays["ens.n_drawn"] = ens.n_drawn
+        arrays["ens.n_valid"] = ens.n_valid
+        for m in METRICS:
+            arrays[f"ens.n.{m}"] = ens._n[m]
+            arrays[f"ens.mean.{m}"] = ens._mean[m]
+            arrays[f"ens.m2.{m}"] = ens._m2[m]
+
+    def restore(self, z, meta) -> None:
+        from .ensemble import METRICS, EnsembleAccumulator
+
+        ens = EnsembleAccumulator(int(z["ens.n_drawn"].size))
+        ens.n_drawn = np.array(z["ens.n_drawn"], np.int64)
+        ens.n_valid = np.array(z["ens.n_valid"], np.int64)
+        for m in METRICS:
+            ens._n[m] = np.array(z[f"ens.n.{m}"], np.int64)
+            ens._mean[m] = np.array(z[f"ens.mean.{m}"], np.float64)
+            ens._m2[m] = np.array(z[f"ens.m2.{m}"], np.float64)
+        self.acc = ens
+
+    def finalize(self, analysis: dict, analyzer) -> None:
+        analysis["ensemble"] = self.acc.block()
 
 
 class RangesAccumulator(SlabAccumulator):
@@ -355,13 +474,23 @@ class RecordsAccumulator(SlabAccumulator):
         analysis["outliers"] = self.outlier_records
 
 
-def build_registry(analyzer, *, n_samples: int, limit: int, streaming: bool) -> list:
+def build_registry(analyzer, *, n_samples: int, limit: int, streaming: bool,
+                   ens_acc=None) -> list:
     """The ordered accumulators of one slabbed run; the order is the
-    finalize order, the JAX package's."""
+    finalize order, the JAX package's (the prefix first: the importance
+    block reads its arrays). ``ens_acc``: the forecast ensemble's
+    ``mc.ensemble.EnsembleAccumulator``, or None."""
     cap = analyzer.metrics_sample_cap if streaming else n_samples
-    accs: list = [PrefixAccumulator(cap, streaming)]
+    accs: list = [PrefixAccumulator(cap, streaming, want_members=ens_acc is not None)]
     if streaming:
         accs.append(StreamAccumulator(analyzer.stats_stream_threshold))
-    accs += [ConvergenceAccumulator(), FootprintMomentsAccumulator(analyzer),
-             RangesAccumulator(analyzer), RecordsAccumulator(analyzer, limit)]
+    accs.append(ConvergenceAccumulator())
+    if analyzer.sampler == "sobol":
+        accs.append(QMCAccumulator())
+    accs.append(FootprintMomentsAccumulator(analyzer))
+    if analyzer.importance_shift:
+        accs.append(ImportanceAccumulator(analyzer))
+    if ens_acc is not None:
+        accs.append(EnsembleStatsAccumulator(ens_acc))
+    accs += [RangesAccumulator(analyzer), RecordsAccumulator(analyzer, limit)]
     return accs

@@ -10,9 +10,10 @@ deterministically on the host). The file goes when the run completes.
 A fingerprint of every input that changes a slab's results or the
 accumulators' shapes guards the resume: the scene, initial-condition and
 base-wind tensors, the dispersion, simulation and outlier settings, the run's
-size, slab and seed, the streaming knobs, the wind grid and the device type
-(a card's run resumed on the CPU would mix two populations). A checkpoint of
-another run refuses to load.
+size, slab and seed, the streaming knobs, the wind grid, the device type (a
+card's run resumed on the CPU would mix two populations) and the sampling
+options (sampler, scrambles, Sobol wind modes, antithetic pairs, importance
+shift). A checkpoint of another run refuses to load.
 
 One uncompressed ``.npz``, written atomically (a temporary file, then
 ``os.replace``), its parent directories created.
@@ -76,7 +77,9 @@ def run_fingerprint(analyzer, ic, n_samples, slab, seed, base_wind, limit) -> st
         _VERSION, int(n_samples), int(slab), int(seed), int(limit),
         int(analyzer.stats_stream_threshold), int(analyzer.metrics_sample_cap),
         int(analyzer.wind_grid_points), float(analyzer.wind_grid_top),
-        analyzer.device.type,
+        analyzer.device.type, analyzer.sampler, int(analyzer.sobol_scrambles),
+        int(analyzer.sobol_wind_modes), bool(analyzer.antithetic),
+        [[c, float(t)] for c, t in analyzer.importance_shift],
     ]).encode())
     return h.hexdigest()
 

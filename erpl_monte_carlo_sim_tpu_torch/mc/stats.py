@@ -105,31 +105,17 @@ def _ellipses(cov: np.ndarray) -> dict:
     return out
 
 
-def _sobol2(n: int) -> np.ndarray:
-    """The first two Sobol dimensions (Joe-Kuo direction numbers: van der
-    Corput, then the x + 1 polynomial), points 0..n-1, as uint32 [n, 2]."""
-    v = np.zeros((2, 32), np.uint32)
-    m = 1
-    for k in range(32):
-        v[0, k] = 1 << (31 - k)
-        v[1, k] = m << (31 - k)
-        m = (m << 1) ^ m
-    i = np.arange(n, dtype=np.uint32)
-    gray = i ^ (i >> np.uint32(1))
-    x = np.zeros((n, 2), np.uint32)
-    for j in range(max(1, (n - 1).bit_length())):
-        bit = (gray >> np.uint32(j)) & np.uint32(1)
-        x ^= bit[:, None] * v[None, :, j]
-    return x
-
-
 def _gaussian_cep(cov: np.ndarray) -> float:
     """Median miss distance of the fitted 2-D Gaussian, from a deterministic
-    2^16-point Sobol sample."""
+    2^16-point sample of the first two unscrambled Sobol dimensions
+    (``ops.sobol``'s construction)."""
     from scipy.special import ndtri
 
+    from ..ops.sobol import _sobol_bits, direction_numbers
+
     evals = np.maximum(np.linalg.eigvalsh(cov), 0.0)
-    z = ndtri((_sobol2(1 << 16).astype(np.float64) + 0.5) * 2.0 ** -32)
+    v = torch.as_tensor(direction_numbers(2).astype(np.int64))
+    z = ndtri((_sobol_bits(1 << 16, v).numpy().astype(np.float64) + 0.5) * 2.0 ** -32)
     d2 = evals[1] * z[:, 0] ** 2 + evals[0] * z[:, 1] ** 2
     return float(np.sqrt(np.median(d2)))
 

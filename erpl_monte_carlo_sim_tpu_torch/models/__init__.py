@@ -7,7 +7,8 @@ from .rocket import (AeroCoefficients, MassProperties, RocketParams,
                      aero_coefficients, barrowman_cp, dynamic_cp, mass_properties,
                      stability_margin)
 from .scene import Scene, nominal_scene
-from .wind import (WindField, WindModelParams, generate_stochastic_profile,
+from .wind import (WindField, WindModelParams, ar1_transfer_matrix,
+                   generate_stochastic_profile, load_wind_ensemble_from_csvs,
                    load_wind_profile_from_csv, perturb_wind_profile, power_law_profile)
 
 __all__ = [
@@ -18,4 +19,5 @@ __all__ = [
     "mass_properties", "stability_margin", "Scene", "nominal_scene",
     "WindField", "WindModelParams", "generate_stochastic_profile",
     "perturb_wind_profile", "power_law_profile", "load_wind_profile_from_csv",
+    "ar1_transfer_matrix", "load_wind_ensemble_from_csvs",
 ]

@@ -23,7 +23,8 @@ import torch
 from ..utils.tree import default_dtype, materialize
 
 __all__ = ["WindField", "WindModelParams", "power_law_profile", "generate_stochastic_profile",
-           "perturb_wind_profile", "load_wind_profile_from_csv"]
+           "perturb_wind_profile", "ar1_transfer_matrix", "load_wind_profile_from_csv",
+           "load_wind_ensemble_from_csvs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,6 +135,30 @@ def perturb_wind_profile(p: WindModelParams, altitudes, base_profile, noise=None
                      generator=generator)
 
 
+def ar1_transfer_matrix(p: WindModelParams, altitudes) -> np.ndarray:
+    """The lower-triangular ``[N, N]`` map ``A`` with ``turb_horizontal = A @
+    z`` for ``_ar1_scan``'s recursion (host NumPy, float64; the vertical
+    component is ``0.3 A``): ``A[i, j] = s_j prod_{m=j+1..i} rho_m`` with
+    ``s_0 = sigma_0`` and ``s_j`` the innovation sigma after. Its right
+    singular vectors order the turbulence's directions by variance
+    (``mc.dispersions``' Sobol wind modes). It mirrors ``_ar1_scan``'s
+    constants: the sigma decay, the prepended ``dh``, the clip of ``rho``
+    and the innovation floor."""
+    alt = np.asarray(altitudes, np.float64)
+    ti = float(p.turbulence_intensity)
+    cl = float(p.correlation_length)
+    sigma = ti * np.exp(-alt / 2000.0)
+    dh = np.maximum(np.diff(alt, prepend=alt[:1]), 1e-6)
+    rho = np.clip(np.exp(-dh / cl), 0.1, 0.95)
+    innov = sigma * np.sqrt(np.maximum(1.0 - rho**2, 0.01))
+    s_ = innov.copy()
+    s_[0] = sigma[0]
+    # prod_{m=j+1..i} rho_m = exp(logp[i] - logp[j]), logp[i] = sum_{1<=m<=i} log rho_m
+    logp = np.concatenate([[0.0], np.cumsum(np.log(rho[1:]))])
+    ratio = np.exp(logp[:, None] - logp[None, :])
+    return np.tril(ratio * s_[None, :])
+
+
 def load_wind_profile_from_csv(file_path: str):
     """Load an ``altitude,u,v[,w]`` CSV forecast: host NumPy arrays
     ``(altitudes [N], wind [N, 3])`` for ``WindField.from_arrays`` or the
@@ -146,3 +171,21 @@ def load_wind_profile_from_csv(file_path: str):
     else:
         wind = np.vstack([data["u"], data["v"], np.zeros_like(altitudes)]).T
     return altitudes, wind
+
+
+def load_wind_ensemble_from_csvs(file_paths):
+    """A forecast ensemble from one CSV per member (``load_wind_profile_from_csv``'s
+    format) on the first member's altitude grid: the other members are
+    interpolated onto it per component, clamped at the ends. Returns host
+    arrays ``(altitudes [N], wind [K, N, 3])`` for the analyzer's
+    ``base_altitude_profile`` / ``base_wind_profile``; each Monte Carlo lane
+    then perturbs a uniformly drawn member."""
+    paths = list(file_paths)
+    if not paths:
+        raise ValueError("need at least one ensemble member CSV")
+    grid, first = load_wind_profile_from_csv(paths[0])
+    members = [first]
+    for path in paths[1:]:
+        alts, wind = load_wind_profile_from_csv(path)
+        members.append(np.stack([np.interp(grid, alts, wind[:, c]) for c in range(3)], axis=1))
+    return grid, np.stack(members, axis=0)

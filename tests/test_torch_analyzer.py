@@ -16,7 +16,7 @@ from erpl_monte_carlo_sim_tpu.mc import MonteCarloAnalyzer as JaxAnalyzer
 from erpl_monte_carlo_sim_tpu.models import liquid_motor as jax_liquid
 from erpl_monte_carlo_sim_tpu.models import nominal_scene as jax_nominal
 from erpl_monte_carlo_sim_tpu_torch.engine import InitialConditions, SimConfig
-from erpl_monte_carlo_sim_tpu_torch.mc import MonteCarloAnalyzer
+from erpl_monte_carlo_sim_tpu_torch.mc import MonteCarloAnalyzer, OutlierBounds
 from erpl_monte_carlo_sim_tpu_torch.models import liquid_motor
 
 torch.set_num_threads(1)
@@ -83,9 +83,6 @@ def test_rejects_unknown_ic_keys():
 
 
 @pytest.mark.parametrize("option,item", [
-    ({"sampler": "sobol"}, "P12"),
-    ({"antithetic": True}, "P12"),
-    ({"importance_shift": {"mass": 1.0}}, "P12"),
     ({"control_variates": True}, "P13"),
     ({"two_level_lanes": 64}, "P13"),
     ({"wind_table_modes": 24}, "P8"),
@@ -94,6 +91,42 @@ def test_rejects_unknown_ic_keys():
 def test_unported_constructor_options_raise(option, item):
     with pytest.raises(NotImplementedError, match=item):
         MonteCarloAnalyzer(motor=liquid_motor("cpu"), **option)
+
+
+@pytest.mark.parametrize("option,block", [
+    ({"sampler": "sobol", "sobol_scrambles": 2, "sobol_wind_modes": 2}, "qmc_error"),
+    ({"antithetic": True}, None),
+    ({"importance_shift": {"mass": 1.0}}, "importance"),
+], ids=["sobol", "antithetic", "importance"])
+def test_sampling_constructor_options_run(option, block):
+    """The sampling options run on the analyzer's device and add their
+    blocks; the lanes are the sampler's under the same options and seed."""
+    from erpl_monte_carlo_sim_tpu_torch.mc import sample_dispersions
+
+    mc = MonteCarloAnalyzer(motor=liquid_motor("cpu"), sim_config=SimConfig(max_time=0.2),
+                            **option)
+    ic = InitialConditions.vertical_launch("cpu")
+    a = mc.run_monte_carlo(ic, n_samples=8, seed=2)
+    assert block is None or block in a
+    _, _, want = sample_dispersions(torch.Generator().manual_seed(2), mc.scene, ic, n=8,
+                                    **option)
+    np.testing.assert_array_equal(a["sample"].mass_multiplier, want.mass_multiplier.numpy())
+    if option.get("antithetic"):
+        np.testing.assert_array_equal(a["sample"].wind_speed[4:],
+                                      5.0 - a["sample"].wind_speed[:4])
+
+
+def test_sampling_constructor_checks_match_jax():
+    with pytest.raises(ValueError, match="importance_shift requires sampler='prng'"):
+        MonteCarloAnalyzer(motor=liquid_motor("cpu"), sampler="sobol",
+                           importance_shift={"mass": 1.0})
+    with pytest.raises(ValueError, match="importance_shift requires sampler='prng'"):
+        MonteCarloAnalyzer(motor=liquid_motor("cpu"), antithetic=True,
+                           importance_shift={"mass": 1.0})
+    mc = MonteCarloAnalyzer(motor=liquid_motor("cpu"), importance_shift={"mass": 1.0},
+                            stats_stream_threshold=4, sim_config=SimConfig(max_time=0.1))
+    with pytest.raises(ValueError, match="per-lane weights"):
+        mc.run_monte_carlo(InitialConditions.vertical_launch("cpu"), n_samples=8, lane_slab=4)
 
 
 @pytest.mark.parametrize("flags", [
@@ -130,17 +163,30 @@ def test_unported_run_options_raise(kwargs, item):
         mc.run_monte_carlo(InitialConditions.vertical_launch("cpu"), **kwargs)
 
 
-def test_forecast_ensemble_raises():
-    mc = MonteCarloAnalyzer(motor=liquid_motor("cpu"), sim_config=SimConfig(max_time=0.1))
+def _ensemble_run(**kw):
+    """A two-member forecast ensemble: a malformed one raises as the JAX
+    package does, a well-formed one runs with its ensemble block and each
+    lane's member."""
+    mc = MonteCarloAnalyzer(motor=liquid_motor("cpu"), sim_config=SimConfig(max_time=0.1),
+                            bounds=OutlierBounds(min_apogee=0.0))
+    ic = InitialConditions.vertical_launch("cpu")
     mc.base_altitude_profile = torch.linspace(0.0, 25000.0, 10, dtype=torch.float64)
-    mc.base_wind_profile = torch.zeros((2, 10, 3), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="P12"):
-        mc.run_monte_carlo(InitialConditions.vertical_launch("cpu"), n_samples=4)
+    mc.base_wind_profile = torch.zeros((2, 9, 3), dtype=torch.float64)
+    with pytest.raises(ValueError, match="base_wind must be"):
+        mc.run_monte_carlo(ic, n_samples=4, **kw)
+    mc.base_wind_profile = torch.stack([torch.zeros(10, 3), torch.full((10, 3), 4.0)]).double()
+    a = mc.run_monte_carlo(ic, n_samples=8, **kw)
+    assert a["ensemble"]["n_members"] == 2
+    assert sum(r["n_drawn"] for r in a["ensemble"]["members"]) == 8
+    assert a["wind_members"].shape == (8,) and set(a["wind_members"]) <= {0, 1}
+    return a
+
+
+def test_forecast_ensemble_raises():
+    a = _ensemble_run()
+    np.testing.assert_array_equal(a["wind_members"], a["sample"].wind_member)
 
 
 def test_forecast_ensemble_raises_on_the_slabbed_path():
-    mc = MonteCarloAnalyzer(motor=liquid_motor("cpu"), sim_config=SimConfig(max_time=0.1))
-    mc.base_altitude_profile = torch.linspace(0.0, 25000.0, 10, dtype=torch.float64)
-    mc.base_wind_profile = torch.zeros((2, 10, 3), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="P12"):
-        mc.run_monte_carlo(InitialConditions.vertical_launch("cpu"), n_samples=4, lane_slab=2)
+    a = _ensemble_run(lane_slab=2)
+    assert a["summary"] is None and a["n_total"] == 8

@@ -19,7 +19,8 @@ FORBIDDEN = {"jax", "jaxlib", "flax"}
 def test_every_module_imports_with_jax_and_flax_blocked():
     assert {f"erpl_monte_carlo_sim_tpu_torch.mc.{m}" for m in (
         "slab_accumulators", "slab_checkpoint", "sequential", "checkpoint", "tail",
-        "envelope", "resimulate")} <= set(MODULES)
+        "envelope", "resimulate", "ensemble", "importance")} <= set(MODULES)
+    assert "erpl_monte_carlo_sim_tpu_torch.ops.sobol" in MODULES
     assert {f"erpl_monte_carlo_sim_tpu_torch.{m}" for m in (
         "example", "reporting", "reporting.plots", "reporting.report", "reporting.results",
         "cli", "cli.find_max_apogee", "cli.analyze_outlier", "cli.launch_window",
@@ -29,6 +30,7 @@ def test_every_module_imports_with_jax_and_flax_blocked():
         "sys.modules['jax'] = None\n"
         "sys.modules['flax'] = None\n"
         "import importlib\n"
+        "import torch\n"
         f"for m in {MODULES!r}:\n"
         "    importlib.import_module(m)\n"
         "from erpl_monte_carlo_sim_tpu_torch.kernels import flight_summary\n"
@@ -39,6 +41,10 @@ def test_every_module_imports_with_jax_and_flax_blocked():
         "from erpl_monte_carlo_sim_tpu_torch.cli.launch_window import main as lw\n"
         "from erpl_monte_carlo_sim_tpu_torch.reporting import save_report, plot_results\n"
         "from erpl_monte_carlo_sim_tpu_torch import Scene, WindField, RocketParams, cli\n"
+        "from erpl_monte_carlo_sim_tpu_torch.ops import sobol\n"
+        "from erpl_monte_carlo_sim_tpu_torch.mc.ensemble import EnsembleAccumulator\n"
+        "from erpl_monte_carlo_sim_tpu_torch.mc.importance import log_weights\n"
+        "assert sobol.sobol_points(8, 640, torch.zeros(1, 640, dtype=torch.int64)).shape[1] == 640\n"
         "assert 'jax' not in [k for k, v in sys.modules.items() if v is not None]\n"
         "print('ok')\n"
     )
@@ -85,6 +91,19 @@ def test_no_source_imports_jax_or_flax(path):
             assert name.split(".")[0] not in FORBIDDEN, (path, name)
             assert not name.startswith("erpl_monte_carlo_sim_tpu.") and \
                 name != "erpl_monte_carlo_sim_tpu", (path, name)
+
+
+def test_no_source_reads_the_jax_packages_data():
+    """The port keeps its own copies of the data it reads (the Sobol
+    direction numbers among them): no source names the JAX package's data
+    directory, and the Sobol table is the port's file."""
+    from erpl_monte_carlo_sim_tpu_torch.ops import sobol
+
+    for path in sorted(PORT.rglob("*.py")):
+        text = path.read_text()
+        for name in ("erpl_monte_carlo_sim_tpu.data", "erpl_monte_carlo_sim_tpu/data"):
+            assert name not in text, (path, name)
+    assert pathlib.Path(sobol._TABLE).resolve() == PORT / "data" / "sobol_directions.npz"
 
 
 def test_package_imports_without_matplotlib():

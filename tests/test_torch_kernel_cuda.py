@@ -334,3 +334,48 @@ def test_graph_replayed_blocks_are_the_eager_loop_on_cuda(what, monkeypatch):
             torch.testing.assert_close(a, b, rtol=1e-12, atol=0.0)
         else:
             assert torch.equal(a, b), k
+
+
+@pytest.mark.cuda
+def test_sobol_points_on_the_card_are_the_cpus_on_cuda():
+    """The scrambled Sobol integers are built from int64 words kept below
+    2**32: the card's are the CPU's bit for bit for the same seeds; the
+    normals (float64 inverse CDF, rounded) within 4 ulp of the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from erpl_monte_carlo_sim_tpu_torch.ops import sobol
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    seeds = sobol.draw_seeds(gen, 4, 43)
+    points = sobol.sobol_points(4096, 43, seeds)
+    assert torch.equal(points.cpu(), sobol.sobol_points(4096, 43, seeds.cpu()))
+    for dtype in (torch.float32, torch.float64):
+        u = sobol._to_unit(points, dtype)
+        a, b = sobol.ndtri(u).cpu().numpy(), sobol.ndtri(u.cpu()).numpy()
+        ulps = np.abs(a - b) / np.spacing(np.maximum(np.abs(a), np.abs(b)))
+        assert ulps.max() <= 4, (dtype, ulps.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("option", [
+    {"sampler": "sobol", "sobol_scrambles": 2, "sobol_wind_modes": 4},
+    {"antithetic": True}, {"importance_shift": {"motor_thrust": 1.5}}],
+    ids=["sobol", "antithetic", "importance"])
+def test_sampling_variants_fly_through_the_kernel_on_cuda(option):
+    """Each variant's lanes, drawn on the card over a three-member forecast
+    ensemble, fly through the kernel (one launch) and meet the plain
+    version at the float32 bars."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc; the CPU runs the plain version only")
+    dev = torch.device("cuda")
+    grid = np.linspace(0.0, 25000.0, 100)
+    ens = np.stack([np.zeros((100, 3)), np.full((100, 3), 3.0), np.full((100, 3), -3.0)])
+    mc = MonteCarloAnalyzer(motor=liquid_motor(dev), sim_config=WINDOW, **option)
+    mc.base_altitude_profile, mc.base_wind_profile = grid, ens
+    before = fs.launches
+    a = mc.run_monte_carlo(InitialConditions.vertical_launch(dev), n_samples=1024, seed=4)
+    assert fs.launches == before + 1
+    assert a["ensemble"]["n_members"] == 3 and a["wind_members"].shape == (1024,)
+    ref, got = kernel_and_plain(*mc._last_batch, WINDOW)
+    compare(ref, got, torch.float32)

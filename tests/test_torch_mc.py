@@ -205,7 +205,10 @@ def test_landing_footprint_matches_jax(n):
 
 
 def test_gaussian_cep_matches_jax():
-    np.testing.assert_array_equal(tstats._sobol2(4096)[:, :],
+    from erpl_monte_carlo_sim_tpu_torch.ops import sobol as tsobol
+
+    v = torch.as_tensor(tsobol.direction_numbers(2).astype(np.int64))
+    np.testing.assert_array_equal(tsobol._sobol_bits(4096, v).numpy(),
                                   _sobol_bits(4096, direction_numbers(2), xp=np))
     cov = np.array([[120.0, 30.0], [30.0, 45.0]])
     assert tstats._gaussian_cep(cov) == jstats._gaussian_cep(cov)

@@ -24,7 +24,7 @@ from chip_smoke import plain_data, same_analysis
 from erpl_monte_carlo_sim_tpu_torch.engine import InitialConditions, SimConfig, \
     simulate_summary_batch
 from erpl_monte_carlo_sim_tpu_torch.mc import (MonteCarloAnalyzer, OutlierBounds,
-                                               UncertaintyParams, load_summaries,
+                                               QmcMeanStderr, UncertaintyParams, load_summaries,
                                                sample_dispersions, save_summaries, slab_seed)
 from erpl_monte_carlo_sim_tpu_torch.mc.slab_checkpoint import run_fingerprint
 from erpl_monte_carlo_sim_tpu_torch.models import liquid_motor, nominal_scene
@@ -155,6 +155,13 @@ CHANGES = {
     "wind_grid_points": lambda: {"mc": analyzer(wind_grid_points=50)},
     "wind_grid_top": lambda: {"mc": analyzer(wind_grid_top=20000.0)},
     "device_type": lambda: {"mc": _as_cuda(analyzer())},
+    "sampler": lambda: {"mc": analyzer(sampler="sobol")},
+    "sobol_scrambles": lambda: {"mc": analyzer(sampler="sobol", sobol_scrambles=2)},
+    "sobol_wind_modes": lambda: {"mc": analyzer(sampler="sobol", sobol_wind_modes=2)},
+    "antithetic": lambda: {"mc": analyzer(antithetic=True)},
+    "importance_shift": lambda: {"mc": analyzer(importance_shift={"mass": 1.0})},
+    "importance_theta": lambda: {"mc": analyzer(importance_shift={"mass": 1.5}),
+                                 "base": {"mc": analyzer(importance_shift={"mass": 1.0})}},
 }
 
 
@@ -162,8 +169,10 @@ CHANGES = {
 def test_fingerprint_covers_every_input(change):
     """No flights: the fingerprint of the same run twice is equal, and any
     one input changed changes it."""
-    assert _fingerprint() == _fingerprint()
-    assert _fingerprint(**CHANGES[change]()) != _fingerprint()
+    changed = CHANGES[change]()
+    base = changed.pop("base", {})
+    assert _fingerprint(**base) == _fingerprint(**base)
+    assert _fingerprint(**changed) != _fingerprint(**base)
 
 
 @pytest.mark.parametrize("case", ["early", "min_samples", "budget"])
@@ -196,6 +205,9 @@ def test_run_to_precision_is_run_monte_carlo(case, runs):
 
 
 def test_run_to_precision_refuses_what_jax_refuses():
+    with pytest.raises(ValueError, match="unweighted"):
+        analyzer(importance_shift={"mass": 1.0}).run_to_precision(
+            IC, criteria=[{"metric": "range", "mean_stderr": 1.0}], max_samples=N)
     mc = analyzer()
     for kw, match in (({"criteria": []}, "non-empty"),
                       ({"criteria": [{"metric": "range", "qmc_mean_stderr": 1.0}]}, "sobol"),
@@ -205,6 +217,65 @@ def test_run_to_precision_refuses_what_jax_refuses():
                         "min_samples": 200}, "min_samples")):
         with pytest.raises(ValueError, match=match):
             mc.run_to_precision(IC, **{"max_samples": N, **kw})
+
+
+GRID = np.linspace(0.0, 25000.0, 20)
+ENSEMBLE = np.stack([np.full((20, 3), 1.0), np.full((20, 3), -2.0), np.zeros((20, 3))])
+VARIANTS = {
+    "sobol": ({"sampler": "sobol", "sobol_scrambles": 2, "sobol_wind_modes": 2}, None),
+    "ensemble": ({"antithetic": True, **STREAMING}, ENSEMBLE),
+    "importance": ({"importance_shift": {"motor_thrust": 1.5}}, ENSEMBLE),
+}
+
+
+@pytest.mark.parametrize("name", list(VARIANTS))
+def test_variant_resume_is_bit_identical(name, monkeypatch, tmp_path):
+    """A Sobol run (its qmc_error block from the slabs' means), an
+    antithetic forecast-ensemble run past the streaming threshold (its
+    ensemble block and the prefix's member column) and an importance run
+    (its weights) killed after two slabs resume to the uninterrupted run bit
+    for bit."""
+    knobs, ens = VARIANTS[name]
+
+    def mc():
+        m = analyzer(**knobs)
+        if ens is not None:
+            m.base_altitude_profile, m.base_wind_profile = GRID, ens
+        return m
+
+    ref = mc().run_monte_carlo(IC, n_samples=N, lane_slab=SLAB, seed=7)
+    block = {"sobol": "qmc_error", "ensemble": "ensemble", "importance": "importance"}[name]
+    assert block in ref
+    if name == "sobol":
+        assert len(ref["qmc_error"]["apogee_altitude"]["block_means"]) == N // SLAB
+    if ens is not None:
+        assert ref["wind_members"].size == ref["valid_mask"].size
+        assert {row["n_drawn"] for row in ref["ensemble"]["members"]} != {0}
+    ckpt = str(tmp_path / "run.ckpt.npz")
+    kill_after(monkeypatch, 2)
+    with pytest.raises(RuntimeError, match="simulated crash"):
+        mc().run_monte_carlo(IC, n_samples=N, lane_slab=SLAB, seed=7, checkpoint_path=ckpt,
+                             checkpoint_every=1)
+    monkeypatch.undo()
+    same_analysis(mc().run_monte_carlo(IC, n_samples=N, lane_slab=SLAB, seed=7,
+                                       checkpoint_path=ckpt, checkpoint_every=1), ref)
+
+
+def test_run_to_precision_on_rqmc_replicates():
+    """Under ``sampler="sobol"`` a ``qmc_mean_stderr`` criterion runs on the
+    slab means (independent scrambles); a target out of reach runs the whole
+    budget, and the analysis is ``run_monte_carlo``'s bit for bit."""
+    mc = analyzer(sampler="sobol")
+    a = mc.run_to_precision(IC, criteria=[QmcMeanStderr("apogee_altitude", 1e-9,
+                                                         min_replicates=2)],
+                            max_samples=N, lane_slab=SLAB, seed=7)
+    seq = a.pop("sequential")
+    assert seq["n_used"] == N and not seq["satisfied"]
+    crit = seq["criteria"][0]
+    assert crit["n_replicates"] == N // SLAB and np.isfinite(crit["stderr"])
+    np.testing.assert_allclose(crit["stderr"], a["qmc_error"]["apogee_altitude"]["mean_stderr"],
+                               rtol=1e-12)
+    same_analysis(a, mc.run_monte_carlo(IC, n_samples=N, lane_slab=SLAB, seed=7))
 
 
 # np.random.SeedSequence([0, k]).generate_state(1, np.uint64), 63 bits

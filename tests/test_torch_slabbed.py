@@ -169,3 +169,60 @@ def test_exceedance_from_analysis_matches_jax(both):
     for ra, rb in zip(a, b):
         close(ra["probability"], rb["probability"], "probability")
         assert ra["n"] == rb["n"]
+
+
+# the sampling variants' slab blocks: a Sobol run over a three-member
+# forecast ensemble (qmc_error from the slab means, the ensemble block, the
+# prefix's member column; the importance weights' slab accumulator is held
+# by tests/test_torch_slab_checkpoint.py and its block by
+# tests/test_torch_sampling_variants.py)
+ENSEMBLE = np.stack([np.zeros((100, 3)), np.full((100, 3), 3.0), np.full((100, 3), -3.0)])
+VARIANTS = {"sobol_ensemble": {"sampler": "sobol", "sobol_wind_modes": 2}}
+
+
+def jax_variant_slab(analyzer, ic, k, slab, seed, base_wind):
+    """The port's draw seam fed with the JAX analyzer's slab ``k`` under the
+    analyzer's sampling options."""
+    scene_b, ic_b, sample = jax_sample(
+        jax.random.fold_in(jax.random.PRNGKey(seed), k), JSCENE, JIC, n=slab,
+        base_wind=base_wind, sampler=analyzer.sampler,
+        sobol_wind_modes=analyzer.sobol_wind_modes)
+    return (scene_from_numpy(scene_b, "cpu"), ic_from_numpy(ic_b, "cpu"),
+            sample_from_numpy(sample, "cpu"))
+
+
+@pytest.fixture(scope="module", params=list(VARIANTS))
+def variant_runs(request):
+    knobs = VARIANTS[request.param]
+    ref_mc = JaxAnalyzer(scene=JSCENE, sim_config=JaxConfig(max_time=WINDOW),
+                         bounds=JaxBounds(min_apogee=MIN_APOGEE), persistent_cache=False,
+                         **knobs)
+    mc = MonteCarloAnalyzer(motor=liquid_motor("cpu"), sim_config=SimConfig(max_time=WINDOW),
+                            bounds=OutlierBounds(min_apogee=MIN_APOGEE), **knobs)
+    grid = np.linspace(0.0, 25000.0, 100)
+    ref_mc.base_altitude_profile = mc.base_altitude_profile = grid
+    ref_mc.base_wind_profile = mc.base_wind_profile = ENSEMBLE
+    ref = ref_mc.run_monte_carlo(JIC, n_samples=N, lane_slab=SLAB, seed=SEED,
+                                 materialize_results=LIMIT)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(analyzer_mod, "_draw_slab", jax_variant_slab)
+        got = mc.run_monte_carlo(InitialConditions.vertical_launch("cpu"), n_samples=N,
+                                 lane_slab=SLAB, seed=SEED, materialize_results=LIMIT)
+    return request.param, got, ref
+
+
+def test_variant_blocks_match_jax(variant_runs):
+    _, got, ref = variant_runs
+    assert keyset(got) == keyset(ref)
+    np.testing.assert_array_equal(got["valid_mask"], ref["valid_mask"])
+    for k in ("apogee_altitude", "range", "flight_time"):
+        close(got["metrics"][k], ref["metrics"][k], k)
+    for k, v in ref["qmc_error"].items():
+        assert len(got["qmc_error"][k]["block_means"]) == 3
+        close(got["qmc_error"][k]["block_means"], v["block_means"], k)
+        close(got["qmc_error"][k]["mean_stderr"], v["mean_stderr"], k)
+    np.testing.assert_array_equal(got["wind_members"], ref["wind_members"])
+    for row, rrow in zip(got["ensemble"]["members"], ref["ensemble"]["members"]):
+        assert (row["n_drawn"], row["n_valid"]) == (rrow["n_drawn"], rrow["n_valid"])
+        for k in ("apogee_altitude", "range", "flight_time"):
+            close([row[k]["mean"], row[k]["std"]], [rrow[k]["mean"], rrow[k]["std"]], k)
