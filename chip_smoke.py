@@ -129,12 +129,40 @@ raises and the run exits non-zero:
      run's metrics bit for bit with its member drawn again; (e) 1,048,576
      Sobol lanes in 4 slabs, ``run_to_precision`` on ``qmc_mean_stderr``
      stopping at the 4th slab with the run's analysis, and the run killed
-     after 2 slabs and resumed, bit for bit.
+     after 2 slabs and resumed, bit for bit; the draw of every slab split
+     into its stages (``DrawSplit``, the card synchronized around each).
+ 13. the estimators at the main path's width (float32, liquid motor,
+     ``max_time=6.0`` unless stated), every lane through K1, launches counted
+     from 0 before each run: (a) control variates on one call of 262,144
+     lanes with 8 turbulence modes and 4 wind-speed knots, the moments
+     reduced on the card held to the same function over the same lanes in
+     float64 on the host (within ``CV_MOMENT_BAR`` of each matrix's scale),
+     the adjusted apogee within 4 stderr of the plain mean, the moments'
+     and the turbulence scores' ms; (b) the same on 1,048,576 lanes in 4
+     slabs, the block equal to the 4 slabs' moments merged on the host, and
+     the run killed after 2 slabs and resumed, bit for bit; (c) the two-level
+     correction of phase 7's tiered full flights (262,144 lanes, 4,096
+     coupled lanes), the fast leg's summaries K1's on those lanes bit for
+     bit, the corrected means the means plus the bias, each leg's wall; (d)
+     subset simulation (16,384 lanes a level, p0 = 0.125) for the apogee
+     above phase 4's 99.9th percentile, within 3 combined CoV of phase 4's
+     count, and the 1e-6 quantile over 2 seeds, with K1's ms at 2,048 and
+     16,384 lanes and level 0's first 1,024 lanes held to the plain
+     version; (e) Sobol' indices on 262,144 lanes a matrix, ``pairs="auto"``,
+     100 bootstrap resamples, one launch a matrix, every share in [-0.05,
+     1.05], the draw, assembly, kernel and bootstrap walls apart, matrix A's
+     first 1,024 lanes held to the plain version; (f) the GPD tail of (a)'s
+     run against the count's Wilson interval, the importance-weighted
+     exceedance of a tilted run against phase 4's count, the
+     ``tail_probability`` CLI with ``--gpd``, ``--shift`` and ``--subset``,
+     and the two estimator figures clocked (``StageClock``; not drawn where
+     matplotlib is missing, as in phase 11).
 
 The kernels JSON gives each flight_summary and recording row the launches
 of phase 11's example runs (``example_launches``), and the summary rows
 (and the parity recording row) those of phase 12's runs
-(``variant_launches``).
+(``variant_launches``); the summary rows also those of phase 13's runs
+(``estimator_launches``).
 
 Phases 2, 4, 5 and 6 also print ``digest`` lines: the SHA-256 of the
 kernel's outputs with NaN made canonical (``kernels/measure.py digest``). A
@@ -201,6 +229,15 @@ ENVELOPE_HELD = 1024
 # options, and the forecast ensemble's slab
 SOBOL = {"sampler": "sobol", "sobol_scrambles": 8, "sobol_wind_modes": 8}
 ENSEMBLE_SLAB = 65_536
+# phase 13: the estimators at the main path's width
+CV_OPTIONS = {"control_variates": True, "cv_wind_modes": 8, "cv_wind_speed": 4}
+TWO_LEVEL_LANES = 4096
+SUBSET = {"n_per_level": 16_384, "p0": 0.125}
+QUANTILE_P = 1e-6
+SOBOL_BOOT = 100
+# the CV moments on the card against their float64 recomputation: each
+# matrix within this share of its largest entry (float32 controls)
+CV_MOMENT_BAR = 1e-4
 
 
 def phase(name: str, **numbers) -> None:
@@ -1263,18 +1300,23 @@ def figures_drawn() -> bool:
 
 
 class StageClock:
-    """Wraps the stages of ``example.main`` (the module's own names) so that
-    each adds its wall and its launches of the summary and recording builds
-    to ``rows[stage]``; the card is synchronized at each boundary."""
+    """Wraps the named functions of a module (``stages``: name -> stage; by
+    default the stages of ``example.main``) so that each adds its wall and
+    its launches of the summary and recording builds to ``rows[stage]``; the
+    card is synchronized at each boundary. A module with a
+    ``MonteCarloAnalyzer`` has its ``run_monte_carlo`` clocked as stage
+    "mc". ``tag`` prefixes the lines it prints."""
 
-    def __init__(self, example_mod):
+    def __init__(self, example_mod, stages=STAGES, tag="11"):
         from erpl_monte_carlo_sim_tpu_torch.kernels import flight_summary as fs
 
         self.fs, self.mod, self.rows, self.saved = fs, example_mod, {}, {}
-        self.not_drawn = []
-        for name, stage in STAGES.items():
+        self.not_drawn, self.tag = [], tag
+        for name, stage in stages.items():
             self.saved[name] = getattr(example_mod, name)
             setattr(example_mod, name, self.timed(stage, self.saved[name]))
+        if not hasattr(example_mod, "MonteCarloAnalyzer"):
+            return
         base = example_mod.MonteCarloAnalyzer
         self.saved["MonteCarloAnalyzer"] = base
         clock = self
@@ -1299,7 +1341,7 @@ class StageClock:
                 if stage not in ("plots", "clouds") or figures_drawn():
                     raise
                 self.not_drawn.append(fn.__name__)
-                print(f"[11] {fn.__name__} not drawn: {e}", flush=True)
+                print(f"[{self.tag}] {fn.__name__} not drawn: {e}", flush=True)
                 return None
             finally:
                 torch.cuda.synchronize()
@@ -1809,6 +1851,439 @@ def ensemble_groupby(a: dict, k: int) -> None:
         raise AssertionError("12d: not every member was drawn")
 
 
+class DrawSplit:
+    """Times the stages of the Sobol path's draw, call by call, the card
+    synchronized around each (``ops.sobol``'s seeds, points and unit map,
+    ``dispersions._sobol_channels`` and ``_build_scene``), and the caching
+    allocator's reserved bytes before and after the first draw."""
+
+    STAGES = (("ops.sobol", "draw_seeds"), ("ops.sobol", "sobol_points"),
+              ("ops.sobol", "_to_unit"), ("mc.dispersions", "_sobol_channels"),
+              ("mc.dispersions", "_build_scene"))
+
+    def __enter__(self):
+        import importlib
+
+        self.ms = {name: [] for _, name in self.STAGES}
+        self.reserved = [torch.cuda.memory_reserved()]
+        self.saved = []
+        for mod_name, name in self.STAGES:
+            mod = importlib.import_module(f"erpl_monte_carlo_sim_tpu_torch.{mod_name}")
+            fn = getattr(mod, name)
+            self.saved.append((mod, name, fn))
+            setattr(mod, name, self.timed(name, fn))
+        return self
+
+    def timed(self, name, fn):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            self.ms[name].append(1e3 * (time.perf_counter() - t0))
+            if name == "_build_scene" and len(self.reserved) == 1:
+                self.reserved.append(torch.cuda.memory_reserved())
+            return out
+        return call
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+    def numbers(self) -> dict:
+        """The first call's ms of each stage, the later calls' median, and
+        the reserved MB before and after the first draw."""
+        out = {}
+        for name, ms in self.ms.items():
+            out[f"{name}_first_ms"] = f"{ms[0]:.3f}" if ms else "none"
+            out[f"{name}_later_ms"] = f"{np.median(ms[1:]):.3f}" if len(ms) > 1 else "none"
+        out["reserved_mb"] = json.dumps([round(r / 2**20, 1) for r in self.reserved])
+        return out
+
+
+def on_device(obj, dev):
+    """A host-side port dataclass (NumPy leaves) as tensors on ``dev``."""
+    from erpl_monte_carlo_sim_tpu_torch.utils.tree import tree_map
+
+    return tree_map(lambda x: torch.as_tensor(np.asarray(x), device=dev), obj)
+
+
+def host64(obj):
+    """Every tensor leaf of a port dataclass on the host, floats in float64."""
+    from erpl_monte_carlo_sim_tpu_torch.utils.tree import tree_map
+
+    return tree_map(lambda t: t.detach().cpu().double() if t.is_floating_point()
+                    else t.detach().cpu(), obj)
+
+
+def median_ms(fn, reps=3):
+    """The median of ``reps`` synchronized host-clock ms of ``fn``, after a
+    first call, and its last result."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times)), out
+
+
+def counted(fn, *a, **kw):
+    """``fn(*a, **kw)`` with K1's launches counted from 0 just before it and
+    read just after: ``(result, wall s, launches)``."""
+    from erpl_monte_carlo_sim_tpu_torch.kernels import flight_summary as fs
+
+    torch.cuda.synchronize()
+    fs.launches = 0
+    t0 = time.time()
+    out = fn(*a, **kw)
+    torch.cuda.synchronize()
+    return out, time.time() - t0, fs.launches
+
+
+def cv_moments_against_float64(mc, ic, a) -> dict:
+    """13a's checks: the run's lanes drawn again through its seam, their CV
+    moments reduced on the card (timed, and the turbulence scores alone),
+    against the same function over the same lanes' controls and targets on
+    the host in float64."""
+    from erpl_monte_carlo_sim_tpu_torch.mc import MonteCarloAnalyzer, cv
+    from erpl_monte_carlo_sim_tpu_torch.mc import analyzer as analyzer_mod
+    from erpl_monte_carlo_sim_tpu_torch.models import liquid_motor
+
+    dev = mc.device
+    scene_b, _ = mc._last_batch
+    _, _, sample = analyzer_mod._draw_single(mc, ic, BENCH_LANES, 0, None)
+    summary = on_device(a["summary"], dev)
+    valid = torch.as_tensor(a["valid_mask"], device=dev)
+    ones = torch.ones(BENCH_LANES, dtype=torch.bool, device=dev)
+    ctrl = mc._cv_wind_ctrl(scene_b, sample, None)
+    moments_ms, got = median_ms(lambda: cv.cv_slab_moments(
+        sample, summary, valid, ones, mc.uncertainty_params, mc.scene.motor, ctrl))
+    scores_ms, _ = median_ms(lambda: cv._wind_scores(ctrl, torch.float32))
+    mc64 = MonteCarloAnalyzer(motor=liquid_motor("cpu", torch.float64),
+                              sim_config=mc.sim_config, **CV_OPTIONS)
+    t0 = time.time()
+    ref = cv.cv_slab_moments(host64(sample), host64(summary), valid.cpu(), ones.cpu(),
+                             mc64.uncertainty_params, mc64.scene.motor,
+                             mc64._cv_wind_ctrl(host64(scene_b), host64(sample), None))
+    host_s = time.time() - t0
+    if not int(got[0]) == int(ref[0]) == BENCH_LANES:
+        raise AssertionError(f"13a: {int(got[0])} lanes in the moments, {int(ref[0])} on the "
+                             "host")
+    worst = max(float(np.abs(x - y).max() / np.abs(y).max())
+                for x, y in zip(got[1:], ref[1:]))
+    if not worst <= CV_MOMENT_BAR:
+        raise AssertionError(f"13a: CV moments {worst} of their scale from float64")
+    return {"moments_ms": f"{moments_ms:.3f}", "wind_scores_ms": f"{scores_ms:.3f}",
+            "controls": int(got[1].size), "moments_vs_f64": worst, "bar": CV_MOMENT_BAR,
+            "f64_host_s": f"{host_s:.2f}"}
+
+
+def kill_and_resume(mc, ic, n, slab, want_launches, tag):
+    """``run_monte_carlo(n, lane_slab=slab)`` killed at its third draw with a
+    checkpoint after every slab, then resumed: ``(resumed analysis, wall s,
+    launches of the resumed run)``."""
+    import tempfile
+
+    from erpl_monte_carlo_sim_tpu_torch.mc import analyzer as analyzer_mod
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "run.ckpt.npz")
+        draw_slab, calls = analyzer_mod._draw_slab, []
+
+        def dying(*args, **kw):
+            if len(calls) == 2:
+                raise RuntimeError("simulated crash")
+            calls.append(1)
+            return draw_slab(*args, **kw)
+
+        analyzer_mod._draw_slab = dying
+        try:
+            mc.run_monte_carlo(ic, n_samples=n, seed=0, lane_slab=slab, checkpoint_path=path,
+                               checkpoint_every=1)
+            raise AssertionError(f"{tag}: the run did not stop at its third draw")
+        except RuntimeError as err:
+            if "simulated crash" not in str(err):
+                raise
+        finally:
+            analyzer_mod._draw_slab = draw_slab
+        r, _, wall, launched = variant_run(mc, ic, n, want_launches, lane_slab=slab,
+                                           checkpoint_path=path, checkpoint_every=1)
+        if os.path.exists(path):
+            raise AssertionError(f"{tag}: the checkpoint outlived the run")
+    return r, wall, launched
+
+
+def estimators(dev, ic, mc4, run4) -> dict:
+    """Phase 13; returns each run's K1 launches."""
+    import contextlib
+    import importlib
+    import io
+    import tempfile
+    import types
+
+    from erpl_monte_carlo_sim_tpu_torch import reporting
+    from erpl_monte_carlo_sim_tpu_torch.cli import tail_probability as tp_cli
+    from erpl_monte_carlo_sim_tpu_torch.engine import SimConfig, simulate_summary_batch
+    from erpl_monte_carlo_sim_tpu_torch.engine.batch import prepare_batch
+    from erpl_monte_carlo_sim_tpu_torch.kernels import flight_summary as fs
+    from erpl_monte_carlo_sim_tpu_torch.mc import (MonteCarloAnalyzer, cv,
+                                                   exceedance_from_analysis, normal_dims,
+                                                   sample_from_normals, tail_from_analysis,
+                                                   two_level)
+    from erpl_monte_carlo_sim_tpu_torch.mc import analyzer as analyzer_mod
+    from erpl_monte_carlo_sim_tpu_torch.mc.filter import outlier_mask
+    from erpl_monte_carlo_sim_tpu_torch.models import liquid_motor
+
+    sobol_mod = importlib.import_module("erpl_monte_carlo_sim_tpu_torch.mc.sobol_indices")
+    cfg = SimConfig(max_time=WINDOW)
+    f32 = torch.float32
+    launches = {}
+    metrics = ("apogee_altitude", "range", "flight_time")
+
+    # ---- 13a: control variates on one call
+    mc_a = MonteCarloAnalyzer(motor=liquid_motor(dev), sim_config=cfg, **CV_OPTIONS)
+    mc_a.run_monte_carlo(ic, n_samples=4096, seed=1)  # first calls: the projector, the means
+    a, _, wall, launches["13a"] = variant_run(mc_a, ic, BENCH_LANES, 1)
+    block = a["control_variates"]
+    ap = block["apogee_altitude"]
+    if not (abs(ap["mean"] - ap["plain_mean"]) <= 4 * ap["plain_stderr"]
+            and ap["variance_reduction"] >= 1.0):
+        raise AssertionError(f"13a: adjusted apogee {ap['mean']} against the plain "
+                             f"{ap['plain_mean']} +- {ap['plain_stderr']}")
+    checks = cv_moments_against_float64(mc_a, ic, a)
+    phase("13a control variates", lanes=BENCH_LANES, launches=launches["13a"],
+          wall_s=f"{wall:.3f}", n_valid=a["n_samples"], n_per_control=block["n_per_control"],
+          kept_controls=len(block["kept_controls"]), apogee_adjusted=ap["mean"],
+          apogee_adjusted_stderr=ap["stderr"], apogee_plain=ap["plain_mean"],
+          apogee_plain_stderr=ap["plain_stderr"],
+          variance_reduction=json.dumps({m: round(block[m]["variance_reduction"], 3)
+                                         for m in metrics}), **checks)
+
+    # ---- 13b: control variates on 4 slabs, merged, killed and resumed
+    b, _, wall, launches["13b"] = variant_run(mc_a, ic, LARGE_LANES, 4, lane_slab=BENCH_LANES)
+    acc = cv.CVMoments()
+    ones = torch.ones(BENCH_LANES, dtype=torch.bool, device=dev)
+    for k in range(4):
+        sb, ib, smp = analyzer_mod._draw_slab(mc_a, ic, k, BENCH_LANES, 0, None)
+        s = simulate_summary_batch(sb, ib, cfg)
+        acc.add(cv.cv_slab_moments(smp, s, outlier_mask(s, mc_a.bounds)[0], ones,
+                                   mc_a.uncertainty_params, mc_a.scene.motor,
+                                   mc_a._cv_wind_ctrl(sb, smp, None)))
+        del sb, ib, smp, s
+    if cv.finalize_cv(acc, mc_a._cv_names()) != b["control_variates"]:
+        raise AssertionError("13b: the run's CV block is not its slabs' moments merged")
+    r, wall_r, launches["13b resume"] = kill_and_resume(mc_a, ic, LARGE_LANES, BENCH_LANES, 2,
+                                                        "13b")
+    same_analysis(r, b)
+    bb = b["control_variates"]["apogee_altitude"]
+    phase("13b control variates slabbed", lanes=LARGE_LANES, slabs=4,
+          launches=launches["13b"], wall_s=f"{wall:.3f}", merged_equal_to_slabs=True,
+          apogee_adjusted=bb["mean"], apogee_adjusted_stderr=bb["stderr"],
+          variance_reduction=bb["variance_reduction"], resume_launches=launches["13b resume"],
+          resume_wall_s=f"{wall_r:.3f}", resume_equal_to_run=True)
+    del b, r
+    torch.cuda.empty_cache()
+
+    # ---- 13c: two-level correction of phase 7's tiered full flights
+    cfg7 = flag_set("full_flights")[0]
+    mc_c = MonteCarloAnalyzer(motor=liquid_motor(dev), sim_config=cfg7,
+                              two_level_lanes=TWO_LEVEL_LANES)
+    legs, real = [], two_level.simulate_summary_batch
+
+    def leg(scene_b, ic_b, c):
+        out = real(scene_b, ic_b, c)
+        legs.append((scene_b, ic_b, c, out))
+        return out
+
+    two_level.simulate_summary_batch = leg
+    try:
+        c, _, wall, launches["13c"] = variant_run(mc_c, ic, BENCH_LANES, 3)
+    finally:
+        two_level.simulate_summary_batch = real
+    tl = c["two_level"]
+    (sb, ib, c_fast, fast), (_, _, c_par, _) = legs
+    if c_fast != cfg7 or c_par != two_level.parity_twin(cfg7):
+        raise AssertionError(f"13c: legs flew {c_fast} and {c_par}")
+    direct = fs.flight_summary(*prepare_batch(sb, ib), cfg7)
+    for k in ("n_steps", "diverged", "apogee_altitude", "apogee_time", "range", "flight_time",
+              "max_speed"):
+        if not np.array_equal(direct[k].cpu().numpy(), getattr(fast, k).cpu().numpy(),
+                              equal_nan=True):
+            raise AssertionError(f"13c: the fast leg's {k} is not K1's on those lanes")
+    bias = {}
+    for m in metrics:
+        blk = tl[m]
+        step = np.spacing(abs(blk["corrected_mean"])) * 2
+        if not abs((blk["corrected_mean"] - c[m]["mean"]) - blk["bias"]) <= step:
+            raise AssertionError(f"13c: corrected {blk['corrected_mean']} - mean "
+                                 f"{c[m]['mean']} is not the bias {blk['bias']}")
+        bias[m] = [blk["bias"], blk["bias_stderr"]]
+    if not (tl["n_coupled"] >= 2
+            and all(math.isfinite(v) for pair in bias.values() for v in pair)):
+        raise AssertionError(f"13c: {tl['n_coupled']} coupled lanes of {TWO_LEVEL_LANES}, "
+                             f"{tl['mismatched_validity']} flipped, bias {bias}")
+    phase("13c two-level", lanes=BENCH_LANES, build=fs.flags_name(flag_set("full_flights")[2]),
+          correction_lanes=TWO_LEVEL_LANES, launches=launches["13c"], wall_s=f"{wall:.3f}",
+          n_coupled=tl["n_coupled"], mismatched_validity=tl["mismatched_validity"],
+          fast_leg_equal_to_k1=True, bias_and_stderr=json.dumps(bias),
+          apogee_corrected=tl["apogee_altitude"]["corrected_mean"],
+          apogee_corrected_stderr=tl["apogee_altitude"]["corrected_stderr"],
+          fast_leg_s=tl["wall_s_legs"]["fast"], parity_leg_s=tl["wall_s_legs"]["parity"],
+          block_s=tl["wall_s"])
+    del c, legs, sb, ib, fast, direct
+    torch.cuda.empty_cache()
+
+    # ---- 13d: subset simulation against phase 4's direct count
+    apo = run4["summary"].apogee_altitude[run4["valid_mask"]].astype(np.float64)
+    threshold = float(np.percentile(apo, 99.9))
+    k_dir = int((apo > threshold).sum())
+    p_dir = k_dir / apo.size
+    cov_dir = math.sqrt((1 - p_dir) / k_dir)
+    res, wall, launched = counted(mc4.subset_tail, ic, "apogee_altitude", threshold,
+                                  seed=0, **SUBSET)
+    n, n_keep = SUBSET["n_per_level"], round(SUBSET["p0"] * SUBSET["n_per_level"])
+    if launched != 1 + (res["n_sims"] - n) // n_keep:
+        raise AssertionError(f"13d: {launched} launches for {res['n_sims']} flights")
+    launches["13d tail"] = launched
+    p_sub = res["probability_given_valid"]
+    combined = math.hypot(res["cov"] * p_sub, cov_dir * p_dir)
+    if not abs(p_sub - p_dir) <= 3 * combined:
+        raise AssertionError(f"13d: subset {p_sub} (cov {res['cov']}) against the count "
+                             f"{p_dir} (cov {cov_dir})")
+    q, wall_q, launched_q = counted(mc4.subset_quantile, ic, "apogee_altitude", QUANTILE_P,
+                                    seed=0, n_runs=2, **SUBSET)
+    want = sum(1 + (rr["n_sims"] - n) // n_keep for rr in q["runs"])
+    if launched_q != want or not math.isfinite(q["threshold"]):
+        raise AssertionError(f"13d: quantile {q['threshold']}, {launched_q} launches")
+    launches["13d quantile"] = launched_q
+    d = normal_dims(mc4.wind_grid_points)
+    u0 = np.random.default_rng(0).standard_normal((n, d))  # level 0 of the tail's run
+    k1 = k1_on_lanes(*sample_from_normals(u0, mc4.scene, ic)[:2], cfg)
+    small = time_kernel(fs, prepare_batch(*sample_from_normals(u0[:n_keep], mc4.scene, ic)[:2]),
+                        cfg, f32, reps=3)
+    phase("13d subset", threshold_m=threshold, p_direct=p_dir, cov_direct=cov_dir,
+          p_subset=p_sub, cov_subset=res["cov"], z=(p_sub - p_dir) / combined,
+          levels=res["n_levels"], flights=res["n_sims"], launches=launched,
+          wall_s=f"{wall:.3f}", quantile_p=QUANTILE_P, quantile_runs=2,
+          quantile_m=q["threshold"], quantile_ci95_m=json.dumps(q["ci95_threshold"]),
+          quantile_levels=[rr["n_levels"] for rr in q["runs"]], quantile_flights=q["n_sims"],
+          quantile_launches=launched_q, quantile_wall_s=f"{wall_q:.3f}",
+          k1_ms_at_2048=f"{small['ms']:.3f}", k1_bound_ms_at_2048=small["bound_ms"],
+          k1_ms_at_16384=f"{k1['kernel_ms']:.3f}", k1_bound_ms_at_16384=k1["bound_ms"],
+          level0_held_lanes=k1["held_lanes"], level0_max_abs_err=k1["max_abs_err"],
+          plain_ms=f"{k1['plain_ms']:.1f}")
+
+    # ---- 13e: Sobol' indices, every active group, pairs="auto"
+    clock = {"draw": 0.0, "assemble": 0.0, "kernel": 0.0, "last_kernel_end": 0.0}
+    saved = {name: getattr(sobol_mod, name)
+             for name in ("_draw_matrix", "_assemble", "simulate_summary_batch")}
+
+    def timed(name, fn):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            clock[{"_draw_matrix": "draw", "_assemble": "assemble"}.get(name, "kernel")] += t1 - t0
+            if name == "simulate_summary_batch":
+                clock["last_kernel_end"] = t1
+            return out
+        return call
+
+    for name, fn in saved.items():
+        setattr(sobol_mod, name, timed(name, fn))
+    try:
+        t_start = time.perf_counter()
+        ind, wall, launched = counted(sobol_mod.sobol_indices, mc4.scene, ic, cfg, n=BENCH_LANES,
+                                      n_boot=SOBOL_BOOT, pairs="auto")
+        t_end = time.perf_counter()
+    finally:
+        for name, fn in saved.items():
+            setattr(sobol_mod, name, fn)
+    launches["13e"] = launched
+    if launched != ind["n_sims"] // BENCH_LANES:
+        raise AssertionError(f"13e: {launched} launches for {ind['n_sims']} flights")
+    shares = [v for m in metrics for order, key in (("first_order", "S"), ("total_order", "T"))
+              for v in (row[key] for row in ind[m][order].values())]
+    if not all(-0.05 <= v <= 1.05 for v in shares):
+        raise AssertionError(f"13e: a share outside [-0.05, 1.05]: {min(shares)}, {max(shares)}")
+    grid = torch.linspace(0.0, mc4.wind_grid_top, mc4.wind_grid_points, dtype=f32, device=dev)
+    draws_a = sobol_mod._draw_matrix(0, 0, BENCH_LANES, mc4.wind_grid_points, f32, dev)
+    k1 = k1_on_lanes(*sobol_mod._assemble(mc4.scene, ic, mc4.uncertainty_params, draws_a, grid,
+                                          None, f32), cfg)
+    del draws_a
+    top = sorted(ind["groups"], key=lambda g: -ind["apogee_altitude"]["total_order"][g]["T"])
+    phase("13e sobol indices", lanes=BENCH_LANES, groups=len(ind["groups"]),
+          pairs=json.dumps(ind["pairs"]), launches=launched, n_sims=ind["n_sims"],
+          n_valid=ind["n_valid"], n_boot=SOBOL_BOOT, wall_s=f"{wall:.3f}",
+          draw_s=f"{clock['draw']:.3f}", assemble_s=f"{clock['assemble']:.3f}",
+          kernel_s=f"{clock['kernel']:.3f}",
+          bootstrap_s=f"{t_end - clock['last_kernel_end']:.3f}",
+          apogee_top_T=json.dumps({g: round(ind["apogee_altitude"]["total_order"][g]["T"], 4)
+                                   for g in top[:4]}),
+          sum_first_order=json.dumps({m: round(ind[m]["sum_first_order"], 4) for m in metrics}),
+          matrix_a_held_lanes=k1["held_lanes"], matrix_a_max_abs_err=k1["max_abs_err"],
+          kernel_ms=f"{k1['kernel_ms']:.3f}", plain_ms=f"{k1['plain_ms']:.1f}",
+          total_s=f"{t_end - t_start:.3f}")
+
+    # ---- 13f: GPD and importance tails, the CLI, the two figures
+    fa = a  # 13a's run
+    vals = fa["summary"].apogee_altitude[fa["valid_mask"]]
+    t_gpd = float(np.percentile(vals, 99.95))  # past the fit's threshold, inside counting
+    gpd = tail_from_analysis(fa, "apogee_altitude", [t_gpd], n_boot=200)
+    row = gpd["exceedance"][0]
+    wilson = exceedance_from_analysis(fa, "apogee_altitude", [t_gpd])[0]
+    if row["method"] != "gpd" or not (row["ci95"][0] <= wilson["ci95"][1]
+                                      and wilson["ci95"][0] <= row["ci95"][1]):
+        raise AssertionError(f"13f: GPD {row} against the count {wilson}")
+    mc_i = MonteCarloAnalyzer(motor=liquid_motor(dev), sim_config=cfg,
+                              importance_shift={"motor_thrust": 2.0})
+    ia, _, _, launches["13f importance"] = variant_run(mc_i, ic, BENCH_LANES, 1)
+    imp = exceedance_from_analysis(ia, "apogee_altitude", [threshold])[0]
+    se_dir = math.sqrt(p_dir * (1 - p_dir) / apo.size)
+    if imp["method"] != "importance" or not abs(imp["probability"] - p_dir) <= 4 * math.hypot(
+            imp["stderr"], se_dir):
+        raise AssertionError(f"13f: importance {imp} against the count {p_dir}")
+    del ia
+    cli = {}
+    base = ["--metric", "apogee_altitude", "--threshold", repr(threshold), "--max-time",
+            str(WINDOW), "--device", dev.type, "--n", str(BENCH_LANES)]
+    for name, extra in (("gpd", ["--gpd"]), ("shift", ["--shift", "motor_thrust=2.0"]),
+                        ("subset", ["--subset", "--n-per-level", str(SUBSET["n_per_level"])])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            out, wall, launched = counted(tp_cli.main, base + extra)
+        if json.loads(buf.getvalue()) != json.loads(json.dumps(out)) or not (
+                0.0 <= out["probability"] < 1.0):
+            raise AssertionError(f"13f: tail_probability {name}: {out}")
+        launches[f"13f cli {name}"] = launched
+        cli[name] = {"p": out["probability"], "ci95": out.get("ci95"),
+                     "launches": launched, "wall_s": round(wall, 3)}
+    ns = types.SimpleNamespace(plot_sobol_indices=reporting.plot_sobol_indices,
+                               plot_exceedance=reporting.plot_exceedance)
+    clock_f = StageClock(ns, stages={"plot_sobol_indices": "plots", "plot_exceedance": "plots"},
+                         tag="13f")
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [ns.plot_sobol_indices(ind, tmp),
+                 ns.plot_exceedance(fa, "apogee_altitude", tmp, gpd=True)]
+        drawn = figures_drawn()
+        if drawn and not all(p and os.path.getsize(p) > 10_000 for p in paths):
+            raise AssertionError(f"13f: figures {paths}")
+    phase("13f tails and cli", gpd_threshold_m=t_gpd, gpd_p=row["probability"],
+          gpd_ci95=json.dumps(row["ci95"]), gpd_xi=gpd["fit"]["shape_xi"],
+          count_p=wilson["probability"], count_ci95=json.dumps(wilson["ci95"]),
+          importance_p=imp["probability"], importance_stderr=imp["stderr"],
+          importance_n_eff_tail=imp["n_eff_tail"], count_p_phase4=p_dir,
+          importance_launches=launches["13f importance"], cli=json.dumps(cli),
+          figures_drawn=drawn, figures_not_drawn=clock_f.not_drawn,
+          figures_wall_s=f"{clock_f.rows['plots']['wall_s']:.3f}" if drawn else "not measured")
+    return launches
+
+
 def sampling_variants(dev, ic, mc4, run4) -> dict:
     """Phase 12; returns each run's K1 launches (and the recording build's
     of 12d)."""
@@ -1943,7 +2418,10 @@ def sampling_variants(dev, ic, mc4, run4) -> dict:
     del dd, s
 
     # ---- 12e: slabbed Sobol: 4 slabs, run_to_precision, kill and resume
-    e, draw, wall, launches["12e"] = variant_run(mc_a, ic, LARGE_LANES, 4, lane_slab=BENCH_LANES)
+    with DrawSplit() as split:
+        e, draw, wall, launches["12e"] = variant_run(mc_a, ic, LARGE_LANES, 4,
+                                                     lane_slab=BENCH_LANES)
+    phase("12e draw split", slabs=4, **split.numbers())
     q = e["qmc_error"]["apogee_altitude"]
     crit = QmcMeanStderr("apogee_altitude", 1.0)
     for k in range(4):
@@ -2324,6 +2802,11 @@ def main() -> int:
     variant_launches = sampling_variants(dev, ic, mc, analysis)
     phase("12 done", phase_12_s=f"{time.time() - t0:.1f}", script_s=f"{time.time() - start:.1f}")
 
+    # ---------------------------------------------------------------- 13
+    t0 = time.time()
+    estimator_launches = estimators(dev, ic, mc, analysis)
+    phase("13 done", phase_13_s=f"{time.time() - t0:.1f}", script_s=f"{time.time() - start:.1f}")
+
     report = {"kernels": [
         {"name": f"flight_summary ({name})", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": where, "launches": launches, "max_abs_err": main_err,
@@ -2331,7 +2814,7 @@ def main() -> int:
          "large_run_launches": large_launches,
          "example_launches": {k: v["k1"] for k, v in example_launches.items()},
          "variant_launches": {k: v for k, v in variant_launches.items() if "record" not in k},
-         **costs}
+         "estimator_launches": estimator_launches, **costs}
         for name, where in REPLACES
     ] + [
         {"name": f"flight_summary [{name}]", "route": "cuda", "source": KERNEL_SOURCE,

@@ -12,9 +12,13 @@ checkpoint, and ``run_to_precision``'s sequential stop. The sampling
 variants (``sampler="sobol"`` with ``sobol_scrambles`` and
 ``sobol_wind_modes``, ``antithetic``, ``importance_shift``, an ensemble base
 wind) add the JAX analyzer's ``qmc_error``, ``importance``, ``ensemble`` and
-``wind_members`` blocks. Options of the JAX analyzer that the port does not
-have yet raise ``NotImplementedError`` naming the ROADMAP item that brings
-them.
+``wind_members`` blocks; the estimators add ``control_variates``
+(``control_variates``, ``cv_wind_modes``, ``cv_wind_speed``: ``mc.cv``) and
+``two_level`` (``two_level_lanes``: ``mc.two_level``), single-call and
+slabbed, and ``subset_tail`` / ``subset_quantile`` (``mc.subset_driver``).
+Options of the JAX analyzer that the port does not have yet
+(``wind_table_modes``, ``mesh``) raise ``NotImplementedError`` naming the
+ROADMAP item that brings them.
 
 Each run remembers its lanes (``_last_batch``: the single call's batch, or
 a slabbed run's recipe), so that ``resimulate_trajectories``, ``lane_scenes``
@@ -44,6 +48,7 @@ from .ensemble import EnsembleAccumulator
 from .filter import OutlierBounds, decode_reasons, outlier_mask
 from .importance import log_weights, weighted_mean
 from .resimulate import ResimulationMixin
+from .subset_driver import SubsetDriverMixin
 from .stats import PERCENTILES, landing_footprint, masked_stats, percentile_ci
 
 __all__ = ["MonteCarloAnalyzer", "slab_seed"]
@@ -126,7 +131,7 @@ def _stats_to_py(s: dict) -> dict:
     }
 
 
-class MonteCarloAnalyzer(ResimulationMixin):
+class MonteCarloAnalyzer(SubsetDriverMixin, ResimulationMixin):
     """Dispersion analysis over a scene: pass ``scene=`` or at least a
     ``motor`` (the other parts default to the nominal vehicle). The device
     and dtype are the scene's."""
@@ -162,16 +167,42 @@ class MonteCarloAnalyzer(ResimulationMixin):
                     scene = dataclasses.replace(scene, **{name: part})
         if mesh is not None:
             _not_ported("mesh (multi-device runs)", "P16")
-        if control_variates or cv_wind_modes or cv_wind_speed:
-            _not_ported("control_variates", "P13")
-        if two_level_lanes:
-            _not_ported("two_level_lanes", "P13")
         if wind_table_modes is not None:
             _not_ported("wind_table_modes", "P8")
+        # regression control variates (mc.cv): the headline means adjusted by
+        # their fitted response to the draws, optionally with the top
+        # turbulence-mode scores and the wind speed at knots as controls
+        if cv_wind_modes < 0:
+            raise ValueError("cv_wind_modes must be >= 0")
+        if cv_wind_modes and not control_variates:
+            raise ValueError("cv_wind_modes requires control_variates=True")
+        if cv_wind_speed < 0:
+            raise ValueError("cv_wind_speed must be >= 0")
+        if cv_wind_speed and not control_variates:
+            raise ValueError("cv_wind_speed requires control_variates=True")
+        if importance_shift:
+            if sampler != "prng" or antithetic:
+                raise ValueError("importance_shift requires sampler='prng', no antithetic")
+            if control_variates:
+                # the controls' known means are the nominal distribution's
+                raise ValueError("importance_shift and control_variates are exclusive")
+        # two-level bias correction (mc.two_level): this many coupled lanes
+        # under the run's fast flags and their parity twin
+        if two_level_lanes < 0:
+            raise ValueError("two_level_lanes must be >= 0")
+        if two_level_lanes:
+            from .two_level import FAST_FIELDS, parity_twin
+
+            if parity_twin(sim_config) == sim_config:
+                raise ValueError(
+                    "two_level_lanes needs at least one fast flag in "
+                    f"sim_config (one of {FAST_FIELDS}) or "
+                    "wind_table_modes; the config is already exact parity "
+                    "— there is no bias to correct")
+            if importance_shift:
+                raise ValueError("two_level_lanes and importance_shift are exclusive")
         if stats_stream_threshold < 1 or metrics_sample_cap < 1:
             raise ValueError("stats_stream_threshold and metrics_sample_cap must be >= 1")
-        if importance_shift and (sampler != "prng" or antithetic):
-            raise ValueError("importance_shift requires sampler='prng', no antithetic")
         self.scene = scene
         self.uncertainty_params = uncertainty_params
         self.sim_config = sim_config
@@ -188,6 +219,12 @@ class MonteCarloAnalyzer(ResimulationMixin):
         # importance block weighs the lanes back to the nominal one
         self.importance_shift = tuple(sorted(importance_shift.items())) \
             if importance_shift else ()
+        self.control_variates = control_variates
+        self.cv_wind_modes = cv_wind_modes
+        self.cv_wind_speed = cv_wind_speed
+        self._cv_proj = None  # (grid, projector) memo
+        self._cv_spd = None   # (grid, base, knot indices, leaves) memo
+        self.two_level_lanes = two_level_lanes
         # a run of more lanes goes slab by slab; past stats_stream_threshold
         # lanes the statistics stream and only the first metrics_sample_cap
         # lanes' metrics are kept
@@ -280,6 +317,15 @@ class MonteCarloAnalyzer(ResimulationMixin):
         summary = simulate_summary_batch(scene_b, ic_b, self.sim_config)
         valid, reasons = outlier_mask(summary, self.bounds)
         stats = {k: masked_stats(getattr(summary, k), valid) for k in _METRICS}
+        cv_moments = None
+        if self.control_variates:
+            from .cv import cv_slab_moments
+
+            cv_moments = cv_slab_moments(
+                sample, summary, valid, torch.ones(n_samples, dtype=torch.bool,
+                                                   device=valid.device),
+                self.uncertainty_params, self.scene.motor,
+                self._cv_wind_ctrl(scene_b, sample, base_wind))
 
         # one readback to the host (also the sync point)
         summary_np = to_numpy(summary)
@@ -326,6 +372,12 @@ class MonteCarloAnalyzer(ResimulationMixin):
             analysis["importance"] = self._importance_block(
                 headline, valid_np, log_weights(sample_np, self.uncertainty_params,
                                                 self.scene.motor, self.importance_shift))
+        if cv_moments is not None:
+            from .cv import CVMoments, finalize_cv
+
+            acc = CVMoments()
+            acc.add(cv_moments)
+            analysis["control_variates"] = finalize_cv(acc, self._cv_names())
         if self.sampler == "sobol" and self.sobol_scrambles > 1:
             # each scramble's block of lanes is one randomized-QMC replicate
             size = n_samples // self.sobol_scrambles
@@ -336,6 +388,8 @@ class MonteCarloAnalyzer(ResimulationMixin):
                 for k, v in headline.items():
                     means[k].append(float(np.mean(v[part][ok])) if ok.any() else float("nan"))
             analysis["qmc_error"] = self._qmc_error(means)
+        if self.two_level_lanes:
+            analysis["two_level"] = self._two_level(ic, seed, base_wind, analysis)
         limit = 1000 if materialize_results is None else materialize_results
         analysis["results"] = self._materialize_records(
             summary_np, sample_np, valid_np, reasons_np, want_valid=True, limit=limit)
@@ -430,6 +484,7 @@ class MonteCarloAnalyzer(ResimulationMixin):
                 "n_samples <= stats_stream_threshold (IS makes small n "
                 "sufficient; that is its purpose)")
         accs = build_registry(self, n_samples=n_samples, limit=limit, streaming=streaming,
+                              base_wind=base_wind,
                               ens_acc=EnsembleAccumulator.from_base_wind(base_wind))
         by_key = {a.key: a for a in accs}
         n_done = n_valid_total = slab_idx = 0
@@ -455,8 +510,9 @@ class MonteCarloAnalyzer(ResimulationMixin):
             # the padding lanes of a ragged last slab reach no output
             ranges_mask = valid if n_s == slab else valid & (
                 torch.arange(slab, device=valid.device) < n_s)
-            ctx = SlabContext(summary=summary, sample=sample, valid=valid, reasons=reasons,
-                              ranges_mask=ranges_mask, n_s=n_s, slab=slab, n_done=n_done)
+            ctx = SlabContext(summary=summary, sample=sample, scene_b=scene_b, valid=valid,
+                              reasons=reasons, ranges_mask=ranges_mask, n_s=n_s, slab=slab,
+                              n_done=n_done)
             n_valid_total += int(ctx.valid_np.sum())
             ctx.n_valid_total = n_valid_total
             for acc in accs:
@@ -508,7 +564,92 @@ class MonteCarloAnalyzer(ResimulationMixin):
         }
         for acc in accs:
             acc.finalize(analysis, self)
+        if self.two_level_lanes:
+            analysis["two_level"] = self._two_level(ic, seed, base_wind, analysis)
         return analysis
+
+    def _cv_wind_ctrl(self, scene_b, sample, base_wind):
+        """The ``wind_ctrl`` dict of ``mc.cv``'s wind-table controls, None when
+        ``cv_wind_modes`` and ``cv_wind_speed`` are both off. The ``[N, K]``
+        projector (a host SVD) and the knots' exact speed means (Rice and
+        quadrature) are memoized on the whole grid, and the means also on the
+        forecast base."""
+        if not (self.cv_wind_modes or self.cv_wind_speed):
+            return None
+        from .cv import wind_mode_projector, wind_speed_ctrl_leaves
+
+        alt = scene_b.wind.altitudes
+        alt_np = alt.detach().cpu().numpy().astype(np.float64)
+        base_np = None if base_wind is None else np.asarray(to_numpy(base_wind[1]), np.float64)
+        # a forecast grid can share its length and ends with another spacing
+        grid_stale = (self._cv_proj is None or self._cv_proj[0].shape != alt_np.shape
+                      or not np.array_equal(self._cv_proj[0], alt_np))
+        if self.cv_wind_modes and grid_stale:
+            self._cv_proj = (alt_np, torch.as_tensor(
+                wind_mode_projector(self.scene.wind_model, alt_np, self.cv_wind_modes),
+                dtype=alt.dtype, device=alt.device))
+        ctrl = {"wind": scene_b.wind.wind, "ws": sample.wind_speed, "wd": sample.wind_direction,
+                "proj": self._cv_proj[1] if self.cv_wind_modes else None, "alt": alt,
+                "model": self.scene.wind_model,
+                "base": None if base_wind is None else base_wind[1]}
+        if self.cv_wind_speed:
+            spd_stale = (self._cv_spd is None or self._cv_spd[0].shape != alt_np.shape
+                         or not np.array_equal(self._cv_spd[0], alt_np)
+                         or (self._cv_spd[1] is None) != (base_np is None)
+                         or (base_np is not None and not np.array_equal(self._cv_spd[1], base_np)))
+            if spd_stale:
+                leaves, idx = wind_speed_ctrl_leaves(
+                    self.uncertainty_params, self.scene.wind_model, alt_np, self.cv_wind_speed,
+                    base=base_np, dtype=alt.dtype, device=alt.device)
+                self._cv_spd = (alt_np, base_np, idx, leaves)
+            ctrl.update(self._cv_spd[3])
+        return ctrl
+
+    def _cv_names(self) -> list:
+        """The control names of the matrix built: the projector's column
+        count (it clamps to the grid) and the knots kept."""
+        from .cv import control_names
+
+        k_eff = 0
+        if self.cv_wind_modes and self._cv_proj is not None:
+            k_eff = int(self._cv_proj[1].shape[1])
+        spd_alts = ()
+        if self.cv_wind_speed and self._cv_spd is not None:
+            spd_alts = tuple(self._cv_spd[0][self._cv_spd[2]])
+        return control_names(self.uncertainty_params, self.scene.motor, k_eff, spd_alts)
+
+    def _two_level(self, ic, seed, base_wind, analysis) -> dict:
+        """``analysis["two_level"]``: the fast flags' measured bias from a
+        small coupled batch (``mc.two_level``) and the corrected headline
+        means. The corrected stderr adds the main run's i.i.d. std/sqrt(n)
+        and the bias's stderr in quadrature (the batch is decorrelated from
+        every slab); under Sobol or antithetic lanes std/sqrt(n) is not the
+        mean's error, so it is left out (None) with a ``stderr_note``."""
+        from .two_level import METRICS, two_level_block
+
+        block = two_level_block(self.scene, ic, self.sim_config, self.two_level_lanes, seed,
+                                params=self.uncertainty_params, bounds=self.bounds,
+                                base_wind=base_wind, wind_grid_points=self.wind_grid_points,
+                                wind_grid_top=self.wind_grid_top)
+        iid_main = self.sampler == "prng" and not self.antithetic
+        if not iid_main:
+            block["stderr_note"] = (
+                "corrected_stderr omitted: the main run's lanes are not "
+                f"i.i.d. (sampler={self.sampler!r}, "
+                f"antithetic={self.antithetic}), so std/sqrt(n) is not its "
+                "mean's sampling error — use qmc_error for sobol; the "
+                "corrected_mean and bias/bias_stderr remain valid")
+        n_main = max(int(analysis["n_samples"]), 1)
+        for k in METRICS:
+            st = analysis[k]
+            block[k]["corrected_mean"] = float(st["mean"]) + block[k]["bias"]
+            if iid_main:
+                main_stderr = float(st["std"]) / np.sqrt(n_main)
+                block[k]["corrected_stderr"] = float(np.hypot(main_stderr,
+                                                              block[k]["bias_stderr"]))
+            else:
+                block[k]["corrected_stderr"] = None
+        return block
 
     def _importance_block(self, values_by_name: dict, valid_np, lw) -> dict:
         """The ``analysis["importance"]`` block of both layouts: the shift,

@@ -41,7 +41,7 @@ from ..utils.convert import to_numpy
 from .importance import TILTABLE
 
 __all__ = ["UncertaintyParams", "DispersionSample", "sample_dispersions",
-           "inject_reference_lanes", "select_lane"]
+           "inject_reference_lanes", "select_lane", "normal_dims", "sample_from_normals"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -413,6 +413,60 @@ def sample_dispersions(generator: torch.Generator, scene: Scene, ic: InitialCond
                              wind_grid_top, dtype, sobol_scrambles, sobol_wind_modes)
     return _sample_impl(generator, scene, ic, params, n, base_wind, wind_grid_points,
                         wind_grid_top, dtype, antithetic, importance_shift)
+
+
+def normal_dims(wind_grid_points: int = 100) -> int:
+    """The width of ``sample_from_normals``' standard-normal input: the 19
+    scalar channels and the ``3 N`` AR(1) turbulence drivers of an
+    ``N``-knot wind grid."""
+    return 19 + 3 * int(wind_grid_points)
+
+
+def sample_from_normals(u, scene: Scene, ic: InitialConditions,
+                        params: UncertaintyParams = UncertaintyParams(), base_wind=None,
+                        wind_grid_points: int = 100, wind_grid_top: float = 25000.0,
+                        dtype=None):
+    """The dispersion distribution as a deterministic map of standard
+    normals: ``u [n, d]`` (``d = normal_dims(N)``) to ``n`` dispersed
+    ``(Scene, InitialConditions, DispersionSample)`` lanes on the scene's
+    device, through ``_build_scene`` as the prng path. Columns, a fixed
+    contract: pos[3], vel[3], att[3], omega[3], mass, thrust_recorded,
+    motor_thrust, motor_flow, wind_speed, wind_direction, density, then the
+    ``[N, 3]`` turbulence driver row-major. Gaussians are ``sigma * u``,
+    uniforms ``lo + (hi - lo) * ndtr(u)``, so every marginal is the prng
+    path's. Subset simulation's chains move in this space (``mc.subset``). A
+    forecast ensemble is refused: its member index has no place in a
+    continuous ``u``."""
+    device = scene.rocket.dry_mass.device
+    if dtype is None:
+        dtype = scene.rocket.dry_mass.dtype
+    u = torch.as_tensor(u, device=device)
+    if u.ndim != 2:
+        raise ValueError(f"u must be [n, d]; got shape {tuple(u.shape)}")
+    u = u.to(dtype)
+    if base_wind is not None:
+        if np.ndim(base_wind[1]) == 3:
+            raise ValueError("sample_from_normals does not support forecast ensembles "
+                             "(discrete member index); condition on a single member")
+        grid = torch.as_tensor(base_wind[0], dtype=dtype, device=device)
+        base_wind = (grid, torch.as_tensor(base_wind[1], dtype=dtype, device=device))
+    else:
+        grid = torch.linspace(0.0, float(wind_grid_top), int(wind_grid_points), dtype=dtype,
+                              device=device)
+    n_knots = grid.shape[0]
+    d = normal_dims(n_knots)
+    if u.shape[1] != d:
+        raise ValueError(f"u has {u.shape[1]} columns but this configuration needs "
+                         f"d = normal_dims({n_knots}) = {d}")
+    n = u.shape[0]
+    std = {"pos_off": u[:, 0:3], "vel_off": u[:, 3:6], "att_off": u[:, 6:9],
+           "omg_off": u[:, 9:12], "mass_mult": u[:, 12], "thrust_mult_recorded": u[:, 13],
+           "motor_thrust_mult": u[:, 14], "motor_flow_mult": u[:, 15],
+           "wind_speed": torch.special.ndtr(u[:, 16]), "wind_dir": torch.special.ndtr(u[:, 17]),
+           "density_mult": u[:, 18]}
+    ch = _channels(std, scene, params)
+    ch["noise"] = u[:, 19:].reshape(n, n_knots, 3)
+    return _build_scene(scene, ic, ch, base_wind, grid)
 
 
 def inject_reference_lanes(scene: Scene, ic: InitialConditions, params: dict, wind_grid,

@@ -10,8 +10,10 @@ folds in one slab through the shared ``SlabContext``, ``to_arrays`` /
 The sampling variants add theirs: the Sobol slabs' block means
 (``QMCAccumulator``), the importance weights (``ImportanceAccumulator``) and
 the forecast ensemble's strata (``EnsembleStatsAccumulator``, with the
-member column in the prefix). The control variates come with ROADMAP P13;
-the analyzer refuses their knob.
+member column in the prefix), and the control variates their cross-moments
+(``CVAccumulator``, reduced on the slab's device and merged on the host in
+float64). The two-level correction runs after the loop, from the run's
+seed, and keeps no slab state.
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ import numpy as np
 
 __all__ = ["SlabContext", "SlabAccumulator", "PrefixAccumulator", "StreamAccumulator",
            "ConvergenceAccumulator", "QMCAccumulator", "FootprintMomentsAccumulator",
-           "ImportanceAccumulator", "EnsembleStatsAccumulator", "RangesAccumulator",
+           "ImportanceAccumulator", "CVAccumulator", "EnsembleStatsAccumulator",
+           "RangesAccumulator",
            "RecordsAccumulator", "build_registry"]
 
 HEADLINE_METRICS = ("apogee_altitude", "range", "flight_time")
@@ -45,9 +48,10 @@ class SlabContext:
     ``slab_metrics``, ``mem_np``, ``summary_np``, ``sample_np``)."""
 
     def __init__(self, *, summary, sample, valid, reasons, ranges_mask, n_s: int,
-                 slab: int, n_done: int):
+                 slab: int, n_done: int, scene_b=None):
         self.summary = summary
         self.sample = sample
+        self.scene_b = scene_b    # the slab's lanes (their wind tables, for CV)
         self.valid = valid
         self.reasons = reasons
         self.ranges_mask = ranges_mask
@@ -369,6 +373,54 @@ class ImportanceAccumulator(SlabAccumulator):
             np.concatenate(self.parts))
 
 
+class CVAccumulator(SlabAccumulator):
+    """The control variates' cross-moments (``mc.cv.CVMoments``): each slab
+    reduced on its device by ``cv_slab_moments`` (the padding lanes of a
+    ragged last slab excluded), merged on the host."""
+
+    key = "cv"
+
+    def __init__(self, analyzer, base_wind):
+        from .cv import CVMoments
+
+        self.analyzer = analyzer
+        self.base_wind = base_wind
+        self.acc = CVMoments()
+
+    def update(self, ctx: SlabContext) -> None:
+        import torch
+
+        from .cv import cv_slab_moments
+
+        include = torch.arange(ctx.slab, device=ctx.valid.device) < ctx.n_s
+        a = self.analyzer
+        self.acc.add(cv_slab_moments(ctx.sample, ctx.summary, ctx.valid, include,
+                                     a.uncertainty_params, a.scene.motor,
+                                     a._cv_wind_ctrl(ctx.scene_b, ctx.sample, self.base_wind)))
+
+    def to_arrays(self, arrays: dict) -> None:
+        cv = self.acc
+        if cv.n > 0:
+            arrays["cv.n"] = np.asarray(cv.n)
+            for name in ("mz", "mt", "szz", "szt", "stt"):
+                arrays["cv." + name] = getattr(cv, name)
+
+    def restore(self, z, meta) -> None:
+        from .cv import CVMoments
+
+        cv = CVMoments()
+        if "cv.n" in z:
+            cv.n = int(z["cv.n"])
+            for name in ("mz", "mt", "szz", "szt", "stt"):
+                setattr(cv, name, np.array(z["cv." + name], np.float64))
+        self.acc = cv
+
+    def finalize(self, analysis: dict, analyzer) -> None:
+        from .cv import finalize_cv
+
+        analysis["control_variates"] = finalize_cv(self.acc, analyzer._cv_names())
+
+
 class EnsembleStatsAccumulator(SlabAccumulator):
     """The forecast ensemble's per-member moments (``mc.ensemble``), merged
     slab by slab; the members of the kept lanes are the prefix's column."""
@@ -475,10 +527,11 @@ class RecordsAccumulator(SlabAccumulator):
 
 
 def build_registry(analyzer, *, n_samples: int, limit: int, streaming: bool,
-                   ens_acc=None) -> list:
+                   base_wind=None, ens_acc=None) -> list:
     """The ordered accumulators of one slabbed run; the order is the
     finalize order, the JAX package's (the prefix first: the importance
-    block reads its arrays). ``ens_acc``: the forecast ensemble's
+    block reads its arrays). ``base_wind``: the run's forecast, which the
+    CV wind controls subtract; ``ens_acc``: the forecast ensemble's
     ``mc.ensemble.EnsembleAccumulator``, or None."""
     cap = analyzer.metrics_sample_cap if streaming else n_samples
     accs: list = [PrefixAccumulator(cap, streaming, want_members=ens_acc is not None)]
@@ -490,6 +543,8 @@ def build_registry(analyzer, *, n_samples: int, limit: int, streaming: bool,
     accs.append(FootprintMomentsAccumulator(analyzer))
     if analyzer.importance_shift:
         accs.append(ImportanceAccumulator(analyzer))
+    if analyzer.control_variates:
+        accs.append(CVAccumulator(analyzer, base_wind))
     if ens_acc is not None:
         accs.append(EnsembleStatsAccumulator(ens_acc))
     accs += [RangesAccumulator(analyzer), RecordsAccumulator(analyzer, limit)]

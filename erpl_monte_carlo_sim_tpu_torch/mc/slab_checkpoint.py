@@ -13,7 +13,8 @@ base-wind tensors, the dispersion, simulation and outlier settings, the run's
 size, slab and seed, the streaming knobs, the wind grid, the device type (a
 card's run resumed on the CPU would mix two populations) and the sampling
 options (sampler, scrambles, Sobol wind modes, antithetic pairs, importance
-shift). A checkpoint of another run refuses to load.
+shift) and the estimators' (control variates with their wind controls, the
+two-level lanes). A checkpoint of another run refuses to load.
 
 One uncompressed ``.npz``, written atomically (a temporary file, then
 ``os.replace``), its parent directories created.
@@ -80,6 +81,8 @@ def run_fingerprint(analyzer, ic, n_samples, slab, seed, base_wind, limit) -> st
         analyzer.device.type, analyzer.sampler, int(analyzer.sobol_scrambles),
         int(analyzer.sobol_wind_modes), bool(analyzer.antithetic),
         [[c, float(t)] for c, t in analyzer.importance_shift],
+        bool(analyzer.control_variates), int(analyzer.cv_wind_modes),
+        int(analyzer.cv_wind_speed), int(analyzer.two_level_lanes),
     ]).encode())
     return h.hexdigest()
 

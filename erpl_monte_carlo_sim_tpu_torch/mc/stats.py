@@ -409,10 +409,23 @@ def exceedance_from_analysis(analysis: dict, metric: str, thresholds) -> list:
     values); from the quantile sketch otherwise (``method="sketch"``, no
     interval); over the kept prefix (``method="sample_prefix"``) for a
     streaming run's metric without a sketch. Importance-sampled analyses
-    (``importance``) need weighted estimators, not ported yet."""
-    if analysis.get("importance") is not None:
-        raise NotImplementedError("importance-weighted exceedance is not ported yet "
-                                  "(ROADMAP P13)")
+    (``importance``) go through ``mc.importance.weighted_tail``
+    (``method="importance"``): a plain count of a tilted population would
+    answer another question."""
+    imp = analysis.get("importance")
+    if imp is not None:
+        from .importance import weighted_tail
+
+        if analysis.get("summary") is not None:
+            if not hasattr(analysis["summary"], metric):
+                raise KeyError(f"no per-lane data for metric {metric!r}")
+            vals = getattr(analysis["summary"], metric)
+        else:
+            metrics = analysis.get("metrics") or {}
+            if metric not in metrics:
+                raise KeyError(f"no per-lane data for metric {metric!r}")
+            vals = metrics[metric]
+        return weighted_tail(vals, analysis["valid_mask"], imp["log_weights"], thresholds)
     streams = analysis.get("streams") or {}
     if analysis.get("metrics_is_sample") and metric in streams:
         s = streams[metric]

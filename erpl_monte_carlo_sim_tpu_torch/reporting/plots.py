@@ -14,11 +14,11 @@ and ``plot_landing_footprint``, ``plot_exceedance``,
 Every figure reads NumPy: tensors are converted once, at the top of each
 function. The trajectory clouds fly their lanes through
 ``MonteCarloAnalyzer.resimulate_trajectories``, whose memo serves lanes
-that ``save_simulation_results`` has just flown. ``plot_sobol_indices`` and
-``plot_exceedance(gpd=True)`` need the estimators of ROADMAP P13 and raise
-until they are ported. Matplotlib runs in Agg mode; it is imported when a figure is drawn, after
-the figure's data are gathered, and a host without it draws no figure
-(``_pyplot`` raises ImportError).
+that ``save_simulation_results`` has just flown. ``plot_sobol_indices``
+draws ``mc.sobol_indices``' decomposition, and ``plot_exceedance(gpd=True)``
+overlays ``mc.tail``'s extrapolation. Matplotlib runs in Agg mode; it is
+imported when a figure is drawn, after the figure's data are gathered, and a
+host without it draws no figure (``_pyplot`` raises ImportError).
 """
 
 from __future__ import annotations
@@ -60,10 +60,6 @@ def _pyplot(figure: str):
     import matplotlib.pyplot as plt
 
     return plt
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP P13)")
 
 
 def plot_results(analysis: dict, output_dir: str | None = None,
@@ -354,14 +350,13 @@ def plot_exceedance(analysis: dict, metric: str = "apogee_altitude",
     figure (beyond reference). Exact layouts get a Wilson 95% CI band;
     importance-sampled runs get a +-2 stderr band; sketch-backed
     streaming runs plot the point curve (rank-bounded, no CI by design).
-    ``gpd=True``, the JAX package's peaks-over-threshold extrapolation
-    past the sample maximum, needs the GPD fits of ROADMAP P13 and raises
-    until they are ported.
+    ``gpd=True`` overlays the peaks-over-threshold extrapolation
+    (``mc.tail``) past the sample maximum — out to 100x below the
+    empirical floor — with its bootstrap 95% band (refused on
+    importance runs by ``tail_from_analysis``).
     """
     from ..mc.stats import exceedance_from_analysis
 
-    if gpd:
-        _not_ported("plot_exceedance(gpd=True), the GPD tail extrapolation")
     stats = analysis.get(metric)
     if not isinstance(stats, dict) or not np.isfinite(stats.get("min", np.nan)):
         return None
@@ -373,6 +368,7 @@ def plot_exceedance(analysis: dict, metric: str = "apogee_altitude",
 
     t = np.asarray([r["threshold"] for r in rows])
     p = np.asarray([r["probability"] for r in rows])
+    tail = _gpd_overlay(analysis, metric, stats) if gpd else None
     plt = _pyplot("plot_exceedance")
     _, ax = plt.subplots(figsize=(9, 6))
     ax.plot(t, p, color="tab:blue", label=f"P({metric} > t)")
@@ -387,6 +383,15 @@ def plot_exceedance(analysis: dict, metric: str = "apogee_altitude",
                         np.minimum(p + 2 * se, 1.0), alpha=0.25,
                         color="tab:blue", label="+-2 stderr")
     gpd_min = np.inf
+    if tail is not None:
+        tg, gp, ci, xi = tail
+        ax.plot(tg, gp, color="tab:red", linestyle="--",
+                label=f"GPD extrapolation (xi = {xi:+.2f})")
+        ax.fill_between(tg, np.maximum(ci[:, 0], 1e-15), ci[:, 1], color="tab:red",
+                        alpha=0.15, label="GPD bootstrap 95%")
+        pos_g = gp[gp > 0]
+        if pos_g.size:
+            gpd_min = float(pos_g.min())
     ax.set_yscale("log")
     # Floor: show every resolved point. Importance-sampled runs estimate
     # probabilities far below 1/n (that is their purpose), so the floor
@@ -413,12 +418,106 @@ def plot_exceedance(analysis: dict, metric: str = "apogee_altitude",
     return None
 
 
+def _gpd_overlay(analysis: dict, metric: str, stats: dict):
+    """``plot_exceedance``'s GPD curve: ``(thresholds, probabilities, ci95
+    [m, 2], xi)`` from the sample maximum's fit out to 100x below the
+    empirical floor, or None where the run has too few lanes or no per-lane
+    data."""
+    from ..mc.tail import tail_from_analysis
+
+    try:
+        # n_boot=0: the probe sizes the query grid; the call below bootstraps
+        fit = tail_from_analysis(analysis, metric, [float(stats["max"])], n_boot=0)["fit"]
+        u, xi = fit["threshold"], fit["shape_xi"]
+        sig, pu = fit["scale_sigma"], fit["p_threshold"]
+        p_lo = max(0.01 / fit["n_total"], 1e-12)
+        if xi < -1e-9:  # a bounded tail: stop just short of its end
+            t_end = u + sig / (-xi) * 0.999
+        elif xi < 1e-9:
+            t_end = u + sig * np.log(pu / p_lo)
+        else:
+            t_end = u + sig / xi * ((pu / p_lo) ** xi - 1.0)
+        tg = np.linspace(u, max(t_end, u + 1e-9), 60)[1:]
+        blk = tail_from_analysis(analysis, metric, tg, n_boot=200)
+    except (ValueError, KeyError):
+        return None
+    gp = np.asarray([r["probability"] for r in blk["exceedance"]])
+    ci = np.asarray([r.get("ci95", [np.nan, np.nan]) for r in blk["exceedance"]])
+    return tg, gp, ci, xi
+
+
 def plot_sobol_indices(indices: dict, output_dir: str | None = None,
                        metrics=None) -> str | None:
-    """Variance-decomposition bars of ``mc.sobol_indices`` (first- and
-    total-order shares per dispersion channel). The decomposition is an
-    estimator of ROADMAP P13, and this figure raises until it is ported."""
-    _not_ported("plot_sobol_indices (mc.sobol_indices)")
+    """Variance-decomposition bars of ``mc.sobol_indices``: one panel per
+    metric; per channel group a first-order bar S (the variance it explains
+    alone) under a total-order bar T (its interactions included), with the
+    bootstrap 95% intervals as error bars where the run carried them. A T
+    bar far above its S bar marks a channel whose effect is mostly
+    interaction. Runs with ``pairs`` get a row per subset below the groups:
+    its pure interaction share. Estimates are drawn as returned, small
+    negative excursions included."""
+    groups = list(indices["groups"])
+    if metrics is None:
+        metrics = [m for m in ("apogee_altitude", "range", "flight_time") if m in indices]
+    if not groups or not metrics:
+        return None
+    pairs = [p for p in indices.get("pairs", ())
+             if all("second_order" in indices[m] for m in metrics)]
+    # one group order for every panel: barh draws bottom-up, so ascending
+    # max-T puts the dominant channels on top, the pair rows below them
+    order = sorted(groups, key=lambda g: max(indices[m]["total_order"][g]["T"]
+                                             for m in metrics))
+    pair_order = sorted(pairs, key=lambda p: max(indices[m]["second_order"][p]["interaction"]
+                                                 for m in metrics))
+    y = np.arange(len(order), dtype=float) + len(pair_order)
+    yp = np.arange(len(pair_order), dtype=float)
+    h = 0.38
+    plt = _pyplot("plot_sobol_indices")
+    rows = len(order) + len(pair_order)
+    _, axes = plt.subplots(1, len(metrics), figsize=(4.5 * len(metrics), 0.55 * rows + 2.2),
+                           sharey=True)
+    axes = np.atleast_1d(axes)
+
+    def xerr(vals, ci):
+        if any(c[0] is None for c in ci):
+            return None  # an n_boot=0 run: no interval
+        lo = vals - np.asarray([c[0] for c in ci], np.float64)
+        hi = np.asarray([c[1] for c in ci], np.float64) - vals
+        # a percentile band can exclude the estimate; error bars are >= 0
+        return np.vstack([np.maximum(lo, 0.0), np.maximum(hi, 0.0)])
+
+    for ax, m in zip(axes, metrics):
+        blk = indices[m]
+        s = np.asarray([blk["first_order"][g]["S"] for g in order])
+        t = np.asarray([blk["total_order"][g]["T"] for g in order])
+        ax.barh(y + h / 2, t, height=h, color="tab:orange", alpha=0.7,
+                xerr=xerr(t, [blk["total_order"][g]["ci95"] for g in order]),
+                label="total-order T")
+        ax.barh(y - h / 2, s, height=h, color="tab:blue", alpha=0.7,
+                xerr=xerr(s, [blk["first_order"][g]["ci95"] for g in order]),
+                label="first-order S")
+        if pair_order:
+            i2 = np.asarray([blk["second_order"][p]["interaction"] for p in pair_order])
+            ax.barh(yp, i2, height=2 * h, color="tab:green", alpha=0.7,
+                    xerr=xerr(i2, [blk["second_order"][p]["ci95"] for p in pair_order]),
+                    label="pair interaction S_ij")
+            ax.axhline(len(pair_order) - 0.5, color="gray", linewidth=0.8, linestyle=":")
+        ax.axvline(0.0, color="black", linewidth=0.8)
+        ax.set_xlabel("variance share")
+        ax.set_title(f"{m.replace('_', ' ')}\n(sigma = {blk['variance'] ** 0.5:.4g})")
+        ax.grid(True, alpha=0.3, axis="x")
+    axes[0].set_yticks(np.concatenate([yp, y]))
+    axes[0].set_yticklabels([p.replace("*", " x ").replace("_", " ") for p in pair_order]
+                            + [g.replace("_", " ") for g in order])
+    axes[0].legend(loc="lower right")
+    plt.tight_layout()
+    if output_dir is not None:
+        path = os.path.join(output_dir, "sobol_indices.png")
+        plt.savefig(path, dpi=150, bbox_inches="tight")
+        plt.close()
+        return path
+    plt.close()
+    return None
 
 
 _ENVELOPE_LABELS = {

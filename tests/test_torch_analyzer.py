@@ -83,14 +83,35 @@ def test_rejects_unknown_ic_keys():
 
 
 @pytest.mark.parametrize("option,item", [
-    ({"control_variates": True}, "P13"),
-    ({"two_level_lanes": 64}, "P13"),
     ({"wind_table_modes": 24}, "P8"),
     ({"mesh": object()}, "P16"),
 ])
 def test_unported_constructor_options_raise(option, item):
     with pytest.raises(NotImplementedError, match=item):
         MonteCarloAnalyzer(motor=liquid_motor("cpu"), **option)
+
+
+@pytest.mark.parametrize("option,block", [
+    ({"control_variates": True}, "control_variates"),
+    ({"control_variates": True, "cv_wind_modes": 2, "cv_wind_speed": 2}, "control_variates"),
+    ({"two_level_lanes": 8, "sim_config": SimConfig(max_time=0.2, integrator="rk2")},
+     "two_level"),
+], ids=["control_variates", "cv_wind", "two_level_lanes"])
+def test_estimator_constructor_options_run(option, block):
+    """The estimators' options run on the analyzer's device and add their
+    blocks (held to the JAX analyzer's in tests/test_torch_cv.py and
+    tests/test_torch_two_level.py)."""
+    option = {"sim_config": SimConfig(max_time=0.2), **option}
+    mc = MonteCarloAnalyzer(motor=liquid_motor("cpu"), wind_grid_points=10, **option)
+    a = mc.run_monte_carlo(InitialConditions.vertical_launch("cpu"), n_samples=8, seed=2)
+    assert a[block]["n" if block == "control_variates" else "n_lanes"] == 8
+    if block == "control_variates":
+        names = a[block]["controls"]
+        assert len(names) == len(set(names)) and any("turb" in n for n in names) == (
+            "cv_wind_modes" in option)
+        assert a[block]["insufficient_samples"]  # 8 lanes cannot fit the controls
+    else:
+        assert a[block]["config_delta"] == {"integrator": ["rk2", "rk4"]}
 
 
 @pytest.mark.parametrize("option,block", [

@@ -19,11 +19,13 @@ FORBIDDEN = {"jax", "jaxlib", "flax"}
 def test_every_module_imports_with_jax_and_flax_blocked():
     assert {f"erpl_monte_carlo_sim_tpu_torch.mc.{m}" for m in (
         "slab_accumulators", "slab_checkpoint", "sequential", "checkpoint", "tail",
-        "envelope", "resimulate", "ensemble", "importance")} <= set(MODULES)
+        "envelope", "resimulate", "ensemble", "importance", "cv", "two_level", "subset",
+        "subset_driver", "sobol_indices")} <= set(MODULES)
     assert "erpl_monte_carlo_sim_tpu_torch.ops.sobol" in MODULES
     assert {f"erpl_monte_carlo_sim_tpu_torch.{m}" for m in (
         "example", "reporting", "reporting.plots", "reporting.report", "reporting.results",
         "cli", "cli.find_max_apogee", "cli.analyze_outlier", "cli.launch_window",
+        "cli.tail_probability",
         "utils.serialize", "utils.logging", "utils.scene_io", "utils.debug")} <= set(MODULES)
     code = (
         "import sys\n"
@@ -44,6 +46,9 @@ def test_every_module_imports_with_jax_and_flax_blocked():
         "from erpl_monte_carlo_sim_tpu_torch.ops import sobol\n"
         "from erpl_monte_carlo_sim_tpu_torch.mc.ensemble import EnsembleAccumulator\n"
         "from erpl_monte_carlo_sim_tpu_torch.mc.importance import log_weights\n"
+        "from erpl_monte_carlo_sim_tpu_torch.mc import (cv_slab_moments, subset_simulation,\n"
+        "    sobol_indices, gpd_tail, two_level_block, sample_from_normals)\n"
+        "from erpl_monte_carlo_sim_tpu_torch.cli.tail_probability import main as tp\n"
         "assert sobol.sobol_points(8, 640, torch.zeros(1, 640, dtype=torch.int64)).shape[1] == 640\n"
         "assert 'jax' not in [k for k, v in sys.modules.items() if v is not None]\n"
         "print('ok')\n"

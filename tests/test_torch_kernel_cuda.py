@@ -379,3 +379,82 @@ def test_sampling_variants_fly_through_the_kernel_on_cuda(option):
     assert a["ensemble"]["n_members"] == 3 and a["wind_members"].shape == (1024,)
     ref, got = kernel_and_plain(*mc._last_batch, WINDOW)
     compare(ref, got, torch.float32)
+
+
+@pytest.mark.cuda
+def test_cv_moments_on_the_card_are_a_float64_recomputation_on_cuda():
+    """The control variates' slab moments reduced on the card (float32 lanes,
+    the turbulence and wind-speed controls included) against the same
+    function on the CPU in float64 over the same lanes' controls and
+    targets: counts exact, means and cross-moments within 1e-4 of their
+    matrix's scale, the adjusted means within 1% of their stderr."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc; the CPU runs the plain version only")
+    from erpl_monte_carlo_sim_tpu_torch.mc.cv import CVMoments, cv_slab_moments, finalize_cv
+    from erpl_monte_carlo_sim_tpu_torch.mc.filter import outlier_mask
+    from erpl_monte_carlo_sim_tpu_torch.utils.tree import tree_map
+
+    dev = torch.device("cuda")
+    mc = MonteCarloAnalyzer(motor=liquid_motor(dev), sim_config=WINDOW, control_variates=True,
+                            cv_wind_modes=4, cv_wind_speed=3)
+    ic = InitialConditions.vertical_launch(dev)
+    before = fs.launches
+    a = mc.run_monte_carlo(ic, n_samples=8192, seed=5)
+    assert fs.launches == before + 1
+    scene_b, ic_b = mc._last_batch
+    summary = simulate_summary_batch(scene_b, ic_b, WINDOW)
+    valid, _ = outlier_mask(summary, mc.bounds)
+    from erpl_monte_carlo_sim_tpu_torch.mc.analyzer import _draw_single
+
+    _, _, sample = _draw_single(mc, ic, 8192, 5, None)
+    ones = torch.ones(8192, dtype=torch.bool, device=dev)
+    got = cv_slab_moments(sample, summary, valid, ones, mc.uncertainty_params, mc.scene.motor,
+                          mc._cv_wind_ctrl(scene_b, sample, None))
+
+    def host64(x):
+        return tree_map(lambda t: t.detach().cpu().double() if t.is_floating_point()
+                        else t.detach().cpu(), x)
+
+    mc64 = MonteCarloAnalyzer(motor=liquid_motor("cpu", torch.float64), sim_config=WINDOW,
+                              control_variates=True, cv_wind_modes=4, cv_wind_speed=3)
+    ref = cv_slab_moments(host64(sample), host64(summary), valid.cpu(), ones.cpu(),
+                          mc64.uncertainty_params, mc64.scene.motor,
+                          mc64._cv_wind_ctrl(host64(scene_b), host64(sample), None))
+    assert int(got[0]) == int(ref[0]) == int(valid.sum())
+    for name, x, y in zip(("mz", "mt", "szz", "szt", "stt"), got[1:], ref[1:]):
+        np.testing.assert_allclose(x, y, rtol=1e-4, atol=1e-4 * np.abs(y).max(), err_msg=name)
+    acc = CVMoments()
+    acc.add(ref)
+    want = finalize_cv(acc, mc64._cv_names())
+    for m in ("apogee_altitude", "range", "flight_time"):
+        blk = a["control_variates"][m]
+        assert abs(blk["mean"] - want[m]["mean"]) <= 1e-2 * want[m]["stderr"], m
+
+
+@pytest.mark.cuda
+def test_subset_level_g_flies_through_the_kernel_on_cuda():
+    """One batched chain step of subset simulation: ``g`` of 2,048 lanes of
+    standard normals is one kernel launch, equal to the kernel's apogee on
+    the valid lanes (-inf elsewhere), and the kernel meets the plain version
+    on those lanes at the float32 bars."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc; the CPU runs the plain version only")
+    from erpl_monte_carlo_sim_tpu_torch.mc import sample_from_normals
+    from erpl_monte_carlo_sim_tpu_torch.mc.filter import outlier_mask
+
+    dev = torch.device("cuda")
+    mc = MonteCarloAnalyzer(motor=liquid_motor(dev), sim_config=WINDOW)
+    ic = InitialConditions.vertical_launch(dev)
+    g_fn, d, _, sign = mc._subset_g_fn(ic, "apogee_altitude", "above", 1, None)
+    u = np.random.default_rng(0).standard_normal((2048, d))
+    before = fs.launches
+    g = g_fn(u)
+    assert fs.launches == before + 1 and g.shape == (2048,) and sign == 1.0
+    scene_b, ic_b, _ = sample_from_normals(u, mc.scene, ic)
+    summary = simulate_summary_batch(scene_b, ic_b, WINDOW)
+    valid = outlier_mask(summary, mc.bounds)[0].cpu().numpy()
+    apogee = summary.apogee_altitude.cpu().numpy()
+    np.testing.assert_array_equal(g, np.where(valid & np.isfinite(apogee), apogee, -np.inf))
+    assert valid.mean() > 0.9
+    ref, got = kernel_and_plain(scene_b, ic_b, WINDOW)
+    compare(ref, got, torch.float32)

@@ -269,12 +269,25 @@ def test_every_figure(runs, exports, single):
                                            ("flight_time", 2.0))}}
             for n in (4, 8, 16)]
     paths.append(reporting.plot_convergence({"convergence": hist}, out))
+    # the estimators' figures: the GPD overlay on this run, and a Sobol'
+    # decomposition with intervals and a pair row in mc.sobol_indices' schema
+    gpd_dir = os.path.join(out, "gpd")
+    os.makedirs(gpd_dir)
+    paths.append(reporting.plot_exceedance(analysis, "apogee_altitude", gpd_dir, gpd=True))
+    groups = ["mass", "motor_thrust", "wind_turbulence"]
+    indices = {"groups": groups, "pairs": ["mass*motor_thrust"]}
+    for k, m in enumerate(("apogee_altitude", "range")):
+        s = [0.1 + 0.2 * k, 0.5, 0.05]
+        indices[m] = {
+            "variance": 4.0 + k,
+            "first_order": {g: {"S": v, "ci95": [v - 0.05, v + 0.05]} for g, v in zip(groups, s)},
+            "total_order": {g: {"T": v + 0.1, "ci95": [v, v + 0.2]} for g, v in zip(groups, s)},
+            "second_order": {"mass*motor_thrust": {"closed": 0.7, "interaction": 0.04,
+                                                   "ci95": [0.0, 0.08]}}}
+    paths.append(reporting.plot_sobol_indices(indices, out))
     for p in paths:
         assert p is not None and os.path.getsize(p) > 10_000, p
-    with pytest.raises(NotImplementedError, match="P13"):
-        reporting.plot_sobol_indices({"groups": []}, out)
-    with pytest.raises(NotImplementedError, match="P13"):
-        reporting.plot_exceedance(analysis, "apogee_altitude", out, gpd=True)
+    assert reporting.plot_sobol_indices({"groups": []}, out) is None
 
 
 def test_txt_report_every_block_matches_jax(runs, exports, tmp_path):

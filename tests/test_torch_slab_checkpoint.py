@@ -162,6 +162,17 @@ CHANGES = {
     "importance_shift": lambda: {"mc": analyzer(importance_shift={"mass": 1.0})},
     "importance_theta": lambda: {"mc": analyzer(importance_shift={"mass": 1.5}),
                                  "base": {"mc": analyzer(importance_shift={"mass": 1.0})}},
+    "control_variates": lambda: {"mc": analyzer(control_variates=True)},
+    "cv_wind_modes": lambda: {"mc": analyzer(control_variates=True, cv_wind_modes=2),
+                              "base": {"mc": analyzer(control_variates=True)}},
+    "cv_wind_speed": lambda: {"mc": analyzer(control_variates=True, cv_wind_speed=2),
+                              "base": {"mc": analyzer(control_variates=True)}},
+    "two_level_lanes": lambda: {
+        "mc": MonteCarloAnalyzer(motor=liquid_motor("cpu"), bounds=BOUNDS,
+                                 sim_config=SimConfig(max_time=1.0, integrator="rk2"),
+                                 two_level_lanes=16),
+        "base": {"mc": MonteCarloAnalyzer(motor=liquid_motor("cpu"), bounds=BOUNDS,
+                                          sim_config=SimConfig(max_time=1.0, integrator="rk2"))}},
 }
 
 
