@@ -157,12 +157,37 @@ raises and the run exits non-zero:
      ``tail_probability`` CLI with ``--gpd``, ``--shift`` and ``--subset``,
      and the two estimator figures clocked (``StageClock``; not drawn where
      matplotlib is missing, as in phase 11).
+ 14. mode-compressed wind (``wind_table_modes``; on the card K1 flies each
+     lane's expanded table, ``kernels.flight_summary.expanded``): (a) K1
+     against the plain modes query on the card, 1,024 float32 and 256
+     float64 lanes, K=24 and K=N (at full rank also against the realized
+     tables' flights), at K1's bars; (b) ``run_monte_carlo`` with 262,144
+     lanes and K=24, its wall, launches, the expansion's ms and bytes, and
+     the apogee mean's drift from phase 4's; (c) the two-level correction
+     with its fast leg compressed (4,096 coupled lanes); (d) 4 lanes of (b)
+     and one of each slab of a 4-slab modes run re-simulated, equal to the
+     runs bit for bit; (e) modes under ``wind_table_bf16`` (the scores
+     rounded, the table not again) against the plain query;
+ 15. the differentiable flight (``engine.diff``), float64: (a) the primal
+     of 256 dispersed lanes of the window against K1's summaries at rtol
+     5e-7; (b) their per-lane d(apogee)/d(thrust_scale) from one reverse
+     pass of the graphed segments against central differences of two K1
+     flights (``DIFF_EPS``, bar ``DIFF_FD_RTOL``; lanes whose rail or main
+     step count differs between the two are left out and counted); (c) the
+     graphed segments against eager autograd on the card (64 lanes, 1.5 s):
+     metrics bit for bit, gradients at rtol 1e-9; (d) a landed flight's
+     d(range) and d(flight_time)/d(thrust_scale) against K1's differences
+     by the JAX package's recipe; (e) the walls of ``variance_budget``,
+     ``optimize_robust`` (256 lanes, 4 evaluations), ``auto_shift`` with its
+     tilted run, and the projection of one ``metric_and_grad`` at the CLIs'
+     ``max_time=120``.
 
 The kernels JSON gives each flight_summary and recording row the launches
 of phase 11's example runs (``example_launches``), and the summary rows
 (and the parity recording row) those of phase 12's runs
 (``variant_launches``); the summary rows also those of phase 13's runs
-(``estimator_launches``).
+(``estimator_launches``), and those of phases 14 and 15
+(``modes_launches``, ``diff_launches``).
 
 Phases 2, 4, 5 and 6 also print ``digest`` lines: the SHA-256 of the
 kernel's outputs with NaN made canonical (``kernels/measure.py digest``). A
@@ -238,6 +263,30 @@ SOBOL_BOOT = 100
 # the CV moments on the card against their float64 recomputation: each
 # matrix within this share of its largest entry (float32 controls)
 CV_MOMENT_BAR = 1e-4
+# phase 14: turbulence modes of the compressed runs; the slabbed run's slab;
+# lanes re-simulated
+MODES_K = 24
+MODES_SLAB = 65_536
+MODES_RESIM = 4
+# phase 15: dispersed float64 lanes differentiated (optimize_robust's default
+# width); the central difference's step in the thrust scale and its bar,
+# stated before the first run: in float64 the differences' truncation and
+# rounding are far below it, so a miss is a wrong gradient
+DIFF_LANES = 256
+DIFF_EPS = 1e-5
+DIFF_FD_RTOL = 1e-4
+# the graphed segments against eager autograd: lanes and window
+GRAPHED_LANES = 64
+GRAPHED_WINDOW = 1.5
+# the landed flight: propellant (it lands after about 6.4 s), window, and the
+# JAX package's recipe (tests/test_sensitivity.py:121-173)
+LANDING_PROPELLANT = 1.0
+LANDING_WINDOW = 20.0
+LANDING_EPS = 5e-5
+LANDING_RTOL = 1e-2
+# the users' entry points: window and optimize_robust's evaluations
+USER_WINDOW = 2.0
+ROBUST_EVALS = 4
 
 
 def phase(name: str, **numbers) -> None:
@@ -2475,6 +2524,278 @@ def sampling_variants(dev, ic, mc4, run4) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 14
+def modes_scene(scene_b, k: int):
+    """``scene_b`` with its per-lane tables compressed to ``k`` modes."""
+    from erpl_monte_carlo_sim_tpu_torch.models import compress_wind, wind_mode_basis
+
+    q = wind_mode_basis(scene_b.wind_model, scene_b.wind.altitudes.cpu().numpy(), k)
+    return dataclasses.replace(scene_b, wind=compress_wind(scene_b.wind, q))
+
+
+def wind_modes(dev, ic, run4) -> dict:
+    """Phase 14: mode-compressed wind. Returns the K1 launches of its runs."""
+    from erpl_monte_carlo_sim_tpu_torch.engine import SimConfig
+    from erpl_monte_carlo_sim_tpu_torch.engine.batch import prepare_batch
+    from erpl_monte_carlo_sim_tpu_torch.kernels import flight_summary as fs
+    from erpl_monte_carlo_sim_tpu_torch.mc import MonteCarloAnalyzer
+    from erpl_monte_carlo_sim_tpu_torch.models import liquid_motor
+
+    cfg = SimConfig(max_time=WINDOW)
+    launches = {}
+    # 14a: K1 on the expanded tables against the plain modes query
+    for dtype, n in ((torch.float32, 1024), (torch.float64, 256)):
+        dt = str(dtype).split(".")[-1]
+        scene_b, ic_b = sample_batch(n, dtype)
+        knots = scene_b.wind.altitudes.numel()
+        for k in (MODES_K, knots):
+            t0 = time.time()
+            ref, got = kernel_and_plain(modes_scene(scene_b, k), ic_b, cfg)
+            extra = {}
+            if k == knots:  # full rank: the realized tables' flights too
+                extra["full_table_max_abs_err"] = compare(
+                    fs.flight_summary(*prepare_batch(scene_b, ic_b), cfg), got, dtype)
+            phase(f"14a kernel=modes query {dt} k={k}", lanes=n, max_abs_err=compare(ref, got, dtype),
+                  rtol=RTOL[dtype], both_seconds=f"{time.time() - t0:.2f}", **extra)
+    # 14b: the main path with wind_table_modes
+    mc = MonteCarloAnalyzer(motor=liquid_motor(dev), sim_config=cfg, wind_table_modes=MODES_K)
+    mc.run_monte_carlo(ic, n_samples=1024, seed=0)  # warm-up
+    a, wall, launches["14b"] = counted(mc.run_monte_carlo, ic, n_samples=BENCH_LANES, seed=0)
+    if launches["14b"] != 1 or a["n_samples"] <= 0:
+        raise AssertionError(f"modes run: {launches['14b']} launches, {a['n_samples']} valid")
+    scene_b, ic_b = mc._last_batch
+    modes = mc._last_modes
+    expand_ms, (table, _) = cuda_ms(lambda: fs.expanded(modes, cfg), reps=3)
+    args = prepare_batch(dataclasses.replace(scene_b, wind=modes), ic_b)
+    kernel_ms, _ = cuda_ms(lambda: fs.flight_summary(*args, cfg), reps=2)
+    sigma = run4["apogee_altitude"]["std"] / math.sqrt(run4["n_samples"])
+    drift = a["apogee_altitude"]["mean"] - run4["apogee_altitude"]["mean"]
+    phase("14b modes run", lanes=BENCH_LANES, k=MODES_K, modes=modes.basis.shape[1],
+          launches=launches["14b"], wall_s=f"{wall:.3f}", expansion_ms=f"{expand_ms:.3f}",
+          kernel_with_expansion_ms=f"{kernel_ms:.3f}",
+          table_mb=f"{table.numel() * table.element_size() / 2**20:.1f}",
+          scores_mb=f"{modes.scores.numel() * modes.scores.element_size() / 2**20:.1f}",
+          apogee_mean=a["apogee_altitude"]["mean"],
+          apogee_mean_phase4=run4["apogee_altitude"]["mean"], drift_m=drift,
+          drift_in_stderr=drift / sigma, n_valid=a["n_samples"])
+    del table, args
+    # 14c: the two-level correction, its fast leg compressed
+    mc2 = MonteCarloAnalyzer(motor=liquid_motor(dev), sim_config=cfg, wind_table_modes=MODES_K,
+                             two_level_lanes=TWO_LEVEL_LANES)
+    a2, wall2, launches["14c"] = counted(mc2.run_monte_carlo, ic, n_samples=BENCH_LANES, seed=0)
+    blk = a2["two_level"]
+    apo = blk["apogee_altitude"]
+    if (launches["14c"] != 3 or blk["n_coupled"] < 0.9 * TWO_LEVEL_LANES
+            or not math.isfinite(apo["bias"]) or not apo["abs_max_delta"] > 0.0):
+        raise AssertionError(f"modes two-level: {launches['14c']} launches, block {blk}")
+    phase("14c two-level modes", lanes=BENCH_LANES, coupled=blk["n_coupled"],
+          launches=launches["14c"], wall_s=f"{wall2:.3f}", legs_s=json.dumps(blk["wall_s_legs"]),
+          apogee_bias_m=apo["bias"], apogee_bias_stderr_m=apo["bias_stderr"],
+          apogee_abs_max_delta_m=apo["abs_max_delta"], corrected_mean=apo["corrected_mean"])
+    # 14d: re-simulation flies the compressed tables the run flew
+    ids = spread(BENCH_LANES, MODES_RESIM)
+    s, _, launched, wall_r = resimulated(mc, ids, "14d", 1)
+    same_summary(s, a, ids, "14d single call")
+    slabbed = MonteCarloAnalyzer(motor=liquid_motor(dev), sim_config=cfg,
+                                 wind_table_modes=MODES_K)
+    a3, wall3, launches["14d"] = counted(slabbed.run_monte_carlo, ic, n_samples=4 * MODES_SLAB,
+                                         lane_slab=MODES_SLAB, seed=0)
+    ids3 = np.arange(4) * MODES_SLAB + np.array([5, 17, 29, 41]) % MODES_SLAB
+    s3, _, launched3, wall_r3 = resimulated(slabbed, ids3, "14d slabbed", 4)
+    same_summary(s3, a3, ids3, "14d slabbed")
+    phase("14d re-simulated modes", lanes=ids.tolist(), launches=launched, wall_s=f"{wall_r:.3f}",
+          slabbed_lanes=ids3.tolist(), slabbed_run_launches=launches["14d"],
+          slabbed_record_launches=launched3, slabbed_wall_s=f"{wall3:.3f}",
+          equal_to_run="bit for bit")
+    # 14e: wind_table_bf16 rounds the scores, the table is not rounded again
+    cfg_bf = SimConfig(max_time=WINDOW, wind_table_bf16=True)
+    scene_b, ic_b = sample_batch(1024, torch.float32)
+    modes_b = modes_scene(scene_b, MODES_K)
+    ref, got = kernel_and_plain(modes_b, ic_b, cfg_bf)
+    flown = fs.expanded(modes_b.wind, cfg_bf)[1]
+    phase("14e modes bf16", lanes=1024, k=MODES_K, build=fs.flags_name(fs.kernel_flags(flown)),
+          max_abs_err=compare(ref, got, torch.float32))
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------- phase 15
+def with_thrust(scene_b, ts):
+    return dataclasses.replace(scene_b, motor=dataclasses.replace(scene_b.motor, thrust_scale=ts))
+
+
+def timed_grad(fn, scene, ic, cfg, objective, wrt):
+    """``fn``'s metrics and the gradient of ``objective(metrics)`` with
+    respect to the tensors ``wrt``, each pass timed with the card
+    synchronized: ``(metrics, grads, forward s, backward s)``."""
+    import erpl_monte_carlo_sim_tpu_torch.engine.diff as diff
+
+    torch.cuda.synchronize()
+    diff.capture_seconds = 0.0
+    t0 = time.time()
+    m = fn(scene, ic, cfg)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    grads = torch.autograd.grad(objective(m), wrt)
+    torch.cuda.synchronize()
+    return ({k: v.detach() for k, v in m.items()}, grads, t1 - t0 - diff.capture_seconds,
+            time.time() - t1, diff.capture_seconds)
+
+
+def landing_fd(fs, scene, ic1, cfg, eps):
+    """Central differences in the thrust scale of the linearly backtracked
+    range and flight time, through two float64 K1 flights (the JAX package's
+    recipe, tests/test_sensitivity.py:121-173)."""
+    from erpl_monte_carlo_sim_tpu_torch.engine import InitialConditions
+    from erpl_monte_carlo_sim_tpu_torch.engine.batch import _summary_pytree, prepare_batch
+
+    ic2 = InitialConditions(*(v.expand(2, 3).contiguous() for v in (
+        ic1.position, ic1.velocity, ic1.attitude, ic1.angular_velocity)))
+    ts = torch.tensor([1.0 - eps, 1.0 + eps], dtype=torch.float64, device=ic1.position.device)
+    out = _summary_pytree(fs.flight_summary(*prepare_batch(with_thrust(scene, ts), ic2), cfg))
+    pos, vel = out.landing_position.cpu().numpy(), out.final_velocity.cpu().numpy()
+    delta = (cfg.ground_altitude - pos[:, 2]) / vel[:, 2]
+    land = pos[:, :2] + vel[:, :2] * delta[:, None]
+    vals = {"range": np.hypot(land[:, 0], land[:, 1]),
+            "flight_time": out.flight_time.cpu().numpy() + delta}
+    return {k: float(v[1] - v[0]) / (2 * eps) for k, v in vals.items()}, vals
+
+
+def differentiable(dev) -> dict:
+    """Phase 15: the differentiable flight, float64. Returns the K1
+    launches of its runs (15e's tilted run)."""
+    import erpl_monte_carlo_sim_tpu_torch.engine.diff as diff
+    from erpl_monte_carlo_sim_tpu_torch.cli.sensitivity import variance_budget
+    from erpl_monte_carlo_sim_tpu_torch.engine import InitialConditions, SimConfig
+    from erpl_monte_carlo_sim_tpu_torch.engine.batch import prepare_batch
+    from erpl_monte_carlo_sim_tpu_torch.kernels import flight_summary as fs
+    from erpl_monte_carlo_sim_tpu_torch.mc import MonteCarloAnalyzer, auto_shift, optimize_robust
+    from erpl_monte_carlo_sim_tpu_torch.models import (RocketParams, WindField, liquid_motor,
+                                                       nominal_scene)
+
+    f64 = torch.float64
+    cfg = SimConfig(max_time=WINDOW)
+    # 15a, 15b: per-lane d(apogee)/d(thrust_scale) of 256 dispersed lanes
+    scene_b, ic_b = sample_batch(DIFF_LANES, f64)
+    ts0 = scene_b.motor.thrust_scale.detach()
+    ts = ts0.clone().requires_grad_(True)
+    m, (g,), fwd_s, bwd_s, cap_s = timed_grad(diff.simulate_metrics_diff,
+                                              with_thrust(scene_b, ts), ic_b, cfg,
+                                              lambda m: m["apogee_altitude"].sum(), [ts])
+    k1 = fs.flight_summary(*prepare_batch(scene_b, ic_b), cfg)
+    steps = int(k1["n_steps"].max()) + int(torch.round(k1["rail_exit_time"].max() / cfg.rail_dt))
+    for k in ("apogee_altitude", "max_speed"):
+        err = float(((m[k] - k1[k]).abs() / k1[k].abs()).max())
+        if not err <= RTOL[f64]:
+            raise AssertionError(f"15a: the primal's {k} is {err:.3g} from K1's")
+    phase("15a primal=K1", lanes=DIFF_LANES, rtol=RTOL[f64], apogee_rel_err=float(
+        ((m["apogee_altitude"] - k1["apogee_altitude"]).abs() / k1["apogee_altitude"]).max()),
+        max_speed_rel_err=float(((m["max_speed"] - k1["max_speed"]).abs()
+                                 / k1["max_speed"]).max()))
+    hi = fs.flight_summary(*prepare_batch(with_thrust(scene_b, ts0 + DIFF_EPS), ic_b), cfg)
+    lo = fs.flight_summary(*prepare_batch(with_thrust(scene_b, ts0 - DIFF_EPS), ic_b), cfg)
+    fd = (hi["apogee_altitude"] - lo["apogee_altitude"]) / (2 * DIFF_EPS)
+    same = (hi["n_steps"] == lo["n_steps"]) & (hi["rail_exit_time"] == lo["rail_exit_time"])
+    rel = ((g - fd).abs() / fd.abs())[same]
+    if not bool(torch.isfinite(g).all()) or not float(rel.max()) <= DIFF_FD_RTOL:
+        raise AssertionError(f"15b: gradient {float(rel.max()):.3g} from the differences")
+    phase("15b gradient=K1 differences", lanes=DIFF_LANES, eps=DIFF_EPS, rtol=DIFF_FD_RTOL,
+          compared=int(same.sum()), left_out_step_change=int((~same).sum()),
+          max_rel_err=float(rel.max()), median_rel_err=float(rel.median()),
+          grad_median=float(g.median()), capture_s=f"{cap_s:.2f}", forward_s=f"{fwd_s:.2f}",
+          backward_s=f"{bwd_s:.2f}", steps=steps,
+          ms_per_step=f"{1e3 * (fwd_s + bwd_s) / steps:.2f}")
+    del m, g, k1, hi, lo
+    # 15c: the graphed segments against eager autograd on the card
+    scene_c, ic_c = head((scene_b, ic_b), DIFF_LANES, GRAPHED_LANES)
+    cfg_c = SimConfig(max_time=GRAPHED_WINDOW)
+    out = {}
+    for name, fn in (("graphed", diff.simulate_metrics_diff), ("eager", diff.metrics_reference)):
+        tc = scene_c.motor.thrust_scale.detach().clone().requires_grad_(True)
+        wt = scene_c.wind.wind.detach().clone().requires_grad_(True)
+        sc = dataclasses.replace(with_thrust(scene_c, tc),
+                                 wind=dataclasses.replace(scene_c.wind, wind=wt))
+        out[name] = timed_grad(fn, sc, ic_c, cfg_c, lambda m: (m["apogee_altitude"].sum()
+                                                               + m["range"].sum()), [tc, wt])
+    (m_g, g_g, fg, bg, cg), (m_e, g_e, fe, be, _) = out["graphed"], out["eager"]
+    same_metrics = all(torch.equal(m_g[k], m_e[k]) for k in m_e)
+    errs = [float(((a - b).abs() / b.abs().max()).max()) for a, b in zip(g_g, g_e)]
+    if not same_metrics or not max(errs) <= 1e-9:
+        raise AssertionError(f"15c: graphed != eager (metrics equal {same_metrics}, {errs})")
+    phase("15c graphed=eager", lanes=GRAPHED_LANES, max_time=GRAPHED_WINDOW,
+          metrics="bit for bit", thrust_grad_rel_err=errs[0], wind_grad_rel_err=errs[1],
+          graphed_capture_s=f"{cg:.2f}", graphed_forward_s=f"{fg:.2f}",
+          graphed_backward_s=f"{bg:.2f}",
+          eager_forward_s=f"{fe:.2f}", eager_backward_s=f"{be:.2f}")
+    del out
+    # 15d: a landed flight's range and flight time against K1's differences
+    pm = LANDING_PROPELLANT
+    calm = WindField.zero(dev, f64)
+    scene = nominal_scene(liquid_motor(dev, f64, propellant_mass=pm), wind=calm)
+    scene = dataclasses.replace(scene, rocket=RocketParams.create(dev, f64, propellant_mass=pm))
+    ic = InitialConditions.vertical_launch(dev, f64)
+    ic1 = InitialConditions(*(v[None] for v in (ic.position, ic.velocity, ic.attitude,
+                                                ic.angular_velocity)))
+    cfg_d = SimConfig(max_time=LANDING_WINDOW)
+    fd, vals = landing_fd(fs, scene, ic1, cfg_d, LANDING_EPS)
+    if not vals["flight_time"].max() < LANDING_WINDOW - 5.0:
+        raise AssertionError(f"15d: the flights did not land: {vals['flight_time']}")
+    ic2 = InitialConditions(*(v.expand(2, 3).contiguous() for v in (
+        ic1.position, ic1.velocity, ic1.attitude, ic1.angular_velocity)))
+    t2 = torch.ones(2, dtype=f64, device=dev, requires_grad=True)
+    # lane 0 differentiates the range, lane 1 the flight time: one reverse pass
+    m, (g,), fwd_s, bwd_s, cap_s = timed_grad(
+        diff.simulate_metrics_diff, with_thrust(scene, t2), ic2, cfg_d,
+        lambda m: m["range"][0] + m["flight_time"][1], [t2])
+    ad = {"range": float(g[0]), "flight_time": float(g[1])}
+    rel = {k: abs(ad[k] / fd[k] - 1.0) for k in ad}
+    if not all(math.isfinite(v) and v <= LANDING_RTOL for v in rel.values()):
+        raise AssertionError(f"15d: gradients {ad} against differences {fd}")
+    phase("15d landed flight", propellant_kg=pm, eps=LANDING_EPS, rtol=LANDING_RTOL,
+          flight_time_s=float(m["flight_time"][1]), range_m=float(m["range"][0]),
+          d_range=ad["range"], fd_range=fd["range"], d_flight_time=ad["flight_time"],
+          fd_flight_time=fd["flight_time"], rel_err=json.dumps(rel), capture_s=f"{cap_s:.2f}",
+          forward_s=f"{fwd_s:.2f}", backward_s=f"{bwd_s:.2f}")
+    # 15e: the walls of the users' entry points
+    launches = {}
+    cfg_e = SimConfig(max_time=USER_WINDOW)
+    nominal = nominal_scene(liquid_motor(dev, f64), wind=calm)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    budget = variance_budget(nominal, ic, cfg_e)
+    torch.cuda.synchronize()
+    budget_s = time.time() - t0
+    t0 = time.time()
+    hist = optimize_robust(nominal, ic, cfg_e, wrt="rocket.fin_span", n_lanes=DIFF_LANES,
+                           steps=ROBUST_EVALS)
+    torch.cuda.synchronize()
+    robust_s = time.time() - t0
+    if len(hist) != ROBUST_EVALS or not all(math.isfinite(h[1]) for h in hist):
+        raise AssertionError(f"15e: optimize_robust history {list(hist)}")
+    threshold = 1.05 * budget["apogee_m"]
+    t0 = time.time()
+    shift, info = auto_shift(nominal, ic, cfg_e, "apogee_altitude", threshold)
+    torch.cuda.synchronize()
+    shift_s = time.time() - t0
+    tilted = MonteCarloAnalyzer(motor=liquid_motor(dev), sim_config=cfg_e, importance_shift=shift)
+    a, tilted_s, launches["15e"] = counted(tilted.run_monte_carlo,
+                                           InitialConditions.vertical_launch(dev),
+                                           n_samples=BENCH_LANES, seed=0)
+    # the landed flight's cost per step past its capture (one lane: the step
+    # is launch-bound), and the CLIs' default window of 24,000 steps
+    ms_step = 1e3 * (fwd_s + bwd_s) / (float(m["flight_time"][1]) / cfg_d.dt)
+    phase("15e walls", max_time=USER_WINDOW, variance_budget_s=f"{budget_s:.2f}",
+          apogee_sigma_first_order_m=budget["apogee_sigma_first_order_m"],
+          optimize_robust_s=f"{robust_s:.2f}", robust_lanes=DIFF_LANES,
+          robust_evals=len(hist), robust_best=json.dumps(hist.info["value"]),
+          auto_shift_s=f"{shift_s:.2f}", shift=json.dumps(shift), tilted_run_s=f"{tilted_s:.3f}",
+          tilted_launches=launches["15e"], tilted_n_valid=a["n_samples"],
+          max_time_120_projection_s=f"{cap_s + 24_000 * ms_step / 1e3:.0f}",
+          ms_per_step_one_lane=f"{ms_step:.2f}")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     start = time.time()
     # ---------------------------------------------------------------- 0
@@ -2807,6 +3128,16 @@ def main() -> int:
     estimator_launches = estimators(dev, ic, mc, analysis)
     phase("13 done", phase_13_s=f"{time.time() - t0:.1f}", script_s=f"{time.time() - start:.1f}")
 
+    # ---------------------------------------------------------------- 14
+    t0 = time.time()
+    modes_launches = wind_modes(dev, ic, analysis)
+    phase("14 done", phase_14_s=f"{time.time() - t0:.1f}", script_s=f"{time.time() - start:.1f}")
+
+    # ---------------------------------------------------------------- 15
+    t0 = time.time()
+    diff_launches = differentiable(dev)
+    phase("15 done", phase_15_s=f"{time.time() - t0:.1f}", script_s=f"{time.time() - start:.1f}")
+
     report = {"kernels": [
         {"name": f"flight_summary ({name})", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": where, "launches": launches, "max_abs_err": main_err,
@@ -2814,7 +3145,8 @@ def main() -> int:
          "large_run_launches": large_launches,
          "example_launches": {k: v["k1"] for k, v in example_launches.items()},
          "variant_launches": {k: v for k, v in variant_launches.items() if "record" not in k},
-         "estimator_launches": estimator_launches, **costs}
+         "estimator_launches": estimator_launches, "modes_launches": modes_launches,
+         "diff_launches": diff_launches, **costs}
         for name, where in REPLACES
     ] + [
         {"name": f"flight_summary [{name}]", "route": "cuda", "source": KERNEL_SOURCE,

@@ -20,9 +20,9 @@ Usage:
       [--subset [--n-per-level 2048] [--p0 0.125] [--max-levels 15] \\
                 [--n-runs 4] [--p-target 1e-6]] [--device cuda]
 
-``--max-time 0`` (the default) flies full flights. ``--auto-shift`` (the
-tilt from one reverse pass through the differentiable flight) is ROADMAP
-P14's and raises.
+``--max-time 0`` (the default) flies full flights. ``--auto-shift`` picks the
+tilt from one reverse pass through the differentiable flight
+(``mc.importance.auto_shift``, ``--shift-frac`` of the design point).
 """
 
 from __future__ import annotations
@@ -46,7 +46,7 @@ def tail_probability(metric: str, threshold: float, n: int = 4096, seed: int = 0
                      device="cuda") -> dict:
     """P(metric > threshold | valid) with the run's metadata, on ``device``
     (a given ``scene``'s device wins). ``shift`` selects importance sampling
-    (``"auto"`` is P14's auto tilt and raises), ``gpd`` the GPD extrapolation
+    (``"auto"`` picks it by ``mc.importance.auto_shift``), ``gpd`` the GPD extrapolation
     (exclusive with ``shift``: the fit needs the nominal population),
     ``subset`` subset simulation (exclusive with both); ``p_target`` with
     ``subset`` solves for the bound instead."""
@@ -104,10 +104,16 @@ def tail_probability(metric: str, threshold: float, n: int = 4096, seed: int = 0
                        cov_reported_mean=res["cov_reported_mean"],
                        spread_ratio=res["spread_ratio"])
         return out
+    auto_info = None
     if shift == "auto":
         from ..mc.importance import auto_shift
 
-        auto_shift(scene, ic, sim_config, metric, threshold, frac=shift_frac)
+        shift, auto_info = auto_shift(scene, ic, sim_config, metric, threshold, frac=shift_frac)
+        if not shift:
+            raise ValueError(
+                "auto tilt found no channel worth shifting (every |theta| < 0.05; "
+                f"diagnostics: {auto_info}) — the threshold is too close to nominal for "
+                "tilting to help")
     mc = MonteCarloAnalyzer(scene=scene, sim_config=sim_config, importance_shift=shift or None)
     a = mc.run_monte_carlo(ic, n_samples=n, seed=seed)
     if gpd:
@@ -119,6 +125,8 @@ def tail_probability(metric: str, threshold: float, n: int = 4096, seed: int = 0
         row = exceedance_from_analysis(a, metric, [threshold])[0]
     out = {"metric": metric, "n_lanes": n, "n_valid": a["n_samples"],
            "shift": dict(shift or {}), **row}
+    if auto_info is not None:
+        out["auto_shift"] = auto_info
     if shift:
         blk = a["importance"].get(metric)
         if isinstance(blk, dict) and "n_eff" in blk:
@@ -139,7 +147,8 @@ def main(argv=None) -> dict:
     p.add_argument("--shift", action="append", default=[], metavar="CHANNEL=SIGMAS",
                    help="importance tilt, repeatable (e.g. motor_thrust=2)")
     p.add_argument("--auto-shift", action="store_true",
-                   help="pick the tilt automatically (ROADMAP P14: not ported, raises)")
+                   help="pick the tilt automatically (one reverse pass through the "
+                        "differentiable flight)")
     p.add_argument("--shift-frac", type=float, default=0.75,
                    help="fraction of the design point to tilt to (with --auto-shift)")
     p.add_argument("--gpd", action="store_true",

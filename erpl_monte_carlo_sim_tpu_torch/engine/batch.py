@@ -3,6 +3,9 @@
 ``simulate_summary_batch`` takes a dispersed batch (scene leaves ``[B]`` or
 shared, a ``[B, N, 3]`` or shared ``[N, 3]`` wind table, ``[B, 3]`` initial
 conditions) and returns a ``FlightSummary`` of ``[B]``/``[B, 3]`` tensors.
+A ``models.wind.WindModes`` wind (mode-compressed tables) runs the JAX
+package's modes query in the plain version and its expanded tables in the
+kernel (``kernels.flight_summary.expanded``).
 ``simulate_flight_batch`` adds the recorded ``Trajectory``, and
 ``simulate_envelope_batch`` reduces the recording in the loop to
 per-time-bin aggregates. Summaries and trajectories run through
@@ -18,10 +21,11 @@ import dataclasses
 
 import torch
 
-from ..kernels.flight_summary import flight_record, flight_summary, stored_wind
+from ..kernels.flight_summary import flight_record, flight_summary, wind_fn_of
+from ..models.wind import WindModes
 from ..ops.quaternion import quaternion_to_euler
 from ..utils.tree import tree_map
-from .component import flight_components_envelope, table_wind_fn
+from .component import flight_components_envelope
 from .config import SimConfig
 from .rail import RailInfo
 from .simulate import FlightSummary, Trajectory
@@ -32,14 +36,19 @@ __all__ = ["prepare_batch", "simulate_summary_batch", "simulate_flight_batch",
 
 def prepare_batch(scene_b, ic_b):
     """Split a batched scene into ``(scene without wind, grid [N], wind
-    table, 12 contiguous [B] initial-condition tensors)``."""
+    table or WindModes, 12 contiguous [B] initial-condition tensors)``."""
     wind = scene_b.wind
     scene_nw = dataclasses.replace(scene_b, wind=None)
     ics = tuple(arr[..., c].contiguous()
                 for arr in (ic_b.position, ic_b.velocity, ic_b.attitude,
                             ic_b.angular_velocity)
                 for c in range(3))
-    return scene_nw, wind.altitudes.contiguous(), wind.wind.contiguous(), ics
+    if isinstance(wind, WindModes):
+        table = dataclasses.replace(wind, basis=wind.basis.contiguous(),
+                                    scores=wind.scores.contiguous())
+    else:
+        table = wind.wind.contiguous()
+    return scene_nw, wind.altitudes.contiguous(), table, ics
 
 
 def _prepared(scene_b, ic_b):
@@ -110,7 +119,7 @@ def simulate_envelope_batch(scene_b, ic_b, cfg: SimConfig, *, channels, n_bins, 
     computes it."""
     scene_nw, grid, wind, ics = _prepared(scene_b, ic_b)
     res, agg = flight_components_envelope(
-        scene_nw, cfg, table_wind_fn(grid, stored_wind(wind, cfg)), ics, tuple(channels),
+        scene_nw, cfg, wind_fn_of(grid, wind, cfg), ics, tuple(channels),
         int(n_bins), int(n_buckets), bin_dt, lo, width, int(hist_every))
     return _summary_pytree(res), agg
 

@@ -36,12 +36,12 @@ import torch
 from ..models.atmosphere import atmosphere_properties, gravity_at
 from ..models.motor import mass_flow_rate_at, propellant_remaining, thrust_at
 from ..models.rocket import aero_coefficients, dynamic_cp, mass_properties
-from ..ops.interp import interpolate_vec
+from ..ops.interp import interpolate_vec, tent_weights
 from ..ops.math import arcsin, arctan2, safe_sqrt
 from ..ops.quaternion import euler_to_quaternion
 
-__all__ = ["quat_normalize_c", "rotmat_c", "qdot_c", "table_wind_fn",
-           "dynamics_c", "rk4_c", "FlightCore", "flight_setup", "flight_components",
+__all__ = ["quat_normalize_c", "rotmat_c", "qdot_c", "table_wind_fn", "modes_wind_fn",
+           "dynamics_c", "rk4_c", "FlightCore", "main_loop", "flight_setup", "flight_components",
            "derived_c", "record_names", "n_frames", "flight_components_trajectory",
            "flight_components_envelope", "SUMMARY_KEYS", "INT_KEYS", "STATE_KEYS",
            "FRAME_KEYS", "DERIVED_KEYS"]
@@ -72,6 +72,28 @@ def table_wind_fn(grid: torch.Tensor, wind: torch.Tensor):
 
     def wind_fn(alt):
         return interpolate_vec(alt, grid, wind).unbind(-1)
+
+    return wind_fn
+
+
+def modes_wind_fn(grid: torch.Tensor, basis: torch.Tensor, scores: torch.Tensor):
+    """``wind_fn`` over mode-compressed tables (``models.wind.WindModes``),
+    the JAX package's query: tent weights ``w [B, N]`` of the altitudes on
+    the shared ``grid``, the basis rows there ``bval = w @ basis [B, M]``,
+    then ``sum_m bval[:, m] scores[:, m, c]``. ``w @ basis`` is formed in
+    float64 as products summed over the knots, not as a matrix product, so
+    a float32 product on a card never runs in TF32 and a lane's value does
+    not depend on the batch it flies in; it is rounded once to the lanes'
+    dtype. Scores stored in another dtype (bfloat16 under
+    ``SimConfig.wind_table_bf16``, which leaves the basis as it is) are
+    upcast first, which is exact."""
+    scores = scores.to(grid.dtype)
+    q64 = basis.to(torch.float64)
+
+    def wind_fn(alt):
+        w = tent_weights(alt, grid).to(torch.float64)
+        bval = torch.sum(w[..., None] * q64, dim=-2).to(alt.dtype)
+        return tuple(torch.sum(bval * scores[..., c], dim=-1) for c in range(3))
 
     return wind_fn
 
@@ -263,9 +285,11 @@ def rk4_c(scene, cfg, wind_fn, t, st, para, dt=None):
     return new[:6] + (qw, qx, qy, qz) + new[10:], para
 
 
-def _rail_phase(scene, cfg, wind_fn, pos, direction, speed0):
+def _rail_phase(scene, cfg, wind_fn, pos, direction, speed0, max_iters=None):
     """Forward Euler along the launch direction until the lane leaves the
-    rail, burns out or hits ``max_rail_steps``. Returns
+    rail, burns out or hits ``max_rail_steps``, and for at most
+    ``max_iters`` steps of the batch when that is given (the JAX package's
+    fixed-length rail scan of the differentiable path). Returns
     ``(rpx, rpy, rpz, speed, rail_steps, frac)``."""
     dx, dy, dz = direction
     dt_r = cfg.rail_dt
@@ -282,7 +306,9 @@ def _rail_phase(scene, cfg, wind_fn, pos, direction, speed0):
             stp < cfg.max_rail_steps)
 
     on = active()
-    while bool(on.any()):
+    iters = 0
+    while (max_iters is None or iters < max_iters) and bool(on.any()):
+        iters += 1
         t = stp.to(spd.dtype) * dt_r
         mp = mass_properties(rocket, frac)
         atm = atmosphere_properties(scene.atmosphere, rpz)
@@ -355,50 +381,19 @@ class FlightCore(NamedTuple):
     summarize: Callable    # (st, ev) -> the SUMMARY_KEYS dict
 
 
-def flight_setup(scene, cfg, wind_fn, ics):
-    """Launch attitude, rail phase and rail-exit diagnostics, then the main
-    loop's initial carry and closures (JAX ``_flight_setup``). Returns
-    ``(st, ev, core)``: the 14-component state tuple, the event dict and the
-    ``FlightCore``.
-
-    ``ics``: 12 ``[B]`` tensors (px, py, pz, vx, vy, vz, roll, pitch, yaw,
-    ox, oy, oz). With ``descent_dt_scale > 1`` (tiered) each lane carries
-    its own time, advanced by its own step, and the time its chute latched;
-    otherwise time is ``step_time`` of the step counter."""
-    (px, py, pz, vx, vy, vz, roll, pitch, yaw, ox, oy, oz) = ics
-
-    qw, qx, qy, qz = euler_to_quaternion(roll, pitch, yaw).unbind(-1)
-    r = rotmat_c(qw, qx, qy, qz)
-    dx, dy, dz = r[0], r[3], r[6]
-    speed0 = vx * dx + vy * dy + vz * dz
-    rpx, rpy, rpz, spd, rstp, frac = _rail_phase(
-        scene, cfg, wind_fn, (px, py, pz), (dx, dy, dz), speed0)
-    dtype = spd.dtype
-    rail_time = rstp.to(dtype) * cfg.rail_dt
-    vx, vy, vz = dx * spd, dy * spd, dz * spd
-
-    # rail-exit diagnostics
-    wuh, wvh, wwh = wind_fn(rpz)
-    rvx, rvy, rvz = vx - wuh, vy - wvh, vz - wwh
-    ub = r[0] * rvx + r[3] * rvy + r[6] * rvz
-    vb = r[1] * rvx + r[4] * rvy + r[7] * rvz
-    wb = r[2] * rvx + r[5] * rvy + r[8] * rvz
-    rail_aoa, rail_slip = _aero_angles(ub, vb, wb)
-    rail_speed = safe_sqrt(vx * vx + vy * vy + vz * vz)
-
-    # main loop
-    st = (rpx, rpy, rpz, vx, vy, vz, qw, qx, qy, qz, ox, oy, oz, frac)
-    i0 = torch.zeros_like(spd, dtype=torch.int32)
-    f0 = torch.zeros_like(spd)
-    ev = dict(step=i0, para=i0, apod=i0, done=i0, div=i0, apo_t=f0, max_coast=f0,
-              max_alt=rpz, t_max=rail_time, max_spd=rail_speed, end_t=rail_time)
+def main_loop(scene, cfg, wind_fn, rail_time):
+    """The main loop's closures over the scene, the wind lookup and each
+    lane's rail-exit time ``rail_time [B]``: ``(time_of, lane_active,
+    step)`` of ``FlightCore``. ``flight_setup`` builds them once; the
+    differentiable path (``engine.diff``) builds them again over its own
+    copies of the scene's tensors."""
+    i0 = torch.zeros_like(rail_time, dtype=torch.int32)
+    f0 = torch.zeros_like(rail_time)
     tiered = cfg.descent_dt_scale > 1
     if tiered:
         dt_big = cfg.dt * cfg.descent_dt_scale
         fine, big = torch.full_like(f0, cfg.dt), torch.full_like(f0, dt_big)
         fine6, big6 = torch.full_like(f0, cfg.dt / 6.0), torch.full_like(f0, dt_big / 6.0)
-        ev["t"] = rail_time
-        ev["dep_t"] = torch.full_like(f0, math.inf)
 
     def time_of(ev):
         return ev["t"] if tiered else step_time(rail_time, ev["step"], cfg.dt)
@@ -461,6 +456,52 @@ def flight_setup(scene, cfg, wind_fn, ics):
         st = tuple(torch.where(run, a, b) for a, b in zip(new_st, st))
         ev = {k: torch.where(run, new_ev[k], ev[k]) for k in ev}
         return st, ev, lane_active(ev)
+
+    return time_of, lane_active, step
+
+
+def flight_setup(scene, cfg, wind_fn, ics, rail_steps=None):
+    """Launch attitude, rail phase and rail-exit diagnostics, then the main
+    loop's initial carry and closures (JAX ``_flight_setup``). Returns
+    ``(st, ev, core)``: the 14-component state tuple, the event dict and the
+    ``FlightCore``.
+
+    ``ics``: 12 ``[B]`` tensors (px, py, pz, vx, vy, vz, roll, pitch, yaw,
+    ox, oy, oz). With ``descent_dt_scale > 1`` (tiered) each lane carries
+    its own time, advanced by its own step, and the time its chute latched;
+    otherwise time is ``step_time`` of the step counter. ``rail_steps``
+    caps the rail phase's steps (``_rail_phase``)."""
+    (px, py, pz, vx, vy, vz, roll, pitch, yaw, ox, oy, oz) = ics
+
+    qw, qx, qy, qz = euler_to_quaternion(roll, pitch, yaw).unbind(-1)
+    r = rotmat_c(qw, qx, qy, qz)
+    dx, dy, dz = r[0], r[3], r[6]
+    speed0 = vx * dx + vy * dy + vz * dz
+    rpx, rpy, rpz, spd, rstp, frac = _rail_phase(
+        scene, cfg, wind_fn, (px, py, pz), (dx, dy, dz), speed0, rail_steps)
+    dtype = spd.dtype
+    rail_time = rstp.to(dtype) * cfg.rail_dt
+    vx, vy, vz = dx * spd, dy * spd, dz * spd
+
+    # rail-exit diagnostics
+    wuh, wvh, wwh = wind_fn(rpz)
+    rvx, rvy, rvz = vx - wuh, vy - wvh, vz - wwh
+    ub = r[0] * rvx + r[3] * rvy + r[6] * rvz
+    vb = r[1] * rvx + r[4] * rvy + r[7] * rvz
+    wb = r[2] * rvx + r[5] * rvy + r[8] * rvz
+    rail_aoa, rail_slip = _aero_angles(ub, vb, wb)
+    rail_speed = safe_sqrt(vx * vx + vy * vy + vz * vz)
+
+    # main loop
+    st = (rpx, rpy, rpz, vx, vy, vz, qw, qx, qy, qz, ox, oy, oz, frac)
+    i0 = torch.zeros_like(spd, dtype=torch.int32)
+    f0 = torch.zeros_like(spd)
+    ev = dict(step=i0, para=i0, apod=i0, done=i0, div=i0, apo_t=f0, max_coast=f0,
+              max_alt=rpz, t_max=rail_time, max_spd=rail_speed, end_t=rail_time)
+    if cfg.descent_dt_scale > 1:
+        ev["t"] = rail_time
+        ev["dep_t"] = torch.full_like(f0, math.inf)
+    time_of, lane_active, step = main_loop(scene, cfg, wind_fn, rail_time)
 
     def summarize(st, ev):
         fpx, fpy, fpz, fvx, fvy, fvz = st[:6]

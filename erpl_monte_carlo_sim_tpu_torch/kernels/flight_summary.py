@@ -40,6 +40,7 @@ the flights of a result, from the operation count ``ops_per_step``.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import math
 import os
@@ -51,13 +52,14 @@ import torch
 
 from ..engine.component import (DERIVED_KEYS, FRAME_KEYS, INT_KEYS, SUMMARY_KEYS,
                                 flight_components, flight_components_trajectory,
-                                n_frames, record_names, table_wind_fn)
+                                modes_wind_fn, n_frames, record_names, table_wind_fn)
 from ..engine.config import SimConfig
+from ..models.wind import WindModes, expand_modes
 
 __all__ = ["flight_summary", "flight_summary_reference", "flight_record",
            "flight_record_reference", "record_layout", "build", "build_many",
            "launches", "record_launches", "SOURCE", "KernelFlags", "PARITY", "kernel_flags", "flags_name",
-           "stored_wind", "cfg_values", "ops_per_step", "bound_ms", "input_bytes"]
+           "stored_wind", "wind_fn_of", "expanded", "cfg_values", "ops_per_step", "bound_ms", "input_bytes"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "flight_summary.cu")
@@ -336,6 +338,35 @@ def stored_wind(wind: torch.Tensor, cfg: SimConfig) -> torch.Tensor:
     return wind.to(torch.bfloat16) if cfg.wind_table_bf16 else wind
 
 
+def wind_fn_of(grid: torch.Tensor, wind, cfg: SimConfig):
+    """The plain version's wind lookup: the tent-basis lookup of a table's
+    ``stored_wind``, or for ``WindModes`` the JAX package's modes query
+    (``engine.component.modes_wind_fn``) with the scores rounded to
+    bfloat16 under ``wind_table_bf16`` and the basis kept, as the JAX
+    package stores them."""
+    if isinstance(wind, WindModes):
+        scores = wind.scores.to(torch.bfloat16) if cfg.wind_table_bf16 else wind.scores
+        return modes_wind_fn(grid, wind.basis, scores)
+    return table_wind_fn(grid, stored_wind(wind, cfg))
+
+
+def expanded(wind, cfg: SimConfig):
+    """``(table, cfg)`` as the kernel flies them: a table passes; a
+    ``WindModes`` becomes each lane's ``[B, N, 3]`` table in the scores'
+    dtype (``models.wind.expand_modes``), the same function as the modes
+    query by linearity, up to the order of rounding. Under
+    ``wind_table_bf16`` the scores are rounded to bfloat16 before the
+    expansion, as the JAX package rounds them, and the flag is cleared, so
+    that the table is not rounded a second time."""
+    if not isinstance(wind, WindModes):
+        return wind, cfg
+    scores = wind.scores
+    if cfg.wind_table_bf16:
+        scores = scores.to(torch.bfloat16)
+        cfg = dataclasses.replace(cfg, wind_table_bf16=False)
+    return expand_modes(wind.basis, scores, wind.scores.dtype), cfg
+
+
 def cfg_values(cfg: SimConfig) -> list:
     """The ``SimConfig`` numbers in the kernel's ``Cfg`` order, in float64;
     the kernel rounds each once to its precision. The fine and coarse steps'
@@ -461,26 +492,27 @@ def _outputs(out_f, out_i) -> dict:
 
 def flight_summary_reference(scene_nw, grid: torch.Tensor, wind: torch.Tensor, ics,
                              cfg: SimConfig) -> dict:
-    """The kernel's plain version: ``flight_components`` over the tent-basis
-    lookup of ``stored_wind``, on any device."""
-    return flight_components(scene_nw, cfg, table_wind_fn(grid, stored_wind(wind, cfg)),
-                             ics)
+    """The kernel's plain version: ``flight_components`` over
+    ``wind_fn_of``'s lookup, on any device."""
+    return flight_components(scene_nw, cfg, wind_fn_of(grid, wind, cfg), ics)
 
 
 def flight_summary(scene_nw, grid: torch.Tensor, wind: torch.Tensor, ics,
                    cfg: SimConfig) -> dict:
     """Whole flights of a batch: ``scene_nw`` without its wind, the wind
-    ``grid [N]`` and table (``[B, N, 3]`` or shared ``[N, 3]``), 12 ``[B]``
-    initial-condition tensors. Returns ``flight_components``' dict.
+    ``grid [N]`` and table (``[B, N, 3]`` or shared ``[N, 3]``, or a
+    ``WindModes``), 12 ``[B]`` initial-condition tensors. Returns
+    ``flight_components``' dict.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel build
-    of ``kernel_flags``."""
+    of ``kernel_flags``, on the ``expanded`` table of a ``WindModes``."""
     device = ics[0].device
     if device.type == "cpu":
         return flight_summary_reference(scene_nw, grid, wind, ics, cfg)
     if device.type != "cuda":
         raise ValueError(f"flight_summary runs on cpu or cuda, not {device}")
-    return _launch(scene_nw, grid, wind, ics, cfg)
+    table, cfg = expanded(wind, cfg)
+    return _launch(scene_nw, grid, table, ics, cfg)
 
 
 class RecordLayout(NamedTuple):
@@ -531,9 +563,8 @@ def unpack_frames(frames: torch.Tensor, stop: torch.Tensor, lay: RecordLayout) -
 def flight_record_reference(scene_nw, grid: torch.Tensor, wind: torch.Tensor, ics,
                             cfg: SimConfig):
     """The recording build's plain version: ``flight_components_trajectory``
-    over the tent-basis lookup of ``stored_wind``, on any device."""
-    return flight_components_trajectory(
-        scene_nw, cfg, table_wind_fn(grid, stored_wind(wind, cfg)), ics)
+    over ``wind_fn_of``'s lookup, on any device."""
+    return flight_components_trajectory(scene_nw, cfg, wind_fn_of(grid, wind, cfg), ics)
 
 
 def flight_record(scene_nw, grid: torch.Tensor, wind: torch.Tensor, ics, cfg: SimConfig):
@@ -556,7 +587,8 @@ def flight_record(scene_nw, grid: torch.Tensor, wind: torch.Tensor, ics, cfg: Si
     _check_room(lay, n, dtype, device)
     frames = torch.empty((lay.n_frames, lay.n_channels, n), dtype=dtype, device=device)
     stop = torch.empty(n, dtype=torch.int32, device=device)
-    res = _launch(scene_nw, grid, wind, ics, cfg, rec=(frames, stop, lay))
+    table, cfg = expanded(wind, cfg)
+    res = _launch(scene_nw, grid, table, ics, cfg, rec=(frames, stop, lay))
     return res, unpack_frames(frames, stop, lay)
 
 

@@ -16,6 +16,7 @@ from .sequential import (ExceedanceDecision, ExceedanceHalfwidth, MeanStderr, Qm
 from .stats import (PERCENTILES, StreamingStats, exceedance, exceedance_from_analysis,
                     landing_footprint, masked_stats, order_stat_ranks, percentile_ci)
 from .resimulate import ResimulationMixin
+from .robust import dispersed_objective_and_grad, optimize_robust
 from .sobol_indices import (active_groups, jansen_estimates, pure_interactions,
                             select_interaction_pairs, sobol_indices)
 from .subset import pool_subset_quantiles, pool_subset_runs, subset_quantile, subset_simulation
@@ -36,4 +37,5 @@ __all__ = ["MonteCarloAnalyzer", "slab_seed", "DispersionSample", "UncertaintyPa
            "normal_dims", "sample_from_normals", "subset_simulation", "subset_quantile",
            "pool_subset_runs", "pool_subset_quantiles", "sobol_indices", "jansen_estimates",
            "active_groups", "select_interaction_pairs", "pure_interactions", "fit_gpd_pwm",
-           "gpd_tail", "tail_from_analysis", "parity_twin", "two_level_block"]
+           "gpd_tail", "tail_from_analysis", "parity_twin", "two_level_block",
+           "dispersed_objective_and_grad", "optimize_robust"]

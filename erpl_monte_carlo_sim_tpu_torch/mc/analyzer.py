@@ -16,13 +16,17 @@ wind) add the JAX analyzer's ``qmc_error``, ``importance``, ``ensemble`` and
 (``control_variates``, ``cv_wind_modes``, ``cv_wind_speed``: ``mc.cv``) and
 ``two_level`` (``two_level_lanes``: ``mc.two_level``), single-call and
 slabbed, and ``subset_tail`` / ``subset_quantile`` (``mc.subset_driver``).
-Options of the JAX analyzer that the port does not have yet
-(``wind_table_modes``, ``mesh``) raise ``NotImplementedError`` naming the
-ROADMAP item that brings them.
+``wind_table_modes=K`` flies each call's lanes on mode-compressed tables
+(``models.wind.WindModes``: K turbulence modes plus the mean structure, a
+documented approximation, exact at ``K >= wind_grid_points``); the
+accumulators keep the realized tables, and the two-level correction's fast
+leg flies compressed. ``mesh`` (multi-device runs, ROADMAP P16) raises
+``NotImplementedError``.
 
 Each run remembers its lanes (``_last_batch``: the single call's batch, or
 a slabbed run's recipe), so that ``resimulate_trajectories``, ``lane_scenes``
-and ``flight_envelope`` (``mc.resimulate``) can fly any of them again. Both
+and ``flight_envelope`` (``mc.resimulate``) can fly any of them again, on
+the compressed tables the run flew under ``wind_table_modes``. Both
 draws go through one seam each, ``_draw_single`` and ``_draw_slab``, which
 the tests replace to feed the JAX package's lanes through the analyzer.
 """
@@ -167,8 +171,8 @@ class MonteCarloAnalyzer(SubsetDriverMixin, ResimulationMixin):
                     scene = dataclasses.replace(scene, **{name: part})
         if mesh is not None:
             _not_ported("mesh (multi-device runs)", "P16")
-        if wind_table_modes is not None:
-            _not_ported("wind_table_modes", "P8")
+        if wind_table_modes is not None and wind_table_modes < 1:
+            raise ValueError("wind_table_modes must be >= 1 (or None)")
         # regression control variates (mc.cv): the headline means adjusted by
         # their fitted response to the draws, optionally with the top
         # turbulence-mode scores and the wind speed at knots as controls
@@ -193,7 +197,7 @@ class MonteCarloAnalyzer(SubsetDriverMixin, ResimulationMixin):
         if two_level_lanes:
             from .two_level import FAST_FIELDS, parity_twin
 
-            if parity_twin(sim_config) == sim_config:
+            if parity_twin(sim_config) == sim_config and not wind_table_modes:
                 raise ValueError(
                     "two_level_lanes needs at least one fast flag in "
                     f"sim_config (one of {FAST_FIELDS}) or "
@@ -233,13 +237,20 @@ class MonteCarloAnalyzer(SubsetDriverMixin, ResimulationMixin):
         self.metrics_sample_cap = metrics_sample_cap
         self.wind_grid_points = wind_grid_points
         self.wind_grid_top = wind_grid_top
+        # each lane's wind as K mode scores on a shared basis, for the
+        # flights only (_compress_for_sim); the basis memo is keyed as the
+        # JAX package keys it
+        self.wind_table_modes = wind_table_modes
+        self._wind_basis_memo = None  # (key, basis tensor)
         # a forecast (altitudes[N], wind[N,3]) each lane perturbs, or an
         # ensemble wind[K,N,3] (models.load_wind_ensemble_from_csvs) of which
         # each lane perturbs a uniformly drawn member
         self.base_altitude_profile = None
         self.base_wind_profile = None
-        # the last run's lanes, and the last re-simulation (mc.resimulate)
+        # the last run's lanes (and the compressed wind a single call flew),
+        # and the last re-simulation (mc.resimulate)
         self._last_batch = None
+        self._last_modes = None
         self._resim_memo = None
 
     @property
@@ -269,6 +280,26 @@ class MonteCarloAnalyzer(SubsetDriverMixin, ResimulationMixin):
             attitude=initial_conditions.get("attitude", zero),
             angular_velocity=initial_conditions.get("angular_velocity", zero),
         )
+
+    def _compress_for_sim(self, scene_b, base_wind):
+        """``scene_b`` with its per-lane tables mode-compressed
+        (``models.wind.WindModes``) under ``wind_table_modes``, for the
+        flights; a shared table, or no ``wind_table_modes``, passes. The
+        basis is memoized on ``(K, grid, forecast)``."""
+        k = self.wind_table_modes
+        wind = scene_b.wind
+        if not k or wind.wind.ndim != 3:
+            return scene_b
+        from ..models.wind import compress_wind, wind_mode_basis
+
+        grid = wind.altitudes.detach().cpu().numpy()
+        extra = None if base_wind is None else np.asarray(to_numpy(base_wind[1]))
+        key = (int(k), grid.tobytes(), None if extra is None else extra.tobytes())
+        if self._wind_basis_memo is None or self._wind_basis_memo[0] != key:
+            basis = wind_mode_basis(self.scene.wind_model, grid, k, extra_profiles=extra)
+            self._wind_basis_memo = (key, torch.as_tensor(basis, device=wind.wind.device))
+        return dataclasses.replace(scene_b,
+                                   wind=compress_wind(wind, self._wind_basis_memo[1]))
 
     def _base_wind(self):
         if self.base_wind_profile is not None and self.base_altitude_profile is not None:
@@ -304,7 +335,7 @@ class MonteCarloAnalyzer(SubsetDriverMixin, ResimulationMixin):
             raise ValueError("checkpoint_every must be >= 1")
         ic = self._as_ic(initial_conditions)
         base_wind = self._base_wind()
-        self._last_batch = self._resim_memo = None
+        self._last_batch = self._last_modes = self._resim_memo = None
         if n_samples > slab:
             return self._run_slabbed(ic, n_samples, slab, seed, materialize_results,
                                      base_wind, checkpoint_path, checkpoint_every)
@@ -314,7 +345,8 @@ class MonteCarloAnalyzer(SubsetDriverMixin, ResimulationMixin):
 
         t_start = time.time()
         scene_b, ic_b, sample = _draw_single(self, ic, n_samples, seed, base_wind)
-        summary = simulate_summary_batch(scene_b, ic_b, self.sim_config)
+        scene_sim = self._compress_for_sim(scene_b, base_wind)
+        summary = simulate_summary_batch(scene_sim, ic_b, self.sim_config)
         valid, reasons = outlier_mask(summary, self.bounds)
         stats = {k: masked_stats(getattr(summary, k), valid) for k in _METRICS}
         cv_moments = None
@@ -336,6 +368,8 @@ class MonteCarloAnalyzer(SubsetDriverMixin, ResimulationMixin):
             stats_py[k]["percentile_ci"] = percentile_ci(getattr(summary_np, k), valid_np)
         elapsed = time.time() - t_start
         self._last_batch = (scene_b, ic_b)
+        if scene_sim is not scene_b:
+            self._last_modes = scene_sim.wind
 
         n_valid = int(valid_np.sum())
         sample_np = to_numpy(sample)
@@ -445,7 +479,7 @@ class MonteCarloAnalyzer(SubsetDriverMixin, ResimulationMixin):
                 c.update(slab_metrics[c.metric][valid_np])
             return all(c.satisfied() for c in crits)
 
-        self._last_batch = self._resim_memo = None
+        self._last_batch = self._last_modes = self._resim_memo = None
         analysis = self._run_slabbed(ic, max_samples, slab, seed, materialize_results,
                                      self._base_wind(), stop_rule=stop_rule,
                                      min_samples=min_samples)
@@ -503,7 +537,8 @@ class MonteCarloAnalyzer(SubsetDriverMixin, ResimulationMixin):
         while n_done < n_samples:
             n_s = min(slab, n_samples - n_done)
             scene_b, ic_b, sample = _draw_slab(self, ic, slab_idx, slab, seed, base_wind)
-            summary = simulate_summary_batch(scene_b, ic_b, self.sim_config)
+            summary = simulate_summary_batch(self._compress_for_sim(scene_b, base_wind), ic_b,
+                                             self.sim_config)
             # lane ids are global: seed == simulation_id across slabs
             sample = dataclasses.replace(sample, random_seed=sample.random_seed + n_done)
             valid, reasons = outlier_mask(summary, self.bounds)
@@ -630,7 +665,12 @@ class MonteCarloAnalyzer(SubsetDriverMixin, ResimulationMixin):
         block = two_level_block(self.scene, ic, self.sim_config, self.two_level_lanes, seed,
                                 params=self.uncertainty_params, bounds=self.bounds,
                                 base_wind=base_wind, wind_grid_points=self.wind_grid_points,
-                                wind_grid_top=self.wind_grid_top)
+                                wind_grid_top=self.wind_grid_top,
+                                # the fast leg flies compressed, as the run
+                                # did, so the bias covers the truncation
+                                fast_transform=(
+                                    (lambda sb: self._compress_for_sim(sb, base_wind))
+                                    if self.wind_table_modes else None))
         iid_main = self.sampler == "prng" and not self.antithetic
         if not iid_main:
             block["stderr_note"] = (

@@ -13,7 +13,7 @@ how many plain lanes the run is worth.
 
 ``shift_from_gradients`` picks a tilt from the metric's linear response
 (the design-point rule); ``auto_shift``, which gets that response from one
-reverse pass through the differentiable flight, comes with ROADMAP P14.
+reverse pass through the differentiable flight (``engine.diff``).
 """
 
 from __future__ import annotations
@@ -169,8 +169,19 @@ def shift_from_gradients(value, grads, sigmas, threshold, frac: float = 0.75,
 
 def auto_shift(scene, ic, cfg, metric, threshold, params=None, frac: float = 0.75,
                min_theta: float = 0.05):
-    """The tilt from one reverse pass through the differentiable flight;
-    that flight is ROADMAP P14's, so this raises until it is ported."""
-    del scene, ic, cfg, metric, threshold, params, frac, min_theta
-    raise NotImplementedError("auto_shift needs the differentiable flight, which is not "
-                              "ported yet (ROADMAP P14)")
+    """The tilt for P(metric > threshold), picked automatically: one reverse
+    pass through the differentiable flight gives every channel's gradient
+    (``cli.sensitivity.metric_sensitivities``), the dispersion laws give the
+    sigmas, and ``shift_from_gradients``' design-point rule does the rest.
+    Returns ``(shift, info)``."""
+    # the gradient helpers live with the CLI they serve, which imports mc
+    from ..cli.sensitivity import _channel_sigmas, metric_sensitivities
+    from .dispersions import UncertaintyParams
+
+    if params is None:
+        params = UncertaintyParams()
+    value, grads = metric_sensitivities(scene, ic, cfg, metric=metric)
+    csig = _channel_sigmas(scene, params)
+    g = {name: float(grads[field]) for name, field in _AUTO_GRAD.items()}
+    s = {name: float(csig[field]) for name, field in _AUTO_GRAD.items()}
+    return shift_from_gradients(float(value), g, s, threshold, frac=frac, min_theta=min_theta)

@@ -7,8 +7,10 @@ single call's batch, or a slabbed run's recipe, whose slab k is redrawn
 through the same seam (``mc.analyzer._draw_slab``, seeded by
 ``slab_seed(seed, k)``) that the run drew it with. The lanes fly again
 through ``engine.batch.simulate_flight_batch``, the engine that measured
-them (on a card the kernel's recording build), so their summaries are the
-run's. ``flight_envelope`` reduces re-simulated chunks to time-binned
+them (on a card the kernel's recording build), on the tables that the run
+flew (under ``wind_table_modes`` the compressed ones: the single call's
+scores, or the redrawn slab compressed again whole), so their summaries
+are the run's. ``lane_scenes`` gives the realized tables. ``flight_envelope`` reduces re-simulated chunks to time-binned
 population bands (``mc.envelope``).
 
 Mixed into ``MonteCarloAnalyzer``: ``lane_scenes``,
@@ -67,6 +69,16 @@ class ResimulationMixin:
                                                    info["seed"], info["base_wind"])
         return scene_b, ic_b
 
+    def _as_flown(self, scene_b, modes, ids: torch.Tensor):
+        """The lanes ``ids`` of ``scene_b`` with the wind the run flew them
+        on: ``modes`` (the batch's ``WindModes``) cut to those lanes, or the
+        realized tables when ``modes`` is None."""
+        scene = _take(scene_b, self.scene, ids)
+        if modes is None:
+            return scene
+        return dataclasses.replace(scene, wind=dataclasses.replace(
+            modes, scores=modes.scores.index_select(0, ids.to(modes.scores.device))))
+
     def lane_scenes(self, lane_ids) -> list:
         """The single-lane perturbed ``Scene`` of each global lane id, for a
         single-call run and a slabbed one (whose touched slabs are drawn
@@ -113,7 +125,7 @@ class ResimulationMixin:
         gathered along the lane axis, shared ones passed."""
         scene_b, ic_b = self._last_batch
         ids = torch.as_tensor(np.asarray(lane_ids, dtype=np.int64))
-        return _take(scene_b, self.scene, ids), _take(ic_b, None, ids)
+        return self._as_flown(scene_b, self._last_modes, ids), _take(ic_b, None, ids)
 
     def _resimulate_slabbed(self, lane_ids, cfg: SimConfig):
         """The lanes of a slabbed run: each touched slab drawn again, its
@@ -127,9 +139,12 @@ class ResimulationMixin:
         done = 0
         for k in np.unique(ids // slab):
             scene_b, ic_b = self._redraw_slab(int(k))
+            # the whole slab compressed, as the run compressed it
+            flown = self._compress_for_sim(scene_b, self._last_batch["base_wind"])
+            modes = flown.wind if flown is not scene_b else None
             locals_ = np.unique(ids[ids // slab == k] % slab)
             sel = torch.as_tensor(locals_)
-            parts.append(simulate_flight_batch(_take(scene_b, self.scene, sel),
+            parts.append(simulate_flight_batch(self._as_flown(scene_b, modes, sel),
                                                _take(ic_b, None, sel), cfg))
             for j, loc in enumerate(locals_):
                 where[ids == int(k) * slab + int(loc)] = done + j

@@ -83,6 +83,7 @@ def run_fingerprint(analyzer, ic, n_samples, slab, seed, base_wind, limit) -> st
         [[c, float(t)] for c, t in analyzer.importance_shift],
         bool(analyzer.control_variates), int(analyzer.cv_wind_modes),
         int(analyzer.cv_wind_speed), int(analyzer.two_level_lanes),
+        analyzer.wind_table_modes,
     ]).encode())
     return h.hexdigest()
 

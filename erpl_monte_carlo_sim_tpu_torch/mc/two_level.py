@@ -79,13 +79,12 @@ def two_level_block(scene, ic, cfg, n: int, seed: int = 0, *,
     both legs: ``bias``, ``bias_stderr``, ``abs_max_delta`` and the parity
     leg's ``population_sigma``, with the coupling counts and each leg's wall
     (the card synchronized by the readback). The analyzer adds the corrected
-    means. ``fast_transform`` (a ``scene_b -> scene_b`` hook of the fast leg,
-    the JAX package's mode compression) is ROADMAP P8's and raises."""
-    if fast_transform is not None:
-        raise NotImplementedError("two_level_block's fast_transform (wind_table_modes) is "
-                                  "not ported yet (ROADMAP P8)")
+    means. ``fast_transform`` is a ``scene_b -> scene_b`` hook of the fast
+    leg alone (the analyzer's mode compression under ``wind_table_modes``,
+    so that the bias covers the truncation); the parity leg flies the
+    realized tables."""
     twin = parity_twin(cfg)
-    if twin == cfg:
+    if twin == cfg and fast_transform is None:
         raise ValueError("two-level correction needs at least one fast flag set "
                          f"(one of {FAST_FIELDS}) or a fast_transform; the config is "
                          "already exact parity")
@@ -95,7 +94,10 @@ def two_level_block(scene, ic, cfg, n: int, seed: int = 0, *,
     runs, leg_wall = {}, {}
     for label, c in (("fast", cfg), ("parity", twin)):
         t1 = time.time()
-        s = simulate_summary_batch(scene_b, ic_b, c)
+        leg_scene = scene_b
+        if label == "fast" and fast_transform is not None:
+            leg_scene = fast_transform(scene_b)
+        s = simulate_summary_batch(leg_scene, ic_b, c)
         m, _ = outlier_mask(s, bounds)
         runs[label] = ({k: getattr(s, k).cpu().numpy() for k in METRICS}, m.cpu().numpy())
         leg_wall[label] = round(time.time() - t1, 3)

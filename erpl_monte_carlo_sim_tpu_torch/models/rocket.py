@@ -4,7 +4,9 @@
 Quirks kept from the JAX package: ``Izz`` mirrors ``Iyy``; the pitch moment
 ``cm`` and ``cyaw`` are not stall-limited unless ``stall_limited_moments``
 asks for it; the Barrowman static CP is computed once, in plain Python, when
-the parameters are created.
+the parameters are created. ``refresh_derived`` recomputes the derived
+geometry in tensors (``barrowman_cp_traced``), so that a design gradient
+(``engine.diff``) carries the CP travel.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from ..ops.interp import interpolate_1d
 from ..utils.tree import materialize, static_field
 
 __all__ = ["RocketParams", "MassProperties", "AeroCoefficients", "barrowman_cp",
-           "mass_properties", "dynamic_cp", "aero_coefficients",
+           "barrowman_cp_traced", "refresh_derived", "mass_properties", "dynamic_cp", "aero_coefficients",
            "stability_margin", "STALL_ANGLE", "MAX_ANGLE"]
 
 _CD_MACH = (0.0, 0.5, 0.8, 1.0, 1.2, 1.5, 2.0, 3.0)
@@ -99,6 +101,42 @@ def barrowman_cp(p: RocketParams) -> float:
     if cn_total > 0:
         return (cn_nose * x_nose + cn_fins * x_fins) / cn_total
     return length / 2.0
+
+
+def barrowman_cp_traced(p: RocketParams) -> torch.Tensor:
+    """``barrowman_cp`` in tensor operations, so that gradients flow through
+    the CP. The branches become double-where guards: a zero root chord
+    takes taper 0, and a zero fin span takes ``length / 2`` (where the host
+    version divides by zero) with a finite gradient."""
+    x_nose = 0.666 * p.nose_length
+    cr, ct, s = p.fin_root_chord, p.fin_tip_chord, p.fin_span
+    n, diameter, ref_area, length = p.fin_count, p.diameter, p.reference_area, p.length
+    fin_area = 0.5 * (cr + ct) * s
+    cr_ok = cr != 0
+    lam = torch.where(cr_ok, ct / torch.where(cr_ok, cr, 1.0), 0.0)
+    s_ok = s > 0
+    cn_fins = torch.where(
+        s_ok, 2.0 * n * (1.0 + diameter / (2.0 * torch.where(s_ok, s, 1.0)))
+        * (fin_area / ref_area), 0.0)
+    mac = (2.0 / 3.0) * cr * (1.0 + lam + lam**2) / (1.0 + lam)
+    y_bar = s * (1.0 + 2.0 * lam) / (3.0 * (1.0 + lam))
+    x_fins = (length - cr) + y_bar * torch.tan(p.fin_sweep_angle) + 0.25 * mac
+    cn_total = 2.0 + cn_fins
+    pos = cn_total > 0
+    cp = torch.where(pos, (2.0 * x_nose + cn_fins * x_fins) / torch.where(pos, cn_total, 1.0),
+                     length / 2.0)
+    return torch.where(s_ok, cp, length / 2.0)
+
+
+def refresh_derived(p: RocketParams) -> RocketParams:
+    """``p`` with the derived geometry (reference area and diameter, the
+    Barrowman CP) recomputed from the primary fields in tensors. ``create``
+    computes them once on the host; a design write (``engine.diff``,
+    ``mc.robust``) refreshes them so that its gradient carries the CP
+    travel and the stability margin, not only the lift terms."""
+    d = p.diameter
+    p = dataclasses.replace(p, reference_area=math.pi * (d / 2.0) ** 2, reference_diameter=d)
+    return dataclasses.replace(p, cp_location=barrowman_cp_traced(p))
 
 
 class MassProperties(NamedTuple):

@@ -20,10 +20,12 @@ import math
 import numpy as np
 import torch
 
+from ..ops.interp import interpolate_vec
 from ..utils.tree import default_dtype, materialize
 
-__all__ = ["WindField", "WindModelParams", "power_law_profile", "generate_stochastic_profile",
-           "perturb_wind_profile", "ar1_transfer_matrix", "load_wind_profile_from_csv",
+__all__ = ["WindField", "WindModelParams", "WindModes", "wind_at_altitude", "power_law_profile",
+           "generate_stochastic_profile", "perturb_wind_profile", "ar1_transfer_matrix",
+           "wind_mode_basis", "compress_wind", "expand_modes", "load_wind_profile_from_csv",
            "load_wind_ensemble_from_csvs"]
 
 
@@ -58,6 +60,11 @@ class WindModelParams:
     @classmethod
     def create(cls, device, dtype=None) -> "WindModelParams":
         return materialize(cls(), device, dtype)
+
+
+def wind_at_altitude(field: WindField, altitude) -> torch.Tensor:
+    """The interpolated ``[..., 3]`` wind of ``field`` at ``altitude``."""
+    return interpolate_vec(altitude, field.altitudes, field.wind)
 
 
 def power_law_profile(p: WindModelParams, altitude, reference_wind_speed,
@@ -157,6 +164,100 @@ def ar1_transfer_matrix(p: WindModelParams, altitudes) -> np.ndarray:
     logp = np.concatenate([[0.0], np.cumsum(np.log(rho[1:]))])
     ratio = np.exp(logp[:, None] - logp[None, :])
     return np.tril(ratio * s_[None, :])
+
+
+@dataclasses.dataclass(frozen=True)
+class WindModes:
+    """Mode-compressed per-lane wind tables: ``altitudes [N]`` (the shared
+    grid), ``basis [N, M]`` (shared orthonormal columns, ``wind_mode_basis``)
+    and ``scores [B, M, 3]``, each lane's per-component mode scores. A
+    lane's table is ``basis @ scores[b]``; it is exact when ``M = N`` and
+    otherwise drops the turbulence outside the basis's span.
+
+    The JAX package queries the modes in flight (``sum_m Q_m(h) scores[m,
+    c]``, with ``Q_m(h)`` the tent-interpolated basis row), which cuts a
+    TPU lane's wind reads from 3N to 3M values. On the card the flight
+    kernel reads two knots a component by segment index, so the port
+    expands the scores to a table once a call (``expand_modes``) and flies
+    that: modes save no bytes there, and the expansion rebuilds the
+    ``[B, N, 3]`` table. The CPU's plain version evaluates the JAX
+    package's query (``engine.component.modes_wind_fn``)."""
+
+    altitudes: torch.Tensor
+    basis: torch.Tensor
+    scores: torch.Tensor
+
+
+def wind_mode_basis(p: WindModelParams, altitudes, k: int, extra_profiles=None) -> np.ndarray:
+    """The shared ``[N, M]`` orthonormal basis of ``WindModes`` (host NumPy,
+    float64). Columns in order: a constant column (the speed and direction
+    offsets), the power-law shear shape, each nonzero component profile of
+    ``extra_profiles`` (a forecast ``[N, 3]`` or an ensemble ``[K, N, 3]``),
+    then the top ``k`` left singular vectors of ``ar1_transfer_matrix``.
+    Modified Gram-Schmidt drops the columns that depend on earlier ones, so
+    the mean structure is captured exactly at any ``k`` and a projection is
+    a transposed product."""
+    alt = np.asarray(altitudes, np.float64)
+    n = alt.shape[0]
+    k = int(min(max(k, 0), n))
+    cols = [np.ones(n)]
+    cols.append(np.maximum(alt / 10.0, 0.0) ** float(p.power_law_exponent))
+    if extra_profiles is not None:
+        prof = np.asarray(extra_profiles, np.float64)
+        if prof.ndim == 2:
+            prof = prof[None]
+        for member in prof:
+            for c in range(member.shape[1]):
+                col = member[:, c]
+                if np.abs(col).max() > 0.0:
+                    cols.append(col)
+    if k > 0:
+        u_svd, _, _ = np.linalg.svd(ar1_transfer_matrix(p, alt))
+        cols.extend(u_svd[:, :k].T)
+    q_cols = []
+    for col in cols:
+        v = col.astype(np.float64).copy()
+        for q in q_cols:
+            v -= (q @ v) * q
+        nrm = np.linalg.norm(v)
+        if nrm > 1e-10 * max(np.linalg.norm(col), 1.0):
+            q_cols.append(v / nrm)
+        if len(q_cols) >= n:
+            break
+    return np.stack(q_cols, axis=1)
+
+
+def compress_wind(field: WindField, basis) -> WindModes:
+    """Project per-lane tables ``[B, N, 3]`` onto ``basis [N, M]``:
+    ``scores = einsum('nm,bnc->bmc', Q, wind)``. The product is formed in
+    float64 and rounded once to the tables' dtype, so a float32 product on
+    a card never runs in TF32. A shared ``[N, 3]`` table is refused: it is
+    one broadcast table already."""
+    wind = field.wind
+    if wind.ndim != 3:
+        raise ValueError("compress_wind needs a per-lane [B,N,3] table; shared tables "
+                         "are already cheap (broadcast lane axis)")
+    q = torch.as_tensor(basis, device=wind.device)
+    scores = torch.einsum("nm,bnc->bmc", q.to(torch.float64), wind.to(torch.float64))
+    return WindModes(altitudes=field.altitudes, basis=q.to(wind.dtype),
+                     scores=scores.to(wind.dtype))
+
+
+def expand_modes(basis: torch.Tensor, scores: torch.Tensor, dtype=None) -> torch.Tensor:
+    """Each lane's table ``[B, N, 3]``: ``table[b, n, c] = sum_m basis[n, m]
+    scores[b, m, c]``, in ``dtype`` (default the scores'). The sum is formed
+    in float64, one mode at a time in column order with a separate multiply
+    and add, and rounded once: every element depends on its own lane alone
+    and has the same bits whatever the batch, so a lane flown again expands
+    to the table it flew."""
+    dtype = scores.dtype if dtype is None else dtype
+    q = basis.to(torch.float64)
+    s = scores.to(torch.float64)
+    table = torch.zeros((s.shape[0], q.shape[0], s.shape[2]), dtype=torch.float64,
+                        device=s.device)
+    for m in range(q.shape[1]):
+        table += q[None, :, m, None] * s[:, None, m, :]
+    return table.to(dtype)
 
 
 def load_wind_profile_from_csv(file_path: str):

@@ -19,7 +19,7 @@ from ..models.atmosphere import AtmosphereParams
 from ..models.motor import MotorParams
 from ..models.rocket import RocketParams
 from ..models.scene import Scene
-from ..models.wind import WindField, WindModelParams
+from ..models.wind import WindField, WindModelParams, WindModes
 from .tree import is_static, tree_map
 
 __all__ = ["scene_from_numpy", "ic_from_numpy", "sample_from_numpy",
@@ -57,11 +57,22 @@ def _convert(cls, obj, device, dtype):
     return cls(**kwargs)
 
 
+def _has(obj, name) -> bool:
+    return name in obj if isinstance(obj, dict) else hasattr(obj, name)
+
+
 def scene_from_numpy(obj, device, dtype=None) -> Scene:
     """A port ``Scene`` from a JAX ``Scene`` (or nested dicts). ``dtype``
-    casts float leaves; None keeps each leaf's dtype."""
-    return Scene(**{name: _convert(cls, _get(obj, name), device, dtype)
-                    for name, cls in _SCENE_PARTS.items()})
+    casts float leaves; None keeps each leaf's dtype. A mode-compressed
+    wind (JAX ``WindModes``: ``basis`` and ``scores``) becomes the port's
+    ``WindModes``."""
+    parts = {}
+    for name, cls in _SCENE_PARTS.items():
+        part = _get(obj, name)
+        if cls is WindField and _has(part, "scores"):
+            cls = WindModes
+        parts[name] = _convert(cls, part, device, dtype)
+    return Scene(**parts)
 
 
 def ic_from_numpy(obj, device, dtype=None) -> InitialConditions:

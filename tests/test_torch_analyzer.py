@@ -83,7 +83,6 @@ def test_rejects_unknown_ic_keys():
 
 
 @pytest.mark.parametrize("option,item", [
-    ({"wind_table_modes": 24}, "P8"),
     ({"mesh": object()}, "P16"),
 ])
 def test_unported_constructor_options_raise(option, item):

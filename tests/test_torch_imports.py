@@ -20,12 +20,13 @@ def test_every_module_imports_with_jax_and_flax_blocked():
     assert {f"erpl_monte_carlo_sim_tpu_torch.mc.{m}" for m in (
         "slab_accumulators", "slab_checkpoint", "sequential", "checkpoint", "tail",
         "envelope", "resimulate", "ensemble", "importance", "cv", "two_level", "subset",
-        "subset_driver", "sobol_indices")} <= set(MODULES)
+        "subset_driver", "sobol_indices", "robust")} <= set(MODULES)
+    assert "erpl_monte_carlo_sim_tpu_torch.engine.diff" in MODULES
     assert "erpl_monte_carlo_sim_tpu_torch.ops.sobol" in MODULES
     assert {f"erpl_monte_carlo_sim_tpu_torch.{m}" for m in (
         "example", "reporting", "reporting.plots", "reporting.report", "reporting.results",
         "cli", "cli.find_max_apogee", "cli.analyze_outlier", "cli.launch_window",
-        "cli.tail_probability",
+        "cli.tail_probability", "cli.sensitivity", "cli.optimize_apogee",
         "utils.serialize", "utils.logging", "utils.scene_io", "utils.debug")} <= set(MODULES)
     code = (
         "import sys\n"
@@ -49,6 +50,11 @@ def test_every_module_imports_with_jax_and_flax_blocked():
         "from erpl_monte_carlo_sim_tpu_torch.mc import (cv_slab_moments, subset_simulation,\n"
         "    sobol_indices, gpd_tail, two_level_block, sample_from_normals)\n"
         "from erpl_monte_carlo_sim_tpu_torch.cli.tail_probability import main as tp\n"
+        "from erpl_monte_carlo_sim_tpu_torch.models import WindModes, compress_wind\n"
+        "from erpl_monte_carlo_sim_tpu_torch.engine.diff import simulate_metrics_diff\n"
+        "from erpl_monte_carlo_sim_tpu_torch.mc import optimize_robust, auto_shift\n"
+        "from erpl_monte_carlo_sim_tpu_torch.cli.sensitivity import variance_budget\n"
+        "from erpl_monte_carlo_sim_tpu_torch.cli.optimize_apogee import optimize\n"
         "assert sobol.sobol_points(8, 640, torch.zeros(1, 640, dtype=torch.int64)).shape[1] == 640\n"
         "assert 'jax' not in [k for k, v in sys.modules.items() if v is not None]\n"
         "print('ok')\n"

@@ -458,3 +458,56 @@ def test_subset_level_g_flies_through_the_kernel_on_cuda():
     assert valid.mean() > 0.9
     ref, got = kernel_and_plain(scene_b, ic_b, WINDOW)
     compare(ref, got, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,n,k", [(torch.float32, 1024, 24), (torch.float64, 256, 24),
+                                       (torch.float64, 256, 100)],
+                         ids=["f32-k24", "f64-k24", "f64-full"])
+def test_kernel_on_expanded_modes_is_the_modes_query_on_cuda(dtype, n, k):
+    """Mode-compressed wind: the kernel flies each lane's expanded table
+    (one launch), held to the plain version's modes query at the kernel's
+    bars; at full rank also to the realized tables' flights."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc; the CPU runs the plain version only")
+    from erpl_monte_carlo_sim_tpu_torch.models import compress_wind, wind_mode_basis
+
+    scene_b, ic_b = sample_batch(n, dtype)
+    q = wind_mode_basis(scene_b.wind_model, scene_b.wind.altitudes.cpu().numpy(), k)
+    modes = dataclasses.replace(scene_b, wind=compress_wind(scene_b.wind, q))
+    before = fs.launches
+    ref, got = kernel_and_plain(modes, ic_b, WINDOW)
+    assert fs.launches == before + 1
+    compare(ref, got, dtype)
+    if k >= scene_b.wind.altitudes.numel():
+        compare(fs.flight_summary(*prepare_batch(scene_b, ic_b), WINDOW), got, dtype)
+
+
+@pytest.mark.cuda
+def test_graphed_segments_are_eager_autograd_on_cuda():
+    """The differentiable flight's graphed segments (CUDA graphs of the
+    forward and of the recomputed vector-Jacobian product) against eager
+    autograd on the card: metrics bit for bit, gradients with respect to
+    the per-lane thrust scale and wind table at rtol 1e-9."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the CPU runs eager autograd only")
+    from erpl_monte_carlo_sim_tpu_torch.engine import diff
+
+    scene_b, ic_b = sample_batch(16, torch.float64)
+    cfg = SimConfig(max_time=1.2)
+    out = {}
+    for name, fn in (("graphed", diff.simulate_metrics_diff), ("eager", diff.metrics_reference)):
+        ts = scene_b.motor.thrust_scale.detach().clone().requires_grad_(True)
+        wt = scene_b.wind.wind.detach().clone().requires_grad_(True)
+        scene = dataclasses.replace(scene_b, motor=dataclasses.replace(scene_b.motor,
+                                                                       thrust_scale=ts),
+                                    wind=dataclasses.replace(scene_b.wind, wind=wt))
+        m = fn(scene, ic_b, cfg)
+        grads = torch.autograd.grad(m["apogee_altitude"].sum() + m["range"].sum(), [ts, wt])
+        out[name] = ({k: v.detach() for k, v in m.items()}, grads)
+    (m_g, g_g), (m_e, g_e) = out["graphed"], out["eager"]
+    for k in m_e:
+        assert torch.equal(m_g[k], m_e[k]), k
+    for a, b in zip(g_g, g_e):
+        assert bool(torch.isfinite(a).all())
+        torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-12 * float(b.abs().max()))

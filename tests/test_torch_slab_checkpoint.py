@@ -7,7 +7,7 @@ uninterrupted run's analysis bit for bit, with exact statistics and across
 the streams' exact -> sketch crossing; another run refuses the checkpoint.
 The fingerprint changes with each input that changes a slab's results or
 the accumulators' shapes (the JAX package's leaves ``wind_table_modes`` out,
-ROADMAP F2a; the port refuses that knob until P8). The flights are a 1 s
+ROADMAP F2a; the port's covers it). The flights are a 1 s
 window (rail exit and about 40 steps), float64, on the CPU.
 """
 
@@ -163,6 +163,7 @@ CHANGES = {
     "importance_theta": lambda: {"mc": analyzer(importance_shift={"mass": 1.5}),
                                  "base": {"mc": analyzer(importance_shift={"mass": 1.0})}},
     "control_variates": lambda: {"mc": analyzer(control_variates=True)},
+    "wind_table_modes": lambda: {"mc": analyzer(wind_table_modes=8)},
     "cv_wind_modes": lambda: {"mc": analyzer(control_variates=True, cv_wind_modes=2),
                               "base": {"mc": analyzer(control_variates=True)}},
     "cv_wind_speed": lambda: {"mc": analyzer(control_variates=True, cv_wind_speed=2),

@@ -156,8 +156,6 @@ def test_shift_checks_are_jax(args):
     with pytest.raises(ValueError) as got:
         TI.shift_from_gradients(*args)
     assert str(got.value) == str(ref.value)
-    with pytest.raises(NotImplementedError, match="P14"):
-        TI.auto_shift(None, None, None, "apogee_altitude", 1.0)
 
 
 def test_importance_exceedance_is_jax():

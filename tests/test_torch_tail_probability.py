@@ -7,7 +7,9 @@ port's analyzer fed the JAX sampler's lanes through its draw seam
 (``mc.analyzer._draw_single``): the JSON objects have the same keys, counts
 and methods, every probability, interval and fit within rtol 1e-9.
 ``--subset``'s JSON is held to JAX's in tests/test_torch_subset.py, beside
-the ``subset_tail`` result it prints. ``--auto-shift`` raises naming P14.
+the ``subset_tail`` result it prints. ``--auto-shift`` runs the importance
+estimator on the tilt that ``mc.importance.auto_shift`` picks from one
+reverse pass (tests/test_torch_sensitivity.py holds that rule).
 """
 
 import dataclasses
@@ -78,9 +80,14 @@ def test_json_is_jax(case, capsys):
     assert 0 < got["n_valid"] < got["n_lanes"]
 
 
-def test_auto_shift_and_exclusive_options():
-    with pytest.raises(NotImplementedError, match="P14"):
-        main(ARGV + ["--auto-shift"])
+def test_auto_shift_and_exclusive_options(capsys):
+    out = main(ARGV + ["--auto-shift"])
+    assert json.loads(capsys.readouterr().out) == json.loads(json.dumps(out))
+    assert out["method"] == "importance" and out["shift"] == out["auto_shift"]["shift"]
+    assert out["shift"].get("motor_thrust", 0.0) > 0.0  # an upper tail of the apogee
+    assert 0.0 <= out["probability"] <= 1.0 and out["n_eff"] > 0
+    with pytest.raises(SystemExit):
+        main(ARGV + ["--auto-shift", "--shift", "mass=1"])
     for extra, match in ((["--gpd", "--shift", "mass=1"], "exclusive"),
                          (["--subset", "--gpd"], "its own estimator"),
                          (["--p-target", "1e-3"], "needs --subset")):

@@ -155,8 +155,13 @@ def test_two_level_on_non_iid_lanes_drops_the_stderr():
     blk = mc.run_monte_carlo(IC, n_samples=8, seed=0)["two_level"]
     assert "antithetic=True" in blk["stderr_note"]
     assert all(blk[m]["corrected_stderr"] is None for m in METRICS)
-    with pytest.raises(NotImplementedError, match="P8"):
-        TTL.two_level_block(mc.scene, IC, mc.sim_config, 4, fast_transform=lambda s: s)
+    # a fast_transform alone makes a parity config a fast path: the identity
+    # transform measures no bias
+    ident = TTL.two_level_block(mc.scene, IC, SimConfig(max_time=0.3), 4,
+                                bounds=OutlierBounds(min_apogee=5.0),
+                                fast_transform=lambda s: s)
+    assert ident["config_delta"] == {} and ident["n_coupled"] == 4
+    assert all(ident[m]["abs_max_delta"] == 0.0 for m in METRICS)
     with pytest.raises(ValueError, match="already exact parity"):
         TTL.two_level_block(mc.scene, IC, SimConfig(), 4)
 
