@@ -180,14 +180,33 @@ raises and the run exits non-zero:
      by the JAX package's recipe; (e) the walls of ``variance_budget``,
      ``optimize_robust`` (256 lanes, 4 evaluations), ``auto_shift`` with its
      tilted run, and the projection of one ``metric_and_grad`` at the CLIs'
-     ``max_time=120``.
+     ``max_time=120``;
+ 16. multi-rank runs over ``torch.distributed`` (``parallel/``): (a) in this
+     process an NCCL group of one rank on the card: ``MonteCarloAnalyzer(
+     mesh=...)`` at 262,144 lanes is phase 4's analysis bit for bit (one
+     launch, ``cores_used`` 1); ``collective_stats`` of each headline metric
+     (float64) against the host statistics (the exact-path intervals bit for
+     bit, mean and std within 1e-12), ``collective_footprint``,
+     ``collective_tail_reservoir`` (k=4,096) and ``collective_envelope`` (256
+     float64 lanes of phase 10a's recording) against their single-device
+     counterparts; (b) two spawned ranks on the one card, Gloo over CUDA
+     tensors (``parallel.run_ranks``): the single call (2 x 131,072 lanes) is
+     phase 4's analysis and a 4-slab run of 1,048,576 lanes phase 9a's, bit
+     for bit, on both ranks; ``pod_scale`` at 262,144 lanes prints the same
+     JSON on both (but for wall and rate), its apogee extremes the
+     single-rank collective's over both ranks' draws; each rank's launches,
+     walls, the summaries' gather and each collective timed; the two ranks
+     time-share the card, so their walls are no scaling figure; (c) where
+     the machine has two cards or more, NCCL over up to 4 of them with (b)'s
+     checks; on one card it prints that it did not run, and why.
 
 The kernels JSON gives each flight_summary and recording row the launches
 of phase 11's example runs (``example_launches``), and the summary rows
 (and the parity recording row) those of phase 12's runs
 (``variant_launches``); the summary rows also those of phase 13's runs
 (``estimator_launches``), and those of phases 14 and 15
-(``modes_launches``, ``diff_launches``).
+(``modes_launches``, ``diff_launches``), and phase 16's per rank
+(``parallel_launches``).
 
 Phases 2, 4, 5 and 6 also print ``digest`` lines: the SHA-256 of the
 kernel's outputs with NaN made canonical (``kernels/measure.py digest``). A
@@ -287,6 +306,12 @@ LANDING_RTOL = 1e-2
 # the users' entry points: window and optimize_robust's evaluations
 USER_WINDOW = 2.0
 ROBUST_EVALS = 4
+# phase 16: the tail reservoirs' k; the ranks of the one-card Gloo group; the
+# stats' bar against the host's (float64 sums in another order)
+PARALLEL_K = 4096
+GLOO_RANKS = 2
+STATS_RTOL = 1e-12
+METRICS = ("apogee_altitude", "range", "flight_time")
 
 
 def phase(name: str, **numbers) -> None:
@@ -897,8 +922,8 @@ def staged_run(mc, ic, n, **kw):
             [1e3 * (nxt - b) for (_, b), nxt in zip(spans["kernel"], next_start)], end - t0)
 
 
-def large_runs(dev, ic) -> dict:
-    """Phase 9; returns each run's kernel launches."""
+def large_runs(dev, ic) -> tuple:
+    """Phase 9; returns each run's kernel launches and 9a's analysis."""
     import tempfile
 
     from erpl_monte_carlo_sim_tpu_torch.engine import SimConfig
@@ -1055,7 +1080,7 @@ def large_runs(dev, ic) -> dict:
     same_analysis(d, mc.run_monte_carlo(ic, n_samples=seq["n_used"], seed=0))
     phase("9d run_to_precision", target_stderr_m=target, n_used=seq["n_used"],
           launches=launches["9d"], wall_s=f"{wall_d:.3f}", equal_to_run_monte_carlo=True)
-    return launches
+    return launches, a
 
 
 def spread(n_run: int, n: int) -> np.ndarray:
@@ -2796,6 +2821,298 @@ def differentiable(dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 16
+def timed_ms(mesh, fn):
+    """``fn()`` with the card and every rank synchronized before it and the
+    card after: ``(ms, result)``."""
+    import torch.distributed as dist
+
+    torch.cuda.synchronize(mesh.device)
+    if mesh.group is not None:
+        dist.barrier(group=mesh.group)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize(mesh.device)
+    return 1e3 * (time.perf_counter() - t0), out
+
+
+def rank_collectives(mesh, summary_np, valid_np) -> tuple:
+    """This rank's block of a run's lanes through the summaries' gather and
+    each collective, each timed: ``(results, ms)``."""
+    from erpl_monte_carlo_sim_tpu_torch.parallel import (collective_footprint_moments,
+                                                         collective_stats,
+                                                         collective_tail_reservoir, gather_lanes)
+    from erpl_monte_carlo_sim_tpu_torch.parallel.mesh import lane_block
+    from erpl_monte_carlo_sim_tpu_torch.utils.tree import tree_map
+
+    dev = mesh.device
+    block = lane_block(int(valid_np.shape[0]), mesh)
+    local = tree_map(lambda x: torch.as_tensor(np.asarray(x)[block]).to(dev), summary_np)
+    valid = torch.as_tensor(valid_np[block]).to(dev)
+    ms, res = {}, {}
+    ms["gather"], full = timed_ms(mesh, lambda: gather_lanes(local, mesh))
+    res["gather_equal"] = all(
+        np.array_equal(np.asarray(a), b.cpu().numpy(), equal_nan=True)
+        for (_, a), (_, b) in zip(leaves(summary_np), leaves(full)))
+    for k in METRICS:
+        ms[f"stats {k}"], st = timed_ms(mesh, lambda: collective_stats(
+            getattr(local, k).double(), valid, mesh))
+        res[k] = {n: v.cpu().numpy() for n, v in st.items()}
+    landing = local.landing_position.double()
+    ms["footprint"], res["footprint"] = timed_ms(
+        mesh, lambda: collective_footprint_moments(landing, valid, mesh))
+    ms["tail_reservoir"], r = timed_ms(mesh, lambda: collective_tail_reservoir(
+        local.apogee_altitude, valid, mesh, k=PARALLEL_K))
+    res["tail"] = (r.n, r.hi, r.lo)
+    return res, {k: round(v, 3) for k, v in ms.items()}
+
+
+def check_collectives(res: dict, run: dict, tag: str) -> float:
+    """``rank_collectives``' results against the single-device statistics of
+    the same run: the exact-path intervals, counts, extremes and tail
+    reservoir bit for bit, mean, std, percentiles and the footprint moments
+    within ``STATS_RTOL``. Returns the largest relative difference."""
+    from erpl_monte_carlo_sim_tpu_torch.mc import MonteCarloAnalyzer, TailReservoir
+    from erpl_monte_carlo_sim_tpu_torch.mc.analyzer import _host_stats
+
+    if not res["gather_equal"]:
+        raise AssertionError(f"{tag}: the gathered summaries are not the run's")
+    valid = run["valid_mask"]
+    worst = 0.0
+
+    def rel(a, b, what):
+        nonlocal worst
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        err = float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-300)))
+        worst = max(worst, err)
+        if err > STATS_RTOL:
+            raise AssertionError(f"{tag} {what}: {a} against {b} ({err:.3g})")
+
+    for k in METRICS:
+        vals = np.asarray(getattr(run["summary"], k), np.float64)
+        host, st = _host_stats(vals, valid), res[k]
+        if not np.array_equal(st["percentile_ci"], np.asarray(host["percentile_ci"]),
+                              equal_nan=True):
+            raise AssertionError(f"{tag} {k}: percentile_ci differs from the host's")
+        if int(st["n"]) != int((valid & np.isfinite(vals)).sum()):
+            raise AssertionError(f"{tag} {k}: count {int(st['n'])}")
+        if float(st["min"]) != host["min"] or float(st["max"]) != host["max"]:
+            raise AssertionError(f"{tag} {k}: extremes differ")
+        for s in ("mean", "std", "percentiles"):
+            rel(st[s], host[s], f"{k} {s}")
+    landing = torch.as_tensor(np.asarray(run["summary"].landing_position, np.float64))
+    ref = MonteCarloAnalyzer._footprint_moments(landing, torch.as_tensor(valid))
+    if res["footprint"][0] != ref[0]:
+        raise AssertionError(f"{tag}: footprint count {res['footprint'][0]} against {ref[0]}")
+    rel(res["footprint"][1:], ref[1:], "footprint moments")
+    apo = np.asarray(run["summary"].apogee_altitude)
+    reservoir = TailReservoir(PARALLEL_K)
+    reservoir.add(apo[valid])
+    n, hi, lo = res["tail"]
+    if n != reservoir.n or not (np.array_equal(hi, reservoir.hi)
+                                and np.array_equal(lo, reservoir.lo)):
+        raise AssertionError(f"{tag}: the tail reservoir differs from the host's")
+    return worst
+
+
+def parallel_rank(mesh, lanes: int, large_lanes: int) -> dict:
+    """One rank of phases 16b and 16c: the analyzer with the mesh (a warm-up
+    call, the single call, the 4-slab run), ``pod_scale``, then the
+    collectives on its block of the single call's lanes; launches counted
+    from 0 before each run, walls between synchronized ranks."""
+    import contextlib
+    import io
+
+    import torch.distributed as dist
+
+    from erpl_monte_carlo_sim_tpu_torch.engine import InitialConditions, SimConfig
+    from erpl_monte_carlo_sim_tpu_torch.kernels import flight_summary as fs
+    from erpl_monte_carlo_sim_tpu_torch.mc import MonteCarloAnalyzer
+    from erpl_monte_carlo_sim_tpu_torch.models import liquid_motor
+    from erpl_monte_carlo_sim_tpu_torch.parallel import pod_scale
+
+    dev = mesh.device
+    ic = InitialConditions.vertical_launch(dev)
+    mc = MonteCarloAnalyzer(motor=liquid_motor(dev), sim_config=SimConfig(max_time=WINDOW),
+                            mesh=mesh, max_lanes_per_call=lanes)
+    mc.run_monte_carlo(ic, n_samples=lanes, seed=0)  # warm-up
+    walls, launches = {}, {}
+
+    def driven(tag, fn):
+        fs.launches = 0
+        ms, out = timed_ms(mesh, fn)
+        walls[tag], launches[tag] = round(ms / 1e3, 3), fs.launches
+        return out
+
+    single = driven("single", lambda: mc.run_monte_carlo(ic, n_samples=lanes, seed=0))
+    slabbed = driven("slabbed", lambda: mc.run_monte_carlo(ic, n_samples=large_lanes, seed=0))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        pod = driven("pod_scale", lambda: pod_scale.main(lanes, slab=lanes, steps_cfg=WINDOW,
+                                                         device=dev))
+    res, ms = rank_collectives(mesh, single["summary"], single["valid_mask"])
+    return {"rank": mesh.rank, "size": mesh.size, "device": str(dev),
+            "backend": dist.get_backend(mesh.group), "walls": walls, "launches": launches,
+            "single": plain_data(single), "slabbed": plain_data(slabbed), "pod": pod,
+            "pod_line": buf.getvalue().strip().splitlines()[-1], "collectives": res,
+            "collective_ms": ms}
+
+
+def pod_extremes(dev, lanes: int, size: int) -> dict:
+    """The apogee extremes of ``pod_scale``'s one slab of ``lanes`` lanes over
+    ``size`` ranks, from a single rank: every rank's draw flown here and
+    their apogees through ``collective_tail_reservoir`` on a mesh of one."""
+    from erpl_monte_carlo_sim_tpu_torch.engine import (InitialConditions, SimConfig,
+                                                       simulate_summary_batch)
+    from erpl_monte_carlo_sim_tpu_torch.models import liquid_motor, nominal_scene
+    from erpl_monte_carlo_sim_tpu_torch.parallel import collective_tail_reservoir, make_mesh
+    from erpl_monte_carlo_sim_tpu_torch.parallel.pod_scale import rank_lanes
+
+    scene, ic = nominal_scene(liquid_motor(dev)), InitialConditions.vertical_launch(dev)
+    apo = torch.cat([simulate_summary_batch(*rank_lanes(scene, ic, 0, 0, r, lanes // size)[:2],
+                                            SimConfig(max_time=WINDOW)).apogee_altitude
+                     for r in range(size)])
+    r = collective_tail_reservoir(apo, None, make_mesh(dev), k=PARALLEL_K)
+    return {"n": r.n, "max": float(r.hi[-1]), "min": float(r.lo[0])}
+
+
+def check_ranks(results: list, run4: dict, run9a: dict, dev, tag: str) -> dict:
+    """Phases 16b/16c on the parent's side: every rank's analyses are phase
+    4's and 9a's bit for bit, its collectives the single device's, the
+    ranks' ``pod_scale`` lines the same but for wall and rate, with the
+    single-rank extremes. Returns the numbers to print."""
+    size = len(results)
+    for r in results:
+        same_analysis(r["single"], run4)
+        same_analysis(r["slabbed"], run9a)
+        for run in ("single", "slabbed"):
+            if r[run]["performance"]["cores_used"] != size:
+                raise AssertionError(f"{tag}: cores_used {r[run]['performance']['cores_used']}")
+        if r["launches"] != {"single": 1, "slabbed": 4, "pod_scale": 1}:
+            raise AssertionError(f"{tag} rank {r['rank']}: launches {r['launches']}")
+    worst = max(check_collectives(r["collectives"], run4, f"{tag} rank {r['rank']}")
+                for r in results)
+    lines = [{k: v for k, v in json.loads(r["pod_line"]).items()
+              if k not in ("wall_s", "traj_per_s")} for r in results]
+    if any(x != lines[0] for x in lines) or lines[0]["processes"] != size:
+        raise AssertionError(f"{tag}: the ranks' pod_scale lines differ: {lines}")
+    want = pod_extremes(dev, BENCH_LANES, size)
+    if lines[0]["apogee_extremes"] != want:
+        raise AssertionError(f"{tag}: pod_scale extremes {lines[0]['apogee_extremes']}, "
+                             f"single rank {want}")
+    return {"ranks": size, "backend": results[0]["backend"],
+            "devices": sorted({r["device"] for r in results}),
+            "launches": [r["launches"] for r in results],
+            "walls_s": [r["walls"] for r in results],
+            "collective_ms": [r["collective_ms"] for r in results],
+            "pod_scale": lines[0], "pod_wall_s": [r["pod"]["wall_s"] for r in results],
+            "stats_worst_rel": worst}
+
+
+def multi_rank(dev, ic, run4: dict, run9a: dict, card: str) -> dict:
+    """Phase 16; returns the K1 launches of each run, per rank."""
+    import torch.distributed as dist
+
+    from erpl_monte_carlo_sim_tpu_torch.engine import SimConfig
+    from erpl_monte_carlo_sim_tpu_torch.engine.batch import prepare_batch, trajectory_of
+    from erpl_monte_carlo_sim_tpu_torch.kernels import flight_summary as fs
+    from erpl_monte_carlo_sim_tpu_torch.mc import (EnvelopeAccumulator, EnvelopeConfig,
+                                                   MonteCarloAnalyzer)
+    from erpl_monte_carlo_sim_tpu_torch.models import liquid_motor
+    from erpl_monte_carlo_sim_tpu_torch.parallel import (collective_envelope,
+                                                         collective_footprint,
+                                                         init_distributed, make_mesh, run_ranks)
+    from erpl_monte_carlo_sim_tpu_torch.parallel.spawn import free_port
+    from erpl_monte_carlo_sim_tpu_torch.mc.stats import FootprintAccumulator
+
+    launches = {}
+    cfg = SimConfig(max_time=WINDOW)
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks, for the ranks' contexts
+    # ---- 16a: an NCCL group of one rank, in this process
+    t0 = time.time()
+    init_distributed(f"127.0.0.1:{free_port()}", 1, 0, device=dev)
+    try:
+        mesh = make_mesh()
+        backend = dist.get_backend()
+        if backend != "nccl" or mesh.size != 1:
+            raise AssertionError(f"16a: backend {backend}, {mesh.size} ranks")
+        mc = MonteCarloAnalyzer(motor=liquid_motor(dev), sim_config=cfg, mesh=mesh)
+        fs.launches = 0
+        wall, a = timed_ms(mesh, lambda: mc.run_monte_carlo(ic, n_samples=BENCH_LANES, seed=0))
+        launches["16a"] = fs.launches
+        same_analysis(a, run4)
+        if launches["16a"] != 1 or a["performance"]["cores_used"] != 1:
+            raise AssertionError(f"16a: {launches['16a']} launches, cores_used "
+                                 f"{a['performance']['cores_used']}")
+        res, ms = rank_collectives(mesh, a["summary"], a["valid_mask"])
+        worst = check_collectives(res, run4, "16a")
+        # the footprint block and the envelope against the single device's
+        valid = torch.as_tensor(a["valid_mask"], device=dev)
+        landing = torch.as_tensor(a["summary"].landing_position, device=dev)
+        fp_ms, fp = timed_ms(mesh, lambda: collective_footprint(landing, valid, mesh))
+        acc = FootprintAccumulator()
+        acc.add(*MonteCarloAnalyzer._footprint_moments(landing, valid))
+        np.testing.assert_equal(fp, acc.footprint(), err_msg="16a footprint")
+        ids = spread(BENCH_LANES, RESIM_LANES)
+        _, recs = fs.flight_record(*widened(prepare_batch(*mc._select_lanes(ids))), cfg)
+        traj = trajectory_of(recs)
+        env = EnvelopeConfig()
+        env_ms, col = timed_ms(mesh, lambda: collective_envelope(traj, mesh, env=env,
+                                                                 max_time=cfg.max_time))
+        ref_env = EnvelopeAccumulator(cfg, env)
+        ref_env.add(traj)
+        ref_env = ref_env.result()
+        if col["n_lanes"] != ref_env["n_lanes"] or col["time"] != ref_env["time"]:
+            raise AssertionError("16a envelope: lanes or bins differ")
+        for ch in env.channels:
+            x, y = ref_env["channels"][ch], col["channels"][ch]
+            if x["n"] != y["n"] or y["clipped_frac"] != 0.0:
+                raise AssertionError(f"16a envelope {ch}: counts or clipping")
+            np.testing.assert_array_equal(y["min"], x["min"], err_msg=ch)
+            np.testing.assert_array_equal(y["max"], x["max"], err_msg=ch)
+            np.testing.assert_allclose(y["mean"], x["mean"], rtol=1e-12, equal_nan=True)
+            np.testing.assert_allclose(y["std"], x["std"], rtol=1e-9, atol=1e-12, equal_nan=True)
+            for q in x["percentiles"]:
+                np.testing.assert_allclose(y["percentiles"][q], x["percentiles"][q], rtol=1e-9,
+                                           atol=1e-12, equal_nan=True)
+    finally:
+        dist.destroy_process_group()
+    phase("16a nccl one rank", card=repr(card), lanes=BENCH_LANES, launches=launches["16a"],
+          wall_s=f"{wall / 1e3:.3f}", cores_used=1, equal_to_phase_4=True,
+          stats_worst_rel=worst, collective_ms=json.dumps(ms),
+          footprint_ms=f"{fp_ms:.3f}", envelope_ms=f"{env_ms:.3f}",
+          envelope_lanes=RESIM_LANES, seconds=f"{time.time() - t0:.1f}")
+
+    # ---- 16b: two ranks on the one card, Gloo over CUDA tensors
+    t0 = time.time()
+    results = run_ranks(parallel_rank, GLOO_RANKS, BENCH_LANES, LARGE_LANES, backend="gloo",
+                        device=f"cuda:{dev.index or 0}", timeout_s=600)
+    spawn_s = time.time() - t0
+    out = check_ranks(results, run4, run9a, dev, "16b")
+    launches["16b"] = out["launches"]
+    phase("16b gloo ranks on one card", card=repr(card), spawn_and_runs_s=f"{spawn_s:.1f}",
+          seconds=f"{time.time() - t0:.1f}", equal_to_phase_4_and_9a=True,
+          **{k: json.dumps(v) for k, v in out.items()})
+
+    # ---- 16c: NCCL across cards, where the machine has them
+    count = torch.cuda.device_count()
+    if count < 2:
+        phase("16c nccl across cards", ran=False,
+              reason=f"torch.cuda.device_count() is {count}: NCCL takes one rank a card, "
+                     "and the check needs two cards or more")
+        return launches
+    t0 = time.time()
+    world = min(count, 4)
+    results = run_ranks(parallel_rank, world, BENCH_LANES, LARGE_LANES, backend="nccl",
+                        timeout_s=600)
+    out = check_ranks(results, run4, run9a, dev, "16c")
+    launches["16c"] = out["launches"]
+    phase("16c nccl across cards", card=repr(card), ran=True,
+          seconds=f"{time.time() - t0:.1f}", equal_to_phase_4_and_9a=True,
+          **{k: json.dumps(v) for k, v in out.items()})
+    return launches
+
+
 def main() -> int:
     start = time.time()
     # ---------------------------------------------------------------- 0
@@ -3106,7 +3423,7 @@ def main() -> int:
     certificates(dev)
 
     # ---------------------------------------------------------------- 9
-    large_launches = large_runs(dev, ic)
+    large_launches, run9a = large_runs(dev, ic)
 
     # ---------------------------------------------------------------- 10
     t0 = time.time()
@@ -3138,6 +3455,11 @@ def main() -> int:
     diff_launches = differentiable(dev)
     phase("15 done", phase_15_s=f"{time.time() - t0:.1f}", script_s=f"{time.time() - start:.1f}")
 
+    # ---------------------------------------------------------------- 16
+    t0 = time.time()
+    parallel_launches = multi_rank(dev, ic, analysis, run9a, card)
+    phase("16 done", phase_16_s=f"{time.time() - t0:.1f}", script_s=f"{time.time() - start:.1f}")
+
     report = {"kernels": [
         {"name": f"flight_summary ({name})", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": where, "launches": launches, "max_abs_err": main_err,
@@ -3146,7 +3468,7 @@ def main() -> int:
          "example_launches": {k: v["k1"] for k, v in example_launches.items()},
          "variant_launches": {k: v for k, v in variant_launches.items() if "record" not in k},
          "estimator_launches": estimator_launches, "modes_launches": modes_launches,
-         "diff_launches": diff_launches, **costs}
+         "diff_launches": diff_launches, "parallel_launches": parallel_launches, **costs}
         for name, where in REPLACES
     ] + [
         {"name": f"flight_summary [{name}]", "route": "cuda", "source": KERNEL_SOURCE,

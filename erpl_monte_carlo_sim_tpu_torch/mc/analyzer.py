@@ -20,8 +20,21 @@ slabbed, and ``subset_tail`` / ``subset_quantile`` (``mc.subset_driver``).
 (``models.wind.WindModes``: K turbulence modes plus the mean structure, a
 documented approximation, exact at ``K >= wind_grid_points``); the
 accumulators keep the realized tables, and the two-level correction's fast
-leg flies compressed. ``mesh`` (multi-device runs, ROADMAP P16) raises
-``NotImplementedError``.
+leg flies compressed.
+
+``mesh=`` (a ``parallel.LaneMesh``, one rank a device) spreads each call's
+flights over the ranks of a ``torch.distributed`` group: every rank draws
+the whole batch from the seed, as a run without a mesh does, flies its
+contiguous block of lanes, and the summaries are gathered in lane order
+(``parallel.run_sharded_summaries``), so a lane's values do not depend on
+the world size and every rank forms the same analysis, the run without a
+mesh's. A slabbed run splits each slab
+so, and its host accumulators, streams and stop rule go on identically on
+every rank; only rank 0 writes a checkpoint, and on resume it reads the
+file and hands it to every rank, so the ranks need share no filesystem.
+A call or slab whose lanes do not split evenly over the ranks raises
+(``parallel.mesh.lane_block``), as the JAX package's ``device_put`` onto
+``P("batch")`` refuses an uneven dimension; nothing is padded quietly.
 
 Each run remembers its lanes (``_last_batch``: the single call's batch, or
 a slabbed run's recipe), so that ``resimulate_trajectories``, ``lane_scenes``
@@ -170,7 +183,15 @@ class MonteCarloAnalyzer(SubsetDriverMixin, ResimulationMixin):
                 if part is not None:
                     scene = dataclasses.replace(scene, **{name: part})
         if mesh is not None:
-            _not_ported("mesh (multi-device runs)", "P16")
+            from ..parallel.mesh import LaneMesh
+
+            if not isinstance(mesh, LaneMesh):
+                raise TypeError(f"mesh must be a parallel.LaneMesh (parallel.make_mesh()), "
+                                f"not {type(mesh).__name__}")
+            dev = scene.rocket.dry_mass.device
+            if (mesh.device.type, mesh.device.index or 0) != (dev.type, dev.index or 0):
+                raise ValueError(f"the scene lives on {dev}, this rank's device is "
+                                 f"{mesh.device}: build the scene on mesh.device")
         if wind_table_modes is not None and wind_table_modes < 1:
             raise ValueError("wind_table_modes must be >= 1 (or None)")
         # regression control variates (mc.cv): the headline means adjusted by
@@ -211,6 +232,7 @@ class MonteCarloAnalyzer(SubsetDriverMixin, ResimulationMixin):
         self.uncertainty_params = uncertainty_params
         self.sim_config = sim_config
         self.bounds = bounds
+        self.mesh = mesh
         # the sampling options of mc.sample_dispersions; slabbed runs and
         # re-simulation draw every lane again under them. With sobol,
         # sobol_scrambles > 1 splits a single call into independently
@@ -336,6 +358,7 @@ class MonteCarloAnalyzer(SubsetDriverMixin, ResimulationMixin):
         ic = self._as_ic(initial_conditions)
         base_wind = self._base_wind()
         self._last_batch = self._last_modes = self._resim_memo = None
+        self._check_split(min(n_samples, slab))
         if n_samples > slab:
             return self._run_slabbed(ic, n_samples, slab, seed, materialize_results,
                                      base_wind, checkpoint_path, checkpoint_every)
@@ -346,7 +369,7 @@ class MonteCarloAnalyzer(SubsetDriverMixin, ResimulationMixin):
         t_start = time.time()
         scene_b, ic_b, sample = _draw_single(self, ic, n_samples, seed, base_wind)
         scene_sim = self._compress_for_sim(scene_b, base_wind)
-        summary = simulate_summary_batch(scene_sim, ic_b, self.sim_config)
+        summary = self._fly(scene_b, scene_sim, ic_b, n_samples)
         valid, reasons = outlier_mask(summary, self.bounds)
         stats = {k: masked_stats(getattr(summary, k), valid) for k in _METRICS}
         cv_moments = None
@@ -393,7 +416,7 @@ class MonteCarloAnalyzer(SubsetDriverMixin, ResimulationMixin):
             "performance": {
                 "total_time": elapsed,
                 "simulations_per_second": n_samples / max(elapsed, 1e-9),
-                "cores_used": 1,
+                "cores_used": 1 if self.mesh is None else self.mesh.size,
             },
         }
         headline = {k: np.asarray(getattr(summary_np, k)) for k in _METRICS}
@@ -480,6 +503,7 @@ class MonteCarloAnalyzer(SubsetDriverMixin, ResimulationMixin):
             return all(c.satisfied() for c in crits)
 
         self._last_batch = self._last_modes = self._resim_memo = None
+        self._check_split(slab)
         analysis = self._run_slabbed(ic, max_samples, slab, seed, materialize_results,
                                      self._base_wind(), stop_rule=stop_rule,
                                      min_samples=min_samples)
@@ -525,10 +549,18 @@ class MonteCarloAnalyzer(SubsetDriverMixin, ResimulationMixin):
         n_slabs = -(-n_samples // slab)
         ckpt_fp = None
         if checkpoint_path:
-            from .slab_checkpoint import load_slab_state, run_fingerprint, save_slab_state
+            from .slab_checkpoint import (load_slab_state, read_slab_state, run_fingerprint,
+                                          save_slab_state)
 
             ckpt_fp = run_fingerprint(self, ic, n_samples, slab, seed, base_wind, limit)
-            st = load_slab_state(checkpoint_path, ckpt_fp, accs)
+            # rank 0's file, read there and handed to every rank: the ranks
+            # need share no filesystem, and all resume from one slab
+            raw = read_slab_state(checkpoint_path) if self._writes_files else None
+            if self.mesh is not None:
+                from ..parallel.mesh import broadcast_object
+
+                raw = broadcast_object(raw, self.mesh)
+            st = load_slab_state(checkpoint_path, ckpt_fp, accs, raw)
             if st is not None:
                 n_done, slab_idx = st["n_done"], st["slab_idx"]
                 n_valid_total = st["n_valid_total"]
@@ -537,8 +569,7 @@ class MonteCarloAnalyzer(SubsetDriverMixin, ResimulationMixin):
         while n_done < n_samples:
             n_s = min(slab, n_samples - n_done)
             scene_b, ic_b, sample = _draw_slab(self, ic, slab_idx, slab, seed, base_wind)
-            summary = simulate_summary_batch(self._compress_for_sim(scene_b, base_wind), ic_b,
-                                             self.sim_config)
+            summary = self._fly(scene_b, self._compress_for_sim(scene_b, base_wind), ic_b, slab)
             # lane ids are global: seed == simulation_id across slabs
             sample = dataclasses.replace(sample, random_seed=sample.random_seed + n_done)
             valid, reasons = outlier_mask(summary, self.bounds)
@@ -564,11 +595,12 @@ class MonteCarloAnalyzer(SubsetDriverMixin, ResimulationMixin):
                              n_done, n_samples)
                     n_samples = n_done
                     n_slabs = slab_idx
-            if ckpt_fp is not None and n_done < n_samples and slab_idx % checkpoint_every == 0:
+            if (ckpt_fp is not None and n_done < n_samples and slab_idx % checkpoint_every == 0
+                    and self._writes_files):
                 save_slab_state(checkpoint_path, {"n_done": n_done, "slab_idx": slab_idx,
                                                   "n_valid_total": n_valid_total},
                                 accs, ckpt_fp)
-        if ckpt_fp is not None and os.path.exists(checkpoint_path):
+        if ckpt_fp is not None and self._writes_files and os.path.exists(checkpoint_path):
             os.remove(checkpoint_path)
         elapsed = time.time() - t_start
         # the recipe that draws any slab again (mc.resimulate)
@@ -594,7 +626,7 @@ class MonteCarloAnalyzer(SubsetDriverMixin, ResimulationMixin):
             "performance": {
                 "total_time": elapsed,
                 "simulations_per_second": n_samples / max(elapsed, 1e-9),
-                "cores_used": 1,
+                "cores_used": 1 if self.mesh is None else self.mesh.size,
             },
         }
         for acc in accs:
@@ -602,6 +634,36 @@ class MonteCarloAnalyzer(SubsetDriverMixin, ResimulationMixin):
         if self.two_level_lanes:
             analysis["two_level"] = self._two_level(ic, seed, base_wind, analysis)
         return analysis
+
+    @property
+    def _writes_files(self) -> bool:
+        """Whether this process writes the run's files: rank 0 of a mesh."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _check_split(self, lanes_per_call: int) -> None:
+        """Raise when a call's lanes do not split evenly over the mesh."""
+        if self.mesh is not None:
+            from ..parallel.mesh import lane_block
+
+            lane_block(lanes_per_call, self.mesh)
+
+    def _fly(self, scene_b, scene_sim, ic_b, n: int):
+        """The summaries of a call's ``n`` lanes: one
+        ``simulate_summary_batch`` without a mesh; with one, this rank's
+        block of lanes (on the tables ``scene_sim`` flies: the compressed
+        ones under ``wind_table_modes``) flown on its device and every
+        rank's gathered in lane order."""
+        if self.mesh is None:
+            return simulate_summary_batch(scene_sim, ic_b, self.sim_config)
+        from ..parallel.mesh import lane_block
+        from ..parallel.sharded import run_sharded_summaries
+        from .resimulate import _take
+
+        block = lane_block(n, self.mesh)
+        ids = torch.arange(block.start, block.stop)
+        modes = scene_sim.wind if scene_sim is not scene_b else None
+        return run_sharded_summaries(self._as_flown(scene_b, modes, ids), _take(ic_b, None, ids),
+                                     None, self.sim_config, self.mesh, n)
 
     def _cv_wind_ctrl(self, scene_b, sample, base_wind):
         """The ``wind_ctrl`` dict of ``mc.cv``'s wind-table controls, None when

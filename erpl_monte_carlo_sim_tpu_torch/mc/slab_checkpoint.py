@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import io
 import json
 import os
 
@@ -33,7 +34,7 @@ import torch
 from .stats import StreamingStats
 from ..utils.tree import is_static
 
-__all__ = ["run_fingerprint", "save_slab_state", "load_slab_state"]
+__all__ = ["run_fingerprint", "save_slab_state", "read_slab_state", "load_slab_state"]
 
 # the container's version; each accumulator carries its own
 _VERSION = 5
@@ -142,14 +143,24 @@ def save_slab_state(path: str, loop: dict, accs: list, fingerprint: str) -> None
     os.replace(tmp, path)
 
 
-def load_slab_state(path: str, fingerprint: str, accs: list) -> dict | None:
-    """Restore the accumulators in place and return the loop counters, or
-    None when there is no checkpoint. Another format version, another run's
-    fingerprint, another set of accumulators or another accumulator version
-    raises: resuming into the wrong state would corrupt the results."""
+def read_slab_state(path: str) -> bytes | None:
+    """The checkpoint file's bytes, or None when there is none."""
     if not os.path.exists(path):
         return None
-    with np.load(path) as z:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def load_slab_state(path: str, fingerprint: str, accs: list, raw: bytes | None) -> dict | None:
+    """Restore the accumulators in place from ``raw``, the bytes
+    ``read_slab_state(path)`` gave where the file lives (rank 0 of a mesh
+    hands its read to every rank), and return the loop counters, or None
+    when there is no checkpoint. Another format version, another run's
+    fingerprint, another set of accumulators or another accumulator version
+    raises: resuming into the wrong state would corrupt the results."""
+    if raw is None:
+        return None
+    with np.load(io.BytesIO(raw)) as z:
         meta = json.loads(bytes(z["__meta__"]).decode())
         if meta["version"] != _VERSION:
             raise ValueError(f"checkpoint {path!r} uses format v{meta['version']}; "

@@ -82,14 +82,6 @@ def test_rejects_unknown_ic_keys():
         mc.run_monte_carlo({"posiiton": (0, 0, 0)}, n_samples=4)
 
 
-@pytest.mark.parametrize("option,item", [
-    ({"mesh": object()}, "P16"),
-])
-def test_unported_constructor_options_raise(option, item):
-    with pytest.raises(NotImplementedError, match=item):
-        MonteCarloAnalyzer(motor=liquid_motor("cpu"), **option)
-
-
 @pytest.mark.parametrize("option,block", [
     ({"control_variates": True}, "control_variates"),
     ({"control_variates": True, "cv_wind_modes": 2, "cv_wind_speed": 2}, "control_variates"),

@@ -22,6 +22,8 @@ def test_every_module_imports_with_jax_and_flax_blocked():
         "envelope", "resimulate", "ensemble", "importance", "cv", "two_level", "subset",
         "subset_driver", "sobol_indices", "robust")} <= set(MODULES)
     assert "erpl_monte_carlo_sim_tpu_torch.engine.diff" in MODULES
+    assert {f"erpl_monte_carlo_sim_tpu_torch.parallel.{m}" for m in (
+        "mesh", "sharded", "pod_scale", "spawn")} <= set(MODULES)
     assert "erpl_monte_carlo_sim_tpu_torch.ops.sobol" in MODULES
     assert {f"erpl_monte_carlo_sim_tpu_torch.{m}" for m in (
         "example", "reporting", "reporting.plots", "reporting.report", "reporting.results",
@@ -55,6 +57,10 @@ def test_every_module_imports_with_jax_and_flax_blocked():
         "from erpl_monte_carlo_sim_tpu_torch.mc import optimize_robust, auto_shift\n"
         "from erpl_monte_carlo_sim_tpu_torch.cli.sensitivity import variance_budget\n"
         "from erpl_monte_carlo_sim_tpu_torch.cli.optimize_apogee import optimize\n"
+        "from erpl_monte_carlo_sim_tpu_torch.parallel import (collective_stats, make_mesh,\n"
+        "    init_distributed, run_ranks)\n"
+        "from erpl_monte_carlo_sim_tpu_torch.parallel.pod_scale import main as pod\n"
+        "from erpl_monte_carlo_sim_tpu_torch import parallel\n"
         "assert sobol.sobol_points(8, 640, torch.zeros(1, 640, dtype=torch.int64)).shape[1] == 640\n"
         "assert 'jax' not in [k for k, v in sys.modules.items() if v is not None]\n"
         "print('ok')\n"

@@ -511,3 +511,37 @@ def test_graphed_segments_are_eager_autograd_on_cuda():
     for a, b in zip(g_g, g_e):
         assert bool(torch.isfinite(a).all())
         torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-12 * float(b.abs().max()))
+
+
+@pytest.mark.cuda
+def test_nccl_one_rank_mesh_run_is_the_run_without_a_mesh_on_cuda():
+    """``MonteCarloAnalyzer(mesh=...)`` on an NCCL group of one rank (a TCP
+    store on a free localhost port): the single call and a 2-slab run are
+    the runs without a mesh bit for bit, one launch a call or slab,
+    ``cores_used`` 1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device, nvcc and NCCL; the CPU tests run Gloo ranks")
+    import torch.distributed as dist
+
+    from chip_smoke import same_analysis
+    from erpl_monte_carlo_sim_tpu_torch.parallel import init_distributed, make_mesh
+    from erpl_monte_carlo_sim_tpu_torch.parallel.spawn import free_port
+
+    dev = torch.device("cuda")
+    ic = InitialConditions.vertical_launch(dev)
+    plain = MonteCarloAnalyzer(motor=liquid_motor(dev), sim_config=WINDOW, max_lanes_per_call=4096)
+    refs = [plain.run_monte_carlo(ic, n_samples=n, seed=1) for n in (4096, 8192)]
+    init_distributed(f"127.0.0.1:{free_port()}", 1, 0, device=dev)
+    try:
+        mesh = make_mesh()
+        assert dist.get_backend() == "nccl" and (mesh.size, mesh.rank) == (1, 0)
+        mc = MonteCarloAnalyzer(motor=liquid_motor(dev), sim_config=WINDOW, mesh=mesh,
+                                max_lanes_per_call=4096)
+        for n, ref in zip((4096, 8192), refs):
+            before = fs.launches
+            got = mc.run_monte_carlo(ic, n_samples=n, seed=1)
+            assert fs.launches == before + n // 4096
+            same_analysis(got, ref)
+            assert got["performance"]["cores_used"] == 1
+    finally:
+        dist.destroy_process_group()
