@@ -1,6 +1,7 @@
 """Measure the whole-flight kernel on one NVIDIA GPU.
 
     python3 -m erpl_monte_carlo_sim_tpu_torch.kernels.measure [--reps 3] [--out FILE]
+    python3 -m erpl_monte_carlo_sim_tpu_torch.kernels.measure --draw [--sass FILE] [--out FILE]
 
 The helpers here are also ``chip_smoke.py``'s: the card line, the dispersed
 sample batch, the catalogue of flag sets (``FLAG_SETS``), CUDA-event timing,
@@ -19,6 +20,16 @@ line with:
     under ``flag_sets``, the same for each build of ``FLAG_SETS``.
 
 The walls of the main path are chip_smoke's phases 4, 5 and 7.
+
+With ``--draw`` it profiles the main path's draw instead: the analyzer's
+seam ``_draw_single`` at 262,144 lanes (seed 0, ``SimConfig(max_time=6.0)``),
+its wall (median of 5 warm calls, the card synchronized around each) and one
+``torch.profiler`` pass over 3 warm calls: the ops by host time and by
+device time, with the device's busy time and its share of the wall. Where
+the threefry kernel exists it also counts the opcodes of each of its
+instantiations in ``cuobjdump -sass`` (``--sass`` keeps the listing). The
+draw is imported from ``sys.path``: run this file by its path with
+``PYTHONPATH`` at another checkout to profile that checkout's draw.
 """
 
 from __future__ import annotations
@@ -113,16 +124,16 @@ def with_stall(scene_b, stall: bool = True):
 
 
 def sample_batch(n, dtype, seed=0, nan_lane=None):
-    """Dispersed lanes of the liquid motor on the card, ``(scene_b, ic_b)``;
-    lane ``nan_lane``, if given, gets a wind table that is NaN above 2 km."""
+    """Dispersed lanes of the liquid motor on the card under
+    ``PRNGKey(seed)``, ``(scene_b, ic_b)``; lane ``nan_lane``, if given, gets
+    a wind table that is NaN above 2 km."""
     from erpl_monte_carlo_sim_tpu_torch.engine import InitialConditions
     from erpl_monte_carlo_sim_tpu_torch.mc import sample_dispersions
     from erpl_monte_carlo_sim_tpu_torch.models import liquid_motor, nominal_scene
+    from erpl_monte_carlo_sim_tpu_torch import random
 
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-    scene_b, ic_b = sample_dispersions(gen, nominal_scene(liquid_motor(dev, dtype)),
+    scene_b, ic_b = sample_dispersions(random.prng_key(seed), nominal_scene(liquid_motor(dev, dtype)),
                                        InitialConditions.vertical_launch(dev, dtype),
                                        n=n)[:2]
     if nan_lane is not None:
@@ -263,15 +274,117 @@ def measure(reps) -> dict:
     return rec
 
 
+# a SASS instruction: its address comment, an optional predicate, the opcode
+# with its modifiers
+_SASS_OP = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)")
+
+
+def sass_counts(listing: str) -> dict:
+    """Each function of a ``cuobjdump -sass`` listing, by name: its opcode
+    counts (``IADD3``, ``LOP3``, ``SHF``, ...; modifiers dropped) under
+    ``all``, and under ``after_barrier`` those of the instructions after its
+    last ``BAR.SYNC`` (modifiers kept: ``IMAD.IADD``, ``SHF.L.W.U32.HI``),
+    where the threefry kernel's threads hash their own words."""
+    funcs, name = {}, None
+    for line in listing.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+            continue
+        m = _SASS_OP.search(line)
+        if name and m:
+            funcs[name].append(m.group(1))
+    out = {}
+    for name, ops in funcs.items():
+        bar = max((i for i, op in enumerate(ops) if op.startswith("BAR.SYNC")), default=-1)
+        out[name] = {"all": _histogram(op.split(".")[0] for op in ops),
+                     "after_barrier": _histogram(ops[bar + 1:])}
+    return out
+
+
+def _histogram(ops) -> dict:
+    counts = {}
+    for op in ops:
+        counts[op] = counts.get(op, 0) + 1
+    return dict(sorted(counts.items(), key=lambda kv: -kv[1]))
+
+
+def draw_profile(lanes: int, sass_out=None) -> dict:
+    """The ``--draw`` measurement (module docstring)."""
+    import importlib.util
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from erpl_monte_carlo_sim_tpu_torch.engine import InitialConditions, SimConfig
+    from erpl_monte_carlo_sim_tpu_torch.mc import MonteCarloAnalyzer
+    from erpl_monte_carlo_sim_tpu_torch.mc import analyzer as analyzer_mod
+    from erpl_monte_carlo_sim_tpu_torch.models import liquid_motor
+
+    dev = torch.device("cuda")
+    rec = {"card": card_line(), "package": os.path.dirname(analyzer_mod.__file__),
+           "lanes": lanes}
+    if importlib.util.find_spec("erpl_monte_carlo_sim_tpu_torch.kernels.threefry"):
+        from erpl_monte_carlo_sim_tpu_torch.kernels import threefry as tf
+
+        lib, _ = tf.build()
+        listing = subprocess.run(
+            [os.path.join(os.path.dirname(tf._nvcc()), "cuobjdump"), "-sass", lib], capture_output=True, text=True, check=True, timeout=300).stdout
+        if sass_out:
+            with open(sass_out, "w") as f:
+                f.write(listing)
+        rec["sass"] = sass_counts(listing)
+    mc = MonteCarloAnalyzer(motor=liquid_motor(dev), sim_config=SimConfig(max_time=WINDOW))
+    ic = InitialConditions.vertical_launch(dev)
+    wind = mc._base_wind()
+
+    def draw():
+        return analyzer_mod._draw_single(mc, ic, lanes, 0, wind)
+
+    for _ in range(2):
+        draw()
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        draw()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    rec["wall_ms"] = walls
+    rec["wall_ms_median"] = float(np.median(walls))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            draw()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    rows = [{"op": e.key, "calls": e.count, "host_self_ms": e.self_cpu_time_total / 3e3,
+             "device_self_ms": device_us(e) / 3e3} for e in events]
+    # the card's own work: kernels and copies (no host time), not the ops
+    # that launched them, which carry the same device time
+    rec["device_busy_ms"] = sum(r["device_self_ms"] for r in rows if r["host_self_ms"] == 0)
+    rec["host_self_ms"] = sum(r["host_self_ms"] for r in rows)
+    rec["by_host"] = sorted(rows, key=lambda r: -r["host_self_ms"])[:25]
+    rec["by_device"] = sorted(rows, key=lambda r: -r["device_self_ms"])[:25]
+    return rec
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--reps", type=int, default=3)
     p.add_argument("--out", help="also append the line to this file")
+    p.add_argument("--draw", action="store_true", help="profile the main path's draw")
+    p.add_argument("--sass", help="with --draw: write the threefry kernel's SASS here")
     a = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("measure: no CUDA device", file=sys.stderr)
         return 1
-    line = json.dumps(measure(a.reps))
+    line = json.dumps(draw_profile(MAIN_LANES, a.sass) if a.draw else measure(a.reps))
     print(line, flush=True)
     if a.out:
         os.makedirs(os.path.dirname(a.out) or ".", exist_ok=True)

@@ -1,6 +1,6 @@
 """Monte Carlo layer of the PyTorch port."""
 
-from .analyzer import MonteCarloAnalyzer, slab_seed
+from .analyzer import MonteCarloAnalyzer
 from .checkpoint import load_summaries, save_summaries
 from .cv import CVMoments, control_names, cv_slab_moments, finalize_cv
 from .dispersions import (DispersionSample, UncertaintyParams, inject_reference_lanes,
@@ -23,7 +23,7 @@ from .subset import pool_subset_quantiles, pool_subset_runs, subset_quantile, su
 from .tail import TailReservoir, fit_gpd_pwm, gpd_tail, tail_from_analysis
 from .two_level import parity_twin, two_level_block
 
-__all__ = ["MonteCarloAnalyzer", "slab_seed", "DispersionSample", "UncertaintyParams",
+__all__ = ["MonteCarloAnalyzer", "DispersionSample", "UncertaintyParams",
            "sample_dispersions", "inject_reference_lanes", "select_lane", "REASON_NAMES",
            "OutlierBounds", "decode_reasons", "outlier_mask", "PERCENTILES",
            "landing_footprint", "masked_stats", "order_stat_ranks", "percentile_ci",

@@ -1,12 +1,14 @@
 """Monte Carlo orchestrator (``erpl_monte_carlo_sim_tpu/mc/analyzer.py``).
 
-``run_monte_carlo`` samples dispersed lanes on the analyzer's device, flies
+``run_monte_carlo`` samples dispersed lanes on the analyzer's device under
+the threefry key ``PRNGKey(seed)`` (``random``: the JAX package's lanes for
+the same seed, on the CPU and on a card), flies
 them through ``simulate_summary_batch`` (the CUDA kernel on a card, its
 plain version on the CPU), filters outliers, reduces statistics and returns
 the reference-schema analysis dict. A run that fits one device call
 (``n_samples <= lane_slab``) is one call; a larger one runs slab by slab
-(``_run_slabbed``), each slab drawn from its own generator seeded by
-``slab_seed(seed, k)``, with the statistics accumulated on the host (exactly,
+(``_run_slabbed``), slab k drawn under ``fold_in(PRNGKey(seed), k)`` as the
+JAX package draws it, with the statistics accumulated on the host (exactly,
 or as streams past ``stats_stream_threshold`` lanes), an optional mid-run
 checkpoint, and ``run_to_precision``'s sequential stop. The sampling
 variants (``sampler="sobol"`` with ``sobol_scrambles`` and
@@ -59,6 +61,7 @@ from ..engine.batch import simulate_summary_batch
 from ..engine.config import SimConfig
 from ..engine.state import InitialConditions
 from ..models.scene import Scene, nominal_scene
+from .. import random
 from ..utils.convert import to_numpy
 from .dispersions import UncertaintyParams, sample_dispersions
 from .ensemble import EnsembleAccumulator
@@ -68,7 +71,7 @@ from .resimulate import ResimulationMixin
 from .subset_driver import SubsetDriverMixin
 from .stats import PERCENTILES, landing_footprint, masked_stats, percentile_ci
 
-__all__ = ["MonteCarloAnalyzer", "slab_seed"]
+__all__ = ["MonteCarloAnalyzer"]
 
 log = logging.getLogger(__name__)
 
@@ -79,20 +82,11 @@ def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
-def slab_seed(seed: int, k: int) -> int:
-    """The seed of slab ``k``'s generator in a run seeded ``seed``: a hash
-    of the pair (``np.random.SeedSequence``), 63 bits, so that slab draws
-    are independent of each other and of the single-call run's."""
-    state = np.random.SeedSequence([seed % 2**64, k]).generate_state(1, np.uint64)
-    return int(state[0]) & (2**63 - 1)
-
-
-def _draw(analyzer, ic, n: int, seed: int, base_wind):
-    """``n`` lanes from a generator seeded ``seed`` on the analyzer's device,
-    under its sampling options."""
-    gen = torch.Generator(device=analyzer.device)
-    gen.manual_seed(seed)
-    return sample_dispersions(gen, analyzer.scene, ic, analyzer.uncertainty_params, n,
+def _draw(analyzer, ic, n: int, key: torch.Tensor, base_wind):
+    """``n`` lanes under the threefry ``key`` on the analyzer's device,
+    under its sampling options. The seams make the key there: a key moved
+    from the host waits for the card."""
+    return sample_dispersions(key, analyzer.scene, ic, analyzer.uncertainty_params, n,
                               base_wind=base_wind, wind_grid_points=analyzer.wind_grid_points,
                               wind_grid_top=analyzer.wind_grid_top, sampler=analyzer.sampler,
                               sobol_scrambles=analyzer.sobol_scrambles,
@@ -102,19 +96,20 @@ def _draw(analyzer, ic, n: int, seed: int, base_wind):
 
 
 def _draw_single(analyzer, ic, n: int, seed: int, base_wind):
-    """A single-call run's ``(scene_b, ic_b, sample)``: ``n`` lanes from a
-    generator seeded ``seed``. The run's one draw; tests replace it to feed
-    other lanes through the run."""
-    return _draw(analyzer, ic, n, seed, base_wind)
+    """A single-call run's ``(scene_b, ic_b, sample)``: ``n`` lanes under
+    ``PRNGKey(seed)``. The run's one draw; tests replace it to feed other
+    lanes through the run."""
+    return _draw(analyzer, ic, n, random.prng_key(seed, analyzer.device), base_wind)
 
 
 def _draw_slab(analyzer, ic, k: int, slab: int, seed: int, base_wind):
-    """Slab ``k``'s ``(scene_b, ic_b, sample)``: always a full slab of lanes,
-    so a lane's values depend only on ``(seed, k, slab)``; under
-    ``sampler="sobol"`` each slab is its own scramble, an independent
-    randomized-QMC replicate. The slab loop's one draw; tests replace it to
-    feed other lanes through the loop."""
-    return _draw(analyzer, ic, slab, slab_seed(seed, k), base_wind)
+    """Slab ``k``'s ``(scene_b, ic_b, sample)``: always a full slab of lanes
+    under ``fold_in(PRNGKey(seed), k)``, so a lane's values depend only on
+    ``(seed, k, slab)``; under ``sampler="sobol"`` each slab is its own
+    scramble, an independent randomized-QMC replicate. The slab loop's one
+    draw; tests replace it to feed other lanes through the loop."""
+    return _draw(analyzer, ic, slab, random.fold_in(random.prng_key(seed, analyzer.device), k),
+                 base_wind)
 
 
 def _host_stats(values: np.ndarray, mask: np.ndarray) -> dict:
@@ -337,8 +332,8 @@ class MonteCarloAnalyzer(SubsetDriverMixin, ResimulationMixin):
                         checkpoint_every: int = 16) -> dict:
         """Run ``n_samples`` dispersed flights and analyze them. Returns the
         reference-schema analysis dict plus a ``performance`` block and the
-        ``landing_footprint``; ``seed`` seeds a ``torch.Generator`` on the
-        analyzer's device.
+        ``landing_footprint``; the lanes are drawn under ``PRNGKey(seed)``
+        (``random``), the JAX package's lanes for the same seed.
 
         Up to ``lane_slab`` lanes (default ``max_lanes_per_call``) fly in one
         call, and the analysis holds the per-lane ``summary``, ``sample``,
@@ -522,7 +517,7 @@ class MonteCarloAnalyzer(SubsetDriverMixin, ResimulationMixin):
                      checkpoint_path=None, checkpoint_every=16, stop_rule=None,
                      min_samples=0) -> dict:
         """The lane axis in slabs of ``slab`` lanes, one device call each;
-        slab k draws from ``slab_seed(seed, k)``, and its statistics
+        slab k draws under ``fold_in(PRNGKey(seed), k)``, and its statistics
         accumulate on the host through the registry of
         ``mc.slab_accumulators``: exactly (the same percentile rule and
         population std as one call) up to ``stats_stream_threshold`` lanes,

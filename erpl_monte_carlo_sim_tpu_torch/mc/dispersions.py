@@ -1,6 +1,6 @@
 """Monte Carlo dispersion sampling (``erpl_monte_carlo_sim_tpu/mc/dispersions.py``).
 
-One ``torch.Generator`` in, one batched ``Scene`` out: 19 scalar dispersion
+One threefry key in, one batched ``Scene`` out: 19 scalar dispersion
 channels per lane (IC offsets; mass, motor-thrust, motor-flow and density
 multipliers; wind speed and direction; the recorded-but-unused thrust
 multiplier) plus one AR(1) wind table per lane on a shared altitude grid.
@@ -15,12 +15,19 @@ blocks for randomized-QMC error bars and optionally the turbulence's leading
 modes (``ops.sobol``); antithetic pairs; importance tilts of the Gaussian
 multipliers; and forecast ensembles, each lane perturbing a drawn member.
 
-The generator does not reproduce ``jax.random``'s bits: the same seed gives
-other lanes than the JAX package (ROADMAP P4). The draws pass through seams
-the tests feed with the JAX package's own: ``_channels`` takes the standard
-draws, ``_sobol_channels`` the Sobol points (``ops.sobol`` takes the
-scramble seeds), ``_build_scene`` the turbulence driver, its Sobol-mode tail
-and the ensemble members.
+The key is ``jax.random``'s (``random``: a ``[2]`` tensor of uint32
+words, ``random.prng_key(seed)`` for ``jax.random.PRNGKey(seed)``), split as
+the JAX package splits it, so a key draws the JAX package's lanes, on the
+CPU and on a card (where the threefry kernel draws them,
+``kernels/threefry.py``): ``split(key, 12)``, the first eleven keys for the
+scalar channels (the Sobol path seeds its scrambles from the first), the
+twelfth the turbulence key, whose ``split(., n)[b]`` draws lane ``b``'s
+AR(1) driver (after one more ``split(.)[1]`` for a synthesized profile),
+``fold_in(., 1)`` the Sobol-mode tail and ``fold_in(., 2)`` the ensemble
+members. The draws also pass through seams the tests can feed:
+``_channels`` takes the standard draws, ``_sobol_channels`` the Sobol points
+(``ops.sobol`` takes the scramble seeds), ``_build_scene`` the turbulence
+driver, its Sobol-mode tail and the ensemble members.
 """
 
 from __future__ import annotations
@@ -32,10 +39,12 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import random
 from ..engine.state import InitialConditions
 from ..models.scene import Scene
 from ..models.wind import (WindField, ar1_transfer_matrix, generate_stochastic_profile,
                            perturb_wind_profile)
+from ..ops import prng
 from ..ops.sobol import max_dims, ndtri, sobol_uniform
 from ..utils.convert import to_numpy
 from .importance import TILTABLE
@@ -91,20 +100,20 @@ class DispersionSample:
     wind_member: torch.Tensor  # int32, all zeros without a forecast ensemble
 
 
-def _prng_draws(generator: torch.Generator, n: int, dtype, device) -> dict:
-    """The prng path's standard draws of the 19 scalar channels, in the
-    generator's order: standard normals, and uniforms on [0, 1) for the wind
-    speed and direction."""
-    def z(shape):
-        return torch.randn(shape, dtype=dtype, device=device, generator=generator)
-
-    def u():
-        return torch.rand((n,), dtype=dtype, device=device, generator=generator)
-
-    return {"pos_off": z((n, 3)), "vel_off": z((n, 3)), "att_off": z((n, 3)),
-            "omg_off": z((n, 3)), "mass_mult": z((n,)), "thrust_mult_recorded": z((n,)),
-            "motor_thrust_mult": z((n,)), "motor_flow_mult": z((n,)), "wind_speed": u(),
-            "wind_dir": u(), "density_mult": z((n,))}
+def _prng_draws(keys: torch.Tensor, n: int, dtype) -> dict:
+    """The prng path's standard draws of the 19 scalar channels under the
+    first eleven of ``split(key, 12)``'s ``keys``, as the JAX package draws
+    them: ``jax.random.normal`` for the Gaussian channels and the unit
+    uniform for the wind speed and direction (``_channels`` scales it as
+    ``jax.random.uniform`` does). Three draws: the four ``[n, 3]`` channels,
+    the five ``[n]`` ones, the two uniforms."""
+    vec = random.normal(keys[0:4], (n, 3), dtype)
+    scal = random.normal(torch.cat([keys[4:8], keys[10:11]]), (n,), dtype)
+    uni = random.uniform(keys[8:10], (n,), dtype)
+    return {"pos_off": vec[0], "vel_off": vec[1], "att_off": vec[2], "omg_off": vec[3],
+            "mass_mult": scal[0], "thrust_mult_recorded": scal[1], "motor_thrust_mult": scal[2],
+            "motor_flow_mult": scal[3], "wind_speed": uni[0], "wind_dir": uni[1],
+            "density_mult": scal[4]}
 
 
 def _sobol_draws(u: torch.Tensor) -> dict:
@@ -156,7 +165,12 @@ def _channels(std: dict, scene: Scene, params: UncertaintyParams, antithetic: bo
         return out + s * theta if theta else out
 
     def uniform(name, lo, hi):
-        return mirror(lo + (hi - lo) * std[name], 0.5 * (lo + hi))
+        # jax.random.uniform's scale: one fused multiply-add of the bounds
+        # rounded to the dtype, which the host rounds (no copy to the card)
+        npd = np.float32 if dtype == torch.float32 else np.float64
+        lo_r = npd(lo)
+        span = float(npd(npd(hi) - lo_r))
+        return mirror(prng._fma(std[name], span, float(lo_r)), 0.5 * (lo + hi))
 
     return {
         "pos_off": normal("pos_off", params.initial_position),
@@ -176,20 +190,21 @@ def _channels(std: dict, scene: Scene, params: UncertaintyParams, antithetic: bo
     }
 
 
-def _sample_impl(generator: torch.Generator, scene: Scene, ic: InitialConditions,
+def _sample_impl(key: torch.Tensor, scene: Scene, ic: InitialConditions,
                  params: UncertaintyParams, n: int, base_wind, wind_grid_points: int,
                  wind_grid_top: float, dtype, antithetic: bool = False,
                  importance_shift=()):
     """The prng path: the scalar draws, then ``_build_scene``."""
     device = scene.rocket.dry_mass.device
-    std = _prng_draws(generator, n, dtype, device)
+    keys = random.split(key, 12)
+    std = _prng_draws(keys, n, dtype)
     ch = _channels(std, scene, params, antithetic, importance_shift)
     if base_wind is not None:
         grid = torch.as_tensor(base_wind[0], dtype=dtype, device=device)
     else:
         grid = torch.linspace(0.0, wind_grid_top, wind_grid_points, dtype=dtype,
                               device=device)
-    return _build_scene(scene, ic, ch, base_wind, grid, generator)
+    return _build_scene(scene, ic, ch, base_wind, grid, keys[11])
 
 
 def _sobol_channels(u: torch.Tensor, scene: Scene, params: UncertaintyParams,
@@ -211,33 +226,37 @@ def _sobol_channels(u: torch.Tensor, scene: Scene, params: UncertaintyParams,
     return ch
 
 
-def _sample_sobol(generator: torch.Generator, scene: Scene, ic: InitialConditions,
+def _sample_sobol(key: torch.Tensor, scene: Scene, ic: InitialConditions,
                   params: UncertaintyParams, n: int, base_wind, wind_grid_points: int,
                   wind_grid_top: float, dtype, sobol_scrambles: int, sobol_wind_modes: int):
     """The Sobol path: a ``[n, 19 + 3 sobol_wind_modes]`` scrambled Sobol
-    matrix on seeds from ``generator``, its channels (``_sobol_channels``),
-    then ``_build_scene``, which draws the rest of the turbulence from
-    ``generator``."""
+    matrix seeded by ``split(key, 12)[0]``, its channels
+    (``_sobol_channels``), then ``_build_scene``, which draws the rest of the
+    turbulence under ``split(key, 12)[11]``."""
     device = scene.rocket.dry_mass.device
     grid_np = (np.asarray(to_numpy(base_wind[0]), np.float64) if base_wind is not None
                else np.linspace(0.0, float(wind_grid_top), int(wind_grid_points)))
     d = 19 + 3 * int(sobol_wind_modes)
-    u = sobol_uniform(n, d, sobol_scrambles, dtype, generator=generator)
+    keys = random.split(key, 12)
+    u = sobol_uniform(keys[0], n, d, sobol_scrambles, dtype)
     ch = _sobol_channels(u, scene, params, sobol_wind_modes, grid_np)
     grid = torch.as_tensor(grid_np, dtype=dtype, device=device)
-    return _build_scene(scene, ic, ch, base_wind, grid, generator)
+    return _build_scene(scene, ic, ch, base_wind, grid, keys[11])
 
 
 def _build_scene(scene: Scene, ic: InitialConditions, ch: dict, base_wind, grid,
-                 generator: Optional[torch.Generator] = None):
+                 turb_key: Optional[torch.Tensor] = None):
     """Batched ``(Scene, InitialConditions, DispersionSample)`` from channel
     values. The turbulence's ``[n, N, 3]`` standard-normal driver is
     ``ch["noise"]`` when given; with Sobol wind modes it is ``vt^T [b_lead;
-    b_tail]``, the tail ``ch["b_tail"]`` or drawn; otherwise it is drawn.
-    With a forecast ensemble (``base_wind[1]`` of ``[K, N, 3]``) each lane
-    perturbs the member ``ch["member"]``, or one drawn uniformly after every
-    other draw, so that a one-member ensemble gives the single forecast's
-    lanes bit for bit. Draws come from ``generator``."""
+    b_tail]``, the tail ``ch["b_tail"]`` or drawn under ``fold_in(turb_key,
+    1)``; otherwise lane ``b``'s is drawn under ``split(turb_key, n)[b]``
+    (then ``split(.)[1]`` for a synthesized profile, whose first key would
+    draw a direction the channels already give). With a forecast ensemble
+    (``base_wind[1]`` of ``[K, N, 3]``) each lane perturbs the member
+    ``ch["member"]``, or one drawn by ``randint`` under ``fold_in(turb_key,
+    2)``, a key no other draw uses, so that a one-member ensemble gives the
+    single forecast's lanes bit for bit."""
     n = ch["mass_mult"].shape[0]
     dtype, device = ch["pos_off"].dtype, ch["pos_off"].device
     mass_mult = ch["mass_mult"]
@@ -264,8 +283,11 @@ def _build_scene(scene: Scene, ic: InitialConditions, ch: dict, base_wind, grid,
         density_scale=scene.atmosphere.density_scale * ch["density_mult"],
     )
 
-    def normals(shape):
-        return torch.randn(shape, dtype=dtype, device=device, generator=generator)
+    def key():
+        if turb_key is None:
+            raise ValueError("_build_scene draws the turbulence or the members: it needs "
+                             "turb_key")
+        return random.as_key(turb_key, device)
 
     n_knots = grid.shape[0]
     if "noise" in ch:
@@ -273,11 +295,13 @@ def _build_scene(scene: Scene, ic: InitialConditions, ch: dict, base_wind, grid,
     elif "b_lead" in ch:
         b_lead = torch.as_tensor(ch["b_lead"], dtype=dtype, device=device)
         b_tail = (torch.as_tensor(ch["b_tail"], dtype=dtype, device=device) if "b_tail" in ch
-                  else normals((n, n_knots - b_lead.shape[1], 3)))
+                  else random.normal(random.fold_in(key(), 1), (n, n_knots - b_lead.shape[1], 3),
+                                   dtype))
         vt = torch.as_tensor(ch["vt"], dtype=dtype, device=device)
         noise = torch.einsum("ij,njc->nic", vt.T, torch.cat([b_lead, b_tail], dim=1))
     else:
-        noise = normals((n, n_knots, 3))
+        noise = random.lane_normal(key(), n, (n_knots, 3), dtype,
+                                 sub=1 if base_wind is None else None)
     member = torch.zeros(n, dtype=torch.int32, device=device)
     if base_wind is not None:
         base_profile = torch.as_tensor(base_wind[1], dtype=dtype, device=device)
@@ -285,16 +309,15 @@ def _build_scene(scene: Scene, ic: InitialConditions, ch: dict, base_wind, grid,
             if "member" in ch:
                 member = torch.as_tensor(ch["member"], device=device).to(torch.int32)
             else:
-                member = torch.randint(0, base_profile.shape[0], (n,), device=device,
-                                       generator=generator).to(torch.int32)
+                member = random.randint(random.fold_in(key(), 2), (n,), 0, base_profile.shape[0])
             base_profile = base_profile[member.long()]  # one [n, N, 3] gather
-        profiles = perturb_wind_profile(scene.wind_model, grid, base_profile, noise=noise)
+        profiles = perturb_wind_profile(scene.wind_model, None, grid, base_profile, noise=noise)
         offset = torch.stack([wind_speed * torch.cos(wind_dir),
                               wind_speed * torch.sin(wind_dir),
                               torch.zeros_like(wind_speed)], dim=-1)
         profiles = profiles + offset[:, None, :]
     else:
-        profiles = generate_stochastic_profile(scene.wind_model, grid, wind_speed,
+        profiles = generate_stochastic_profile(scene.wind_model, None, grid, wind_speed,
                                                wind_dir, noise=noise)
 
     batched_scene = Scene(rocket=rocket, motor=motor, atmosphere=atmosphere,
@@ -372,16 +395,17 @@ def _validate_sampling(scene: Scene, params: UncertaintyParams, n: int, base_win
                          "sobol_wind_modes or regenerate with scripts/gen_sobol_directions.py")
 
 
-def sample_dispersions(generator: torch.Generator, scene: Scene, ic: InitialConditions,
+def sample_dispersions(key, scene: Scene, ic: InitialConditions,
                        params: UncertaintyParams = UncertaintyParams(), n: int = 1000,
                        base_wind: Optional[tuple] = None, wind_grid_points: int = 100,
                        wind_grid_top: float = 25000.0, dtype=None,
                        antithetic: bool = False, sampler: str = "prng",
                        sobol_scrambles: int = 1, sobol_wind_modes: int = 0,
                        importance_shift=()):
-    """Draw ``n`` dispersed lanes on the scene's device from ``generator``
-    (which must live on that device). Returns ``(batched_scene, batched_ic,
-    sample)``.
+    """Draw ``n`` dispersed lanes on the scene's device under the threefry
+    ``key`` (``random``; a ``[2]`` tensor or pair of uint32 words, moved to
+    that device): the JAX package's lanes for the same key. Returns
+    ``(batched_scene, batched_ic, sample)``.
 
     ``base_wind``: an optional forecast ``(altitudes[N], wind[N,3])`` each
     lane perturbs, or an ensemble ``(altitudes[N], wind[K,N,3])`` of which
@@ -408,10 +432,11 @@ def sample_dispersions(generator: torch.Generator, scene: Scene, ic: InitialCond
                        sobol_wind_modes, importance_shift)
     if dtype is None:
         dtype = scene.rocket.dry_mass.dtype
+    key = random.as_key(key, scene.rocket.dry_mass.device)
     if sampler == "sobol":
-        return _sample_sobol(generator, scene, ic, params, n, base_wind, wind_grid_points,
+        return _sample_sobol(key, scene, ic, params, n, base_wind, wind_grid_points,
                              wind_grid_top, dtype, sobol_scrambles, sobol_wind_modes)
-    return _sample_impl(generator, scene, ic, params, n, base_wind, wind_grid_points,
+    return _sample_impl(key, scene, ic, params, n, base_wind, wind_grid_points,
                         wind_grid_top, dtype, antithetic, importance_shift)
 
 
@@ -466,7 +491,7 @@ def sample_from_normals(u, scene: Scene, ic: InitialConditions,
            "density_mult": u[:, 18]}
     ch = _channels(std, scene, params)
     ch["noise"] = u[:, 19:].reshape(n, n_knots, 3)
-    return _build_scene(scene, ic, ch, base_wind, grid)
+    return _build_scene(scene, ic, ch, base_wind, grid, random.prng_key(0, device))
 
 
 def inject_reference_lanes(scene: Scene, ic: InitialConditions, params: dict, wind_grid,

@@ -4,8 +4,8 @@
 A Monte Carlo run keeps only summaries; a lane's history is made again on
 demand from what the run remembers (``MonteCarloAnalyzer._last_batch``): the
 single call's batch, or a slabbed run's recipe, whose slab k is redrawn
-through the same seam (``mc.analyzer._draw_slab``, seeded by
-``slab_seed(seed, k)``) that the run drew it with. The lanes fly again
+through the same seam (``mc.analyzer._draw_slab``, under
+``fold_in(PRNGKey(seed), k)``) that the run drew it with. The lanes fly again
 through ``engine.batch.simulate_flight_batch``, the engine that measured
 them (on a card the kernel's recording build), on the tables that the run
 flew (under ``wind_table_modes`` the compressed ones: the single call's

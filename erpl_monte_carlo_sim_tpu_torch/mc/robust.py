@@ -7,9 +7,9 @@ statistics,
 
 its value and gradient from one reverse pass through the differentiable
 flight (``engine.diff.simulate_metrics_diff``) of the whole dispersed batch.
-This is sample-average approximation: the lanes are drawn once from
-``seed`` (``_draw_lanes``, the one draw, which the tests replace to feed the
-JAX package's lanes) and stay fixed across evaluations, so the objective is
+This is sample-average approximation: the lanes are drawn once under
+``PRNGKey(seed)`` (``_draw_lanes``, the one draw: the JAX package's lanes)
+and stay fixed across evaluations, so the objective is
 a deterministic function of ``v`` and plain line-search ascent converges.
 
 The design parameter must be a shared scene leaf (fin or parachute
@@ -26,6 +26,7 @@ import torch
 
 from ..engine.diff import (DIFF_METRICS, _scene_accessors, gradients, line_search_ascent,
                            simulate_metrics_diff)
+from .. import random
 from .dispersions import UncertaintyParams, sample_dispersions
 
 __all__ = ["dispersed_objective_and_grad", "optimize_robust"]
@@ -33,10 +34,9 @@ __all__ = ["dispersed_objective_and_grad", "optimize_robust"]
 
 def _draw_lanes(scene, ic, n_lanes: int, seed: int, params: UncertaintyParams, base_wind):
     """The SAA lanes ``(scene_b, ic_b)``: ``n_lanes`` prng lanes on the
-    scene's device from a generator seeded ``seed``."""
-    gen = torch.Generator(device=scene.rocket.dry_mass.device)
-    gen.manual_seed(seed)
-    scene_b, ic_b, _ = sample_dispersions(gen, scene, ic, params, n_lanes, base_wind=base_wind)
+    scene's device under ``PRNGKey(seed)``."""
+    scene_b, ic_b, _ = sample_dispersions(random.prng_key(seed), scene, ic, params, n_lanes,
+                                          base_wind=base_wind)
     return scene_b, ic_b
 
 

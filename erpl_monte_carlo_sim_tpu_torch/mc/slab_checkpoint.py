@@ -10,7 +10,8 @@ deterministically on the host). The file goes when the run completes.
 A fingerprint of every input that changes a slab's results or the
 accumulators' shapes guards the resume: the scene, initial-condition and
 base-wind tensors, the dispersion, simulation and outlier settings, the run's
-size, slab and seed, the streaming knobs, the wind grid, the device type (a
+size, slab and seed, the generator (``PRNG``), the streaming knobs, the wind
+grid, the device type (a
 card's run resumed on the CPU would mix two populations) and the sampling
 options (sampler, scrambles, Sobol wind modes, antithetic pairs, importance
 shift) and the estimators' (control variates with their wind controls, the
@@ -36,8 +37,11 @@ from ..utils.tree import is_static
 
 __all__ = ["run_fingerprint", "save_slab_state", "read_slab_state", "load_slab_state"]
 
-# the container's version; each accumulator carries its own
-_VERSION = 5
+# the container's version; each accumulator carries its own. Version 6:
+# slabs are drawn by jax.random's threefry (``PRNG``); files up to version 5
+# hold slabs of torch.Generator draws, other lanes for the same seed
+_VERSION = 6
+PRNG = "threefry2x32"
 
 
 def _hash_tree(h, obj, path: str) -> None:
@@ -76,7 +80,7 @@ def run_fingerprint(analyzer, ic, n_samples, slab, seed, base_wind, limit) -> st
     h.update(repr(analyzer.sim_config).encode())
     h.update(repr(analyzer.bounds).encode())
     h.update(json.dumps([
-        _VERSION, int(n_samples), int(slab), int(seed), int(limit),
+        _VERSION, PRNG, int(n_samples), int(slab), int(seed), int(limit),
         int(analyzer.stats_stream_threshold), int(analyzer.metrics_sample_cap),
         int(analyzer.wind_grid_points), float(analyzer.wind_grid_top),
         analyzer.device.type, analyzer.sampler, int(analyzer.sobol_scrambles),
@@ -163,9 +167,12 @@ def load_slab_state(path: str, fingerprint: str, accs: list, raw: bytes | None) 
     with np.load(io.BytesIO(raw)) as z:
         meta = json.loads(bytes(z["__meta__"]).decode())
         if meta["version"] != _VERSION:
+            drawn = (" and its slabs were drawn by torch.Generator, which this build "
+                     f"replaced by jax.random's {PRNG}: resuming would mix other lanes "
+                     "for the same seed" if meta["version"] < 6 else "")
             raise ValueError(f"checkpoint {path!r} uses format v{meta['version']}; "
-                             f"this build writes v{_VERSION} — delete it (or finish "
-                             "the run with the build that wrote it)")
+                             f"this build writes v{_VERSION}{drawn} — delete it (or "
+                             "finish the run with the build that wrote it)")
         if meta["fingerprint"] != fingerprint:
             raise ValueError(f"checkpoint {path!r} belongs to a different run "
                              "(scene/config/sampling mismatch); delete it or point "

@@ -23,11 +23,11 @@ identity basis, which is the same numbers). Zero-sigma groups and the
 solid motor's flow multiplier are skipped, not reported as zero.
 
 Lanes are paired across matrices, so a row is kept only when it is valid
-in every matrix (``n_valid``). Each matrix's draws come from
-``_draw_matrix``, a ``torch.Generator`` per matrix and group on the scene's
-device, seeded ``slab_seed(seed, 16 * matrix + group)``, and a forecast
-ensemble's members from ``slab_seed(seed, 32)``, the same in every matrix;
-the tests replace this seam to feed the JAX package's draws. The bootstrap resamples rows
+in every matrix (``n_valid``). The draws are the JAX package's: matrix
+``m`` (0: A, 1: B) under ``fold_in(PRNGKey(seed), m)``, group ``i`` of it
+under ``fold_in(., i)`` (``_draw_matrix``, a seam of the tests), and a
+forecast ensemble's members under ``_build_scene``'s turbulence key
+``PRNGKey(0)``, the same in every matrix. The bootstrap resamples rows
 jointly with ``np.random.default_rng(seed)``'s indices in the JAX
 package's order, so its intervals can be compared.
 """
@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from ..engine.batch import simulate_summary_batch
+from .. import random
 from .dispersions import UncertaintyParams, _build_scene
 from .filter import OutlierBounds, outlier_mask
 
@@ -97,32 +98,27 @@ def active_groups(scene, params: UncertaintyParams = UncertaintyParams(),
 
 
 def _draw_matrix(seed: int, matrix: int, n: int, knots: int, dtype, device) -> dict:
-    """Matrix ``matrix``'s (0: A, 1: B) standardized draws: ``z ~ N(0, 1)``
-    for the Gaussian groups, ``u ~ U(0, 1)`` for the uniform ones, the
-    ``[n, knots, 3]`` AR(1) driver; group ``i`` from a generator seeded
-    ``slab_seed(seed, 16 * matrix + i)`` (the turbulence is group 10). The
-    estimator's one draw; tests replace it to feed other draws."""
-    from .analyzer import slab_seed
-
-    def gen(i):
-        g = torch.Generator(device=device)
-        g.manual_seed(slab_seed(seed, 16 * matrix + i))
-        return g
-
+    """Matrix ``matrix``'s (0: A, 1: B) standardized draws under
+    ``fold_in(PRNGKey(seed), matrix)``: ``z ~ N(0, 1)`` for the Gaussian
+    groups, ``u ~ U(0, 1)`` for the uniform ones, the ``[n, knots, 3]``
+    AR(1) driver; group ``i`` under ``fold_in(., i)`` (the turbulence is
+    group 10). The estimator's one draw; tests can replace it to feed other
+    draws."""
+    key = random.fold_in(random.prng_key(seed, device), matrix)
     d = {}
     for i, (g, _, kind, dims) in enumerate(_SCALAR_GROUPS):
         shape = (n, dims) if dims > 1 else (n,)
-        draw = torch.rand if kind == "uniform" else torch.randn
-        d[g] = draw(shape, dtype=dtype, device=device, generator=gen(i))
-    d["wind_turbulence"] = torch.randn((n, knots, 3), dtype=dtype, device=device,
-                                       generator=gen(len(_SCALAR_GROUPS)))
+        draw = random.uniform if kind == "uniform" else random.normal
+        d[g] = draw(random.fold_in(key, i), shape, dtype)
+    d["wind_turbulence"] = random.normal(random.fold_in(key, len(_SCALAR_GROUPS)),
+                                       (n, knots, 3), dtype)
     return d
 
 
-def _assemble(scene, ic, params, draws, grid, base_wind, dtype, generator=None):
+def _assemble(scene, ic, params, draws, grid, base_wind, dtype):
     """Standardized draws to batched ``(Scene, InitialConditions)`` through
-    the production ``_build_scene``; a forecast ensemble's members come from
-    ``generator``."""
+    the production ``_build_scene``, whose turbulence key ``PRNGKey(0)``
+    draws a forecast ensemble's members (the JAX package's fixed key)."""
     sig = _group_sigmas(scene, params)
     device = grid.device
     n = draws["mass"].shape[0]
@@ -140,7 +136,8 @@ def _assemble(scene, ic, params, draws, grid, base_wind, dtype, generator=None):
     # the recorded-but-unused thrust multiplier never acts: its slot at its mean
     ch["thrust_mult_recorded"] = torch.ones(n, dtype=dtype, device=device)
     ch["noise"] = torch.as_tensor(draws["wind_turbulence"], dtype=dtype, device=device)
-    scene_b, ic_b, _ = _build_scene(scene, ic, ch, base_wind, grid, generator)
+    scene_b, ic_b, _ = _build_scene(scene, ic, ch, base_wind, grid,
+                                    random.prng_key(0, device))
     return scene_b, ic_b
 
 
@@ -239,8 +236,6 @@ def sobol_indices(scene, ic, sim_config, *, params: UncertaintyParams = Uncertai
     auto_pairs = pairs == "auto"
     if not auto_pairs:
         pairs = _check_pairs(pairs, groups)
-    from .analyzer import slab_seed
-
     dtype, device = scene.rocket.dry_mass.dtype, scene.rocket.dry_mass.device
     if base_wind is not None:
         grid = torch.as_tensor(base_wind[0], dtype=dtype, device=device)
@@ -252,10 +247,7 @@ def sobol_indices(scene, ic, sim_config, *, params: UncertaintyParams = Uncertai
     draws_b = _draw_matrix(seed, 1, n, grid.shape[0], dtype, device)
 
     def run(draws):
-        # a forecast ensemble's members: the same in every matrix
-        members = torch.Generator(device=device)
-        members.manual_seed(slab_seed(seed, 16 * 2))
-        scene_b, ic_b = _assemble(scene, ic, params, draws, grid, base_wind, dtype, members)
+        scene_b, ic_b = _assemble(scene, ic, params, draws, grid, base_wind, dtype)
         summary = simulate_summary_batch(scene_b, ic_b, sim_config)
         valid, _ = outlier_mask(summary, bounds)
         vals = {m: getattr(summary, m).cpu().numpy().astype(np.float64) for m in metrics}

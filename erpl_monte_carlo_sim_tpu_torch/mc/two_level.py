@@ -13,13 +13,12 @@ coupled lanes (the same draws) flown under both configurations, whose
 difference varies far less than the population, so a few thousand lanes
 pin the bias.
 
-The correction batch draws plain prng lanes (an honest i.i.d. stderr) from
-a generator of its own, seeded ``slab_seed(seed, CORRECTION_SLAB)``: a slab
-index far from the run's small ones, so the batch is decorrelated from
-every slab and from the single call. Its draw goes through one seam,
-``_draw_correction``, which the tests replace to feed the JAX package's
-lanes. Both legs fly through ``simulate_summary_batch`` (K1 on a card, one
-build per configuration).
+The correction batch draws plain prng lanes (an honest i.i.d. stderr)
+under ``fold_in(PRNGKey(seed), CORRECTION_SLAB)``, the JAX package's key: a
+fold far from the run's small slab indices, so the batch is decorrelated
+from every slab and from the single call. Its draw goes through one seam,
+``_draw_correction``. Both legs fly through ``simulate_summary_batch`` (K1
+on a card, one build per configuration).
 """
 
 from __future__ import annotations
@@ -28,9 +27,9 @@ import dataclasses
 import time
 
 import numpy as np
-import torch
 
 from ..engine.batch import simulate_summary_batch
+from .. import random
 from .dispersions import UncertaintyParams, sample_dispersions
 from .filter import OutlierBounds, outlier_mask
 
@@ -44,8 +43,8 @@ FAST_FIELDS = ("descent_dt_scale", "ascent_q_threshold", "wind_eval_per_step",
 
 METRICS = ("apogee_altitude", "range", "flight_time")
 
-# the correction batch's slab index for ``slab_seed`` (the JAX package folds
-# the same constant into its key)
+# what the correction batch folds into the run's key (the JAX package's
+# ``_KEY_SALT``)
 CORRECTION_SLAB = 0x2B1A5C0
 
 
@@ -58,14 +57,10 @@ def parity_twin(cfg):
 def _draw_correction(scene, ic, params, n: int, seed: int, base_wind, wind_grid_points: int,
                      wind_grid_top: float):
     """The correction batch's ``(scene_b, ic_b, sample)``: ``n`` prng lanes
-    on the scene's device from a generator seeded ``slab_seed(seed,
-    CORRECTION_SLAB)``. The batch's one draw; tests replace it to feed
-    other lanes."""
-    from .analyzer import slab_seed
-
-    gen = torch.Generator(device=scene.rocket.dry_mass.device)
-    gen.manual_seed(slab_seed(seed, CORRECTION_SLAB))
-    return sample_dispersions(gen, scene, ic, params, n, base_wind=base_wind,
+    on the scene's device under ``fold_in(PRNGKey(seed), CORRECTION_SLAB)``.
+    The batch's one draw; tests can replace it to feed other lanes."""
+    key = random.fold_in(random.prng_key(seed), CORRECTION_SLAB)
+    return sample_dispersions(key, scene, ic, params, n, base_wind=base_wind,
                               wind_grid_points=wind_grid_points, wind_grid_top=wind_grid_top)
 
 

@@ -2,10 +2,11 @@
 
 A wind field is ``(altitudes[N], wind[..., N, 3])``: a shared ``[N, 3]``
 table or one ``[B, N, 3]`` table per Monte Carlo lane on a shared grid. The
-profile generators take an optional ``[..., N, 3]`` standard-normal
-``noise`` that drives the AR(1) recursion; without it they draw from a
-``torch.Generator``. Any leading batch dimensions broadcast, so a whole
-Monte Carlo batch of profiles is one call.
+profile generators take a threefry key (``random``, ``[..., 2]``: one per
+profile) and draw the AR(1) recursion's standard normals under it as the JAX
+package does, or take that ``[..., N, 3]`` driver as ``noise`` (the key may
+then be None). Any leading batch dimensions broadcast, so a whole Monte
+Carlo batch of profiles is one call.
 
 Constants: sigma = 2 m/s decaying exp(-h/2000), correlation exp(-dh/100)
 clipped to [0.1, 0.95], innovation sigma*sqrt(max(1-rho^2, 0.01)),
@@ -20,6 +21,7 @@ import math
 import numpy as np
 import torch
 
+from .. import random
 from ..ops.interp import interpolate_vec
 from ..utils.tree import default_dtype, materialize
 
@@ -75,13 +77,12 @@ def power_law_profile(p: WindModelParams, altitude, reference_wind_speed,
 _VERTICAL = (1.0, 1.0, 0.3)
 
 
-def _ar1_scan(p: WindModelParams, altitudes, mean_uv, mean_w=None, noise=None,
-              generator=None):
+def _ar1_scan(p: WindModelParams, key, altitudes, mean_uv, mean_w=None, noise=None):
     """AR(1) turbulence over the grid ``altitudes[N]`` added to the mean wind.
 
     ``mean_uv [..., N, 2]``, ``mean_w [..., N]`` (zero when None), ``noise``
-    ``[..., N, 3]`` standard normals (drawn from ``generator`` when None).
-    Returns ``[..., N, 3]``."""
+    ``[..., N, 3]`` standard normals (``normal(key, (N, 3))`` for each key of
+    ``key [..., 2]`` when None). Returns ``[..., N, 3]``."""
     n = altitudes.shape[0]
     dtype, device = mean_uv.dtype, mean_uv.device
     if mean_w is None:
@@ -93,8 +94,7 @@ def _ar1_scan(p: WindModelParams, altitudes, mean_uv, mean_w=None, noise=None,
     innov_sigma = sigma * torch.sqrt(torch.clamp_min(1.0 - rho * rho, 0.01))
 
     if noise is None:
-        noise = torch.randn(mean_uv.shape[:-1] + (3,), dtype=dtype, device=device,
-                            generator=generator)
+        noise = random.normal(random.as_key(key, device), (n, 3), dtype)
     else:
         noise = torch.as_tensor(noise, dtype=dtype, device=device)
 
@@ -109,37 +109,44 @@ def _ar1_scan(p: WindModelParams, altitudes, mean_uv, mean_w=None, noise=None,
     return mean + turb
 
 
-def generate_stochastic_profile(p: WindModelParams, altitudes, base_wind_speed,
-                                base_wind_direction=None, noise=None,
-                                generator=None) -> torch.Tensor:
-    """Power-law shear along ``base_wind_direction`` (uniform [0, 2 pi) from
-    ``generator`` when None) plus AR(1) turbulence. ``base_wind_speed`` and
-    ``base_wind_direction`` may carry leading batch dims; returns
-    ``[..., N, 3]``."""
+def generate_stochastic_profile(p: WindModelParams, key, altitudes, base_wind_speed,
+                                base_wind_direction=None, noise=None) -> torch.Tensor:
+    """Power-law shear along ``base_wind_direction`` plus AR(1) turbulence,
+    under ``dir_key, turb_key = split(key)`` as the JAX package splits it:
+    the direction uniform on [0, 2 pi) under ``dir_key`` when None (in
+    float64, ``jax.random.uniform``'s default under x64, then the grid's
+    dtype), the turbulence under ``turb_key`` unless ``noise`` is given.
+    ``key [..., 2]``, ``base_wind_speed`` and ``base_wind_direction`` may
+    carry leading batch dims; returns ``[..., N, 3]``."""
     dtype, device = altitudes.dtype, altitudes.device
     speed_in = torch.as_tensor(base_wind_speed, dtype=dtype, device=device)
+    if key is None:
+        if base_wind_direction is None or noise is None:
+            raise ValueError("generate_stochastic_profile draws: it needs a key")
+        turb_key = None
+    else:
+        dir_key, turb_key = random.split(random.as_key(key, device)).unbind(-2)
     if base_wind_direction is None:
-        base_wind_direction = 2.0 * math.pi * torch.rand(
-            speed_in.shape, dtype=dtype, device=device, generator=generator)
-    direction = torch.as_tensor(base_wind_direction, dtype=dtype, device=device)
+        base_wind_direction = random.uniform(dir_key, (), torch.float64, 0.0, 2.0 * math.pi)
+    direction = torch.as_tensor(base_wind_direction, device=device).to(dtype)
     speed = power_law_profile(p, altitudes, speed_in[..., None])
     mean_uv = torch.stack([speed * torch.cos(direction)[..., None],
                            speed * torch.sin(direction)[..., None]], dim=-1)
-    return _ar1_scan(p, altitudes, mean_uv, noise=noise, generator=generator)
+    return _ar1_scan(p, turb_key, altitudes, mean_uv, noise=noise)
 
 
-def perturb_wind_profile(p: WindModelParams, altitudes, base_profile, noise=None,
-                         generator=None) -> torch.Tensor:
-    """AR(1) turbulence around a forecast ``base_profile [..., N, 3]``; all
-    three components keep their forecast mean."""
+def perturb_wind_profile(p: WindModelParams, key, altitudes, base_profile,
+                         noise=None) -> torch.Tensor:
+    """AR(1) turbulence under ``key`` (unless ``noise`` is given) around a
+    forecast ``base_profile [..., N, 3]``; all three components keep their
+    forecast mean."""
     base_profile = torch.as_tensor(base_profile, dtype=altitudes.dtype,
                                    device=altitudes.device)
     if noise is not None:
         base_profile = torch.broadcast_to(
             base_profile, torch.as_tensor(noise).shape)
-    return _ar1_scan(p, altitudes, base_profile[..., :2],
-                     mean_w=base_profile[..., 2], noise=noise,
-                     generator=generator)
+    return _ar1_scan(p, key, altitudes, base_profile[..., :2],
+                     mean_w=base_profile[..., 2], noise=noise)
 
 
 def ar1_transfer_matrix(p: WindModelParams, altitudes) -> np.ndarray:

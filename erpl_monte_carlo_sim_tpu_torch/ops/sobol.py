@@ -20,9 +20,10 @@ live in ``int64`` and every step keeps them below 2**32: XOR and right
 shifts cannot leave that range, and a product with a 32-bit constant is
 formed from its two 16-bit halves (``_mul32``), each partial below 2**49.
 
-The per-(scramble, dimension) seeds come from the run's ``torch.Generator``
-(the JAX package draws them with ``jax.random.bits``) or are given as a
-``seeds`` tensor, the seam the tests feed the JAX package's seeds through.
+The per-(scramble, dimension) seeds are ``bits(key, (scrambles, d))`` under
+the run's threefry key (``random``), as the JAX package draws them with
+``jax.random.bits``, or are given as a ``seeds`` tensor (a seam of the
+tests).
 """
 
 from __future__ import annotations
@@ -32,6 +33,8 @@ import os
 
 import numpy as np
 import torch
+
+from .. import random
 
 __all__ = ["direction_numbers", "max_dims", "sobol_points", "sobol_uniform", "sobol_normal",
            "draw_seeds", "ndtri"]
@@ -114,11 +117,10 @@ def _to_unit(x: torch.Tensor, dtype) -> torch.Tensor:
     return ((x >> 9).to(dtype) + 0.5) * 2.0 ** -23
 
 
-def draw_seeds(generator: torch.Generator, scrambles: int, d: int) -> torch.Tensor:
-    """``[scrambles, d]`` uniform 32-bit scramble seeds (int64) on the
-    generator's device."""
-    return torch.randint(0, 1 << 32, (scrambles, d), dtype=torch.int64,
-                         device=generator.device, generator=generator)
+def draw_seeds(key: torch.Tensor, scrambles: int, d: int) -> torch.Tensor:
+    """``[scrambles, d]`` 32-bit scramble seeds (int64) on the key's device:
+    ``jax.random.bits(key, (scrambles, d), uint32)``."""
+    return random.bits(key, (scrambles, d))
 
 
 def sobol_points(n: int, d: int, seeds: torch.Tensor) -> torch.Tensor:
@@ -136,15 +138,14 @@ def sobol_points(n: int, d: int, seeds: torch.Tensor) -> torch.Tensor:
     return _owen_scramble(base, seeds.to(torch.int64)).reshape(n, d)
 
 
-def sobol_uniform(n: int, d: int, scrambles: int = 1, dtype=torch.float32, *,
-                  generator: torch.Generator | None = None,
+def sobol_uniform(key, n: int, d: int, scrambles: int = 1, dtype=torch.float32, *,
                   seeds: torch.Tensor | None = None) -> torch.Tensor:
     """``[n, d]`` scrambled Sobol points in (0, 1): ``sobol_points`` on
-    ``seeds``, or on seeds drawn from ``generator``."""
+    ``seeds``, or on seeds drawn under ``key`` (``draw_seeds``)."""
     if seeds is None:
-        if generator is None:
-            raise ValueError("sobol_uniform needs a generator or seeds")
-        seeds = draw_seeds(generator, scrambles, d)
+        if key is None:
+            raise ValueError("sobol_uniform needs a key or seeds")
+        seeds = draw_seeds(key, scrambles, d)
     elif seeds.shape[0] != scrambles:
         raise ValueError(f"{seeds.shape[0]} seed rows for {scrambles} scrambles")
     return _to_unit(sobol_points(n, d, seeds), dtype)
@@ -158,8 +159,7 @@ def ndtri(u: torch.Tensor) -> torch.Tensor:
     return torch.special.ndtri(u.to(torch.float64)).to(u.dtype)
 
 
-def sobol_normal(n: int, d: int, scrambles: int = 1, dtype=torch.float32, *,
-                 generator: torch.Generator | None = None,
+def sobol_normal(key, n: int, d: int, scrambles: int = 1, dtype=torch.float32, *,
                  seeds: torch.Tensor | None = None) -> torch.Tensor:
     """``[n, d]`` standard-normal scrambled Sobol draws (``ndtri``)."""
-    return ndtri(sobol_uniform(n, d, scrambles, dtype, generator=generator, seeds=seeds))
+    return ndtri(sobol_uniform(key, n, d, scrambles, dtype, seeds=seeds))

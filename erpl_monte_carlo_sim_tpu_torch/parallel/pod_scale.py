@@ -13,9 +13,11 @@ or one command per process with the JAX script's flags (``--device cpu
   python -m erpl_monte_carlo_sim_tpu_torch.parallel.pod_scale 8192 \\
       --coordinator localhost:9911 --num-processes 2 --process-id 1
 
-Lanes go in slabs (bounded device time and memory). Each rank draws its own
-share of slab k from ``slab_seed(slab_seed(seed, k), rank)`` (the JAX
-script's ``fold_in(slab_key, pid)``), flies it through
+Lanes go in slabs (bounded device time and memory), slab k under the JAX
+script's ``slab_key = fold_in(PRNGKey(seed), k)``. A single rank draws the
+whole slab under it; with more ranks each draws its own share under
+``fold_in(slab_key, rank)``, as the JAX script's processes do. Each flies it
+through
 ``simulate_summary_batch`` (on a card the flight kernel), and joins the
 slab's collective statistics: ``collective_stats`` of the rail-exit speed
 and the apogee, ``collective_footprint_moments`` and the device-resident
@@ -38,15 +40,18 @@ __all__ = ["main", "rank_lanes"]
 log = logging.getLogger(__name__)
 
 
-def rank_lanes(scene, ic, seed: int, k: int, rank: int, n: int):
-    """Rank ``rank``'s ``n`` lanes of slab ``k`` in a run seeded ``seed``:
-    ``(scene_b, ic_b, sample)`` drawn on the scene's device from
-    ``slab_seed(slab_seed(seed, k), rank)``."""
-    from ..mc import sample_dispersions, slab_seed
+def rank_lanes(scene, ic, seed: int, k: int, rank: int, n: int, size: int):
+    """Rank ``rank``'s ``n`` lanes of slab ``k`` in a run seeded ``seed`` over
+    ``size`` ranks: ``(scene_b, ic_b, sample)`` drawn on the scene's device
+    under ``slab_key = fold_in(PRNGKey(seed), k)`` for a single rank, under
+    ``fold_in(slab_key, rank)`` for more."""
+    from ..mc import sample_dispersions
+    from .. import random
 
-    gen = torch.Generator(device=ic.position.device)
-    gen.manual_seed(slab_seed(slab_seed(seed, k), rank))
-    return sample_dispersions(gen, scene, ic, n=n)
+    key = random.fold_in(random.prng_key(seed), k)
+    if size > 1:
+        key = random.fold_in(key, rank)
+    return sample_dispersions(key, scene, ic, n=n)
 
 
 def main(total_lanes: int, slab: int = 262_144, steps_cfg: float = 6.0, seed: int = 0,
@@ -78,7 +83,7 @@ def main(total_lanes: int, slab: int = 262_144, steps_cfg: float = 6.0, seed: in
     while done_lanes < total_lanes:
         n = min(slab, total_lanes - done_lanes)
         n = max(size, (n // size) * size)
-        scene_l, ic_l, _ = rank_lanes(scene, ic, seed, slab_idx, rank, n // size)
+        scene_l, ic_l, _ = rank_lanes(scene, ic, seed, slab_idx, rank, n // size, size)
         summary = simulate_summary_batch(scene_l, ic_l, cfg)
         st = collective_stats(summary.rail.rail_exit_speed, None, mesh)
         apo = collective_stats(summary.apogee_altitude, None, mesh)

@@ -1,10 +1,15 @@
 """PyTorch port, ``MonteCarloAnalyzer.run_monte_carlo`` (single-call branch)
-on the CPU against the JAX analyzer on the same configuration. The two
-samplers draw different lanes from the same seed, so the analyses agree in
-schema and in distribution: means within 4 combined standard errors."""
+on the CPU against the JAX analyzer on the same configuration and seed. Both
+draw under ``PRNGKey(seed)``, so the analyses agree lane for lane: the same
+schema, the valid mask exact, every summary leaf and the statistics within
+rtol 1e-6 (and the means within 4 combined standard errors, as any two
+samples of the distribution would be). The JAX analysis is also the golden
+chip_smoke.py phase 17c holds the card's analysis to; it must equal the
+committed file."""
 
 import dataclasses
 import math
+import sys
 
 import numpy as np
 import pytest
@@ -15,13 +20,15 @@ from erpl_monte_carlo_sim_tpu.engine import SimConfig as JaxConfig
 from erpl_monte_carlo_sim_tpu.mc import MonteCarloAnalyzer as JaxAnalyzer
 from erpl_monte_carlo_sim_tpu.models import liquid_motor as jax_liquid
 from erpl_monte_carlo_sim_tpu.models import nominal_scene as jax_nominal
+from chip_smoke import ANALYSIS_GOLDEN, ANALYSIS_LANES, analysis_arrays, analysis_error
 from erpl_monte_carlo_sim_tpu_torch.engine import InitialConditions, SimConfig
 from erpl_monte_carlo_sim_tpu_torch.mc import MonteCarloAnalyzer, OutlierBounds
 from erpl_monte_carlo_sim_tpu_torch.models import liquid_motor
+from erpl_monte_carlo_sim_tpu_torch.ops import prng
 
 torch.set_num_threads(1)
 
-N = 256
+N = ANALYSIS_LANES
 WINDOW = SimConfig(max_time=6.0)
 
 
@@ -62,6 +69,29 @@ def test_means_agree_with_jax(analyses, metric):
     se = math.sqrt(a["std"] ** 2 / mine["n_samples"] + b["std"] ** 2 / ref["n_samples"])
     assert abs(a["mean"] - b["mean"]) <= 4 * se + 1e-9, (a["mean"], b["mean"], se)
     assert len(a["percentiles"]) == 5 and len(a["percentile_ci"]) == 5
+
+
+def test_lanes_match_jax(analyses):
+    """The seed draws the JAX package's lanes: the valid mask and reasons
+    exact, every summary leaf and the statistics within rtol 1e-6."""
+    mine, ref = analyses
+    np.testing.assert_array_equal(mine["valid_mask"], ref["valid_mask"])
+    np.testing.assert_array_equal(mine["reasons"], ref["reasons"])
+    assert 0 < mine["n_samples"] <= N and mine["n_outliers"] == ref["n_outliers"]
+    analysis_error(analysis_arrays(mine), analysis_arrays(ref))
+    np.testing.assert_allclose(mine["sample"].motor_thrust_multiplier,
+                               ref["sample"].motor_thrust_multiplier, rtol=1e-12)
+
+
+def test_card_golden_is_live_jax(analyses):
+    """chip_smoke.py phase 17c's golden is the JAX analysis of this
+    configuration, as JAX computes it now."""
+    _, ref = analyses
+    live = analysis_arrays(ref)
+    with np.load(ANALYSIS_GOLDEN) as z:
+        assert sorted(z.files) == sorted(live)
+        for k in live:
+            np.testing.assert_array_equal(z[k], live[k], err_msg=k)
 
 
 def test_reproducible_for_a_seed_and_not_across_seeds():
@@ -120,8 +150,7 @@ def test_sampling_constructor_options_run(option, block):
     ic = InitialConditions.vertical_launch("cpu")
     a = mc.run_monte_carlo(ic, n_samples=8, seed=2)
     assert block is None or block in a
-    _, _, want = sample_dispersions(torch.Generator().manual_seed(2), mc.scene, ic, n=8,
-                                    **option)
+    _, _, want = sample_dispersions(prng.prng_key(2), mc.scene, ic, n=8, **option)
     np.testing.assert_array_equal(a["sample"].mass_multiplier, want.mass_multiplier.numpy())
     if option.get("antithetic"):
         np.testing.assert_array_equal(a["sample"].wind_speed[4:],
@@ -159,7 +188,7 @@ def test_sim_config_flags_reach_the_flights(flags):
     mc = MonteCarloAnalyzer(motor=liquid_motor("cpu"), sim_config=cfg)
     ic = InitialConditions.vertical_launch("cpu")
     a = mc.run_monte_carlo(ic, n_samples=4, seed=5)
-    scene_b, ic_b, _ = sample_dispersions(torch.Generator().manual_seed(5), mc.scene, ic, n=4)
+    scene_b, ic_b, _ = sample_dispersions(prng.prng_key(5), mc.scene, ic, n=4)
     want = to_numpy(simulate_summary_batch(scene_b, ic_b, cfg))
     np.testing.assert_array_equal(a["summary"].apogee_altitude, want.apogee_altitude)
     np.testing.assert_array_equal(a["summary"].n_steps, want.n_steps)
@@ -202,3 +231,14 @@ def test_forecast_ensemble_raises():
 def test_forecast_ensemble_raises_on_the_slabbed_path():
     a = _ensemble_run(lane_slab=2)
     assert a["summary"] is None and a["n_total"] == 8
+
+
+if __name__ == "__main__" and sys.argv[1:] == ["--write-golden"]:
+    # regenerate phase 17c's golden: python tests/test_torch_analyzer.py
+    # --write-golden (from the repository's root, with JAX_ENABLE_X64=1)
+    import jax
+
+    jax.config.update("jax_enable_x64", True)
+    np.savez(ANALYSIS_GOLDEN, **analysis_arrays(JaxAnalyzer(
+        scene=jax_nominal(jax_liquid()), sim_config=JaxConfig(max_time=6.0),
+        persistent_cache=False).run_monte_carlo(JaxIC.vertical_launch(), n_samples=N, seed=0)))

@@ -24,7 +24,8 @@ def test_every_module_imports_with_jax_and_flax_blocked():
     assert "erpl_monte_carlo_sim_tpu_torch.engine.diff" in MODULES
     assert {f"erpl_monte_carlo_sim_tpu_torch.parallel.{m}" for m in (
         "mesh", "sharded", "pod_scale", "spawn")} <= set(MODULES)
-    assert "erpl_monte_carlo_sim_tpu_torch.ops.sobol" in MODULES
+    assert {f"erpl_monte_carlo_sim_tpu_torch.{m}" for m in (
+        "ops.sobol", "ops.prng", "kernels.threefry", "random")} <= set(MODULES)
     assert {f"erpl_monte_carlo_sim_tpu_torch.{m}" for m in (
         "example", "reporting", "reporting.plots", "reporting.report", "reporting.results",
         "cli", "cli.find_max_apogee", "cli.analyze_outlier", "cli.launch_window",

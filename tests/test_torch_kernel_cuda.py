@@ -29,6 +29,7 @@ from erpl_monte_carlo_sim_tpu_torch.kernels.measure import (COMBINED, FLAG_SETS,
 from erpl_monte_carlo_sim_tpu_torch.mc import MonteCarloAnalyzer, sample_dispersions
 from erpl_monte_carlo_sim_tpu_torch.mc.analyzer import _host_stats
 from erpl_monte_carlo_sim_tpu_torch.models import liquid_motor, nominal_scene
+from erpl_monte_carlo_sim_tpu_torch.ops import prng
 
 torch.set_num_threads(1)
 
@@ -37,9 +38,8 @@ WINDOW = SimConfig(max_time=6.0)
 
 def cpu_batch(n, dtype=torch.float64):
     """A dispersed batch on the CPU, split as the wrapper takes it."""
-    gen = torch.Generator().manual_seed(0)
     scene_b, ic_b, _ = sample_dispersions(
-        gen, nominal_scene(liquid_motor("cpu", dtype)),
+        prng.prng_key(0), nominal_scene(liquid_motor("cpu", dtype)),
         InitialConditions.vertical_launch("cpu", dtype), n=n)
     return prepare_batch(scene_b, ic_b)
 
@@ -345,9 +345,7 @@ def test_sobol_points_on_the_card_are_the_cpus_on_cuda():
         pytest.skip("needs a CUDA device")
     from erpl_monte_carlo_sim_tpu_torch.ops import sobol
 
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(3)
-    seeds = sobol.draw_seeds(gen, 4, 43)
+    seeds = sobol.draw_seeds(prng.prng_key(3, "cuda"), 4, 43)
     points = sobol.sobol_points(4096, 43, seeds)
     assert torch.equal(points.cpu(), sobol.sobol_points(4096, 43, seeds.cpu()))
     for dtype in (torch.float32, torch.float64):
@@ -545,3 +543,25 @@ def test_nccl_one_rank_mesh_run_is_the_run_without_a_mesh_on_cuda():
             assert got["performance"]["cores_used"] == 1
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_threefry_kernel_is_plain_and_jax_on_cuda():
+    """Every draw of chip_smoke.py phase 17a through the threefry kernel:
+    the plain version's on the card and the committed JAX golden's at the
+    phase's bars (the chains' kept lanes against the golden)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from chip_smoke import (THREEFRY_GOLDEN, threefry_cases, threefry_error, threefry_key,
+                            threefry_kept)
+    from erpl_monte_carlo_sim_tpu_torch.kernels import threefry as tf
+
+    with np.load(THREEFRY_GOLDEN) as z:
+        golden = {k: z[k] for k in z.files}
+    for name, spec, kind, shape, kw in threefry_cases():
+        key = threefry_key(spec, torch.device("cuda"))
+        before = tf.launches
+        got = tf.draw(key, kind, shape, **kw)
+        assert tf.launches == before + 1, name
+        threefry_error(got, tf.draw_reference(key, kind, shape, **kw), kind, kw.get("dtype"))
+        threefry_error(threefry_kept(name, got), golden[name], kind, kw.get("dtype"))

@@ -40,6 +40,7 @@ from erpl_monte_carlo_sim_tpu_torch.kernels.measure import (COMBINED, FULL_FLIGH
 from erpl_monte_carlo_sim_tpu_torch.mc import sample_dispersions
 from erpl_monte_carlo_sim_tpu_torch.models import (RocketParams, WindField, liquid_motor,
                                                    nominal_scene, solid_motor)
+from erpl_monte_carlo_sim_tpu_torch.ops import prng
 
 torch.set_num_threads(1)
 
@@ -223,9 +224,8 @@ def record_emulated(libs, scene_nw, grid, wind, ics, cfg):
 
 
 def batch(n, dtype, motor=liquid_motor, seed=0):
-    gen = torch.Generator().manual_seed(seed)
     scene_b, ic_b, _ = sample_dispersions(
-        gen, nominal_scene(motor("cpu", dtype)),
+        prng.prng_key(seed), nominal_scene(motor("cpu", dtype)),
         InitialConditions.vertical_launch("cpu", dtype), n=n)
     return scene_b, ic_b
 

@@ -22,6 +22,7 @@ from erpl_monte_carlo_sim_tpu_torch.engine.batch import prepare_batch
 from erpl_monte_carlo_sim_tpu_torch.kernels import flight_summary as fs
 from erpl_monte_carlo_sim_tpu_torch.mc import sample_dispersions
 from erpl_monte_carlo_sim_tpu_torch.models import liquid_motor, nominal_scene
+from erpl_monte_carlo_sim_tpu_torch.ops import prng
 
 torch.set_num_threads(1)
 
@@ -29,9 +30,8 @@ WINDOW = SimConfig(max_time=6.0)
 
 
 def cpu_batch(n, dtype=torch.float64):
-    gen = torch.Generator().manual_seed(0)
     scene_b, ic_b, _ = sample_dispersions(
-        gen, nominal_scene(liquid_motor("cpu", dtype)),
+        prng.prng_key(0), nominal_scene(liquid_motor("cpu", dtype)),
         InitialConditions.vertical_launch("cpu", dtype), n=n)
     return prepare_batch(scene_b, ic_b)
 
@@ -465,3 +465,81 @@ def test_bound_counts_recorded_frames():
     assert b.bytes == base.bytes + 16 * 60 * 2 * 8 + 60 * 2
     bare = fs.bound_ms(out, SimConfig(), torch.float64, 1000, {**recs, "derived": {}})
     assert bare.ops == base.ops
+
+
+def test_rail_exit_ties_need_float64_evidence():
+    """chip_smoke's ``rail_ties``: lane 15,106 of ``PRNGKey(0)``'s float32
+    lanes under ``wind_table_bf16`` leaves the rail at 0.85 s in the plain
+    version and at 0.84 s on the card. Flown in float64, a rail length
+    moved by the float32 bar puts it on either step: a tie, excused. A lane
+    a step apart that float64 does not put on both steps raises."""
+    import chip_smoke
+
+    lane = 15_106
+    scene = nominal_scene(liquid_motor("cpu", torch.float32))
+    ic = InitialConditions.vertical_launch("cpu", torch.float32)
+    scene_b, ic_b, _ = sample_dispersions(prng.prng_key(0), scene, ic, n=lane + 1)
+    args = prepare_batch(scene_b, ic_b)
+    n = args[3][0].shape[0]
+    args = chip_smoke.map_tensors(  # four lanes: no shared leaf is four long
+        lambda t: t[lane - 3:].contiguous() if t.ndim >= 1 and t.shape[0] == n else t, args)
+    cfg = SimConfig(max_time=1.0, wind_table_bf16=True)
+    ref = fs.flight_summary_reference(*args, cfg)
+    assert float(ref["rail_exit_time"][3]) == pytest.approx(0.85)
+    got = {k: v.clone() for k, v in ref.items()}
+    got["rail_exit_time"][3] = 0.84  # the card's exit
+    ties = chip_smoke.rail_ties(args, ref, got, cfg, torch.float32)
+    assert ties.tolist() == [False, False, False, True]
+    got["rail_exit_time"][0] += 0.01  # a lane float64 puts on its step alone
+    with pytest.raises(AssertionError, match="no tie"):
+        chip_smoke.rail_ties(args, ref, got, cfg, torch.float32)
+
+
+def test_apogee_ties_are_one_step_apart():
+    """chip_smoke's ``apogee_ties``: on a landing tie, an apogee time at
+    most a coarse step apart is excused only where the plain version in
+    float64 admits it as its apex. ``PRNGKey(0)``'s first seven dispersed
+    lanes with 10 kg of propellant, with a 0.08 s step and coarse steps of
+    0.16 s, the coast turning coarse at lane 0's own dynamic pressure on its
+    93rd step (7877.98 Pa in float64). Lane 0 peaks 19.28 s after rail exit
+    in float32 and in float64 with the threshold moved up by the float32
+    bar (the coast turns coarse a step earlier), and at 19.20 s in float64:
+    both are ties. Lane 4 peaks at 18.24 s, 18.3 mm above the step after and
+    233 mm above the step before, against a bar of 33.5 mm: 18.40 s is a
+    tie, 18.08 s raises, and three steps away is off the bars."""
+    import chip_smoke
+    from erpl_monte_carlo_sim_tpu_torch.kernels.measure import FULL_FLIGHTS
+    from erpl_monte_carlo_sim_tpu_torch.models import RocketParams
+
+    f32 = torch.float32
+    scene = dataclasses.replace(nominal_scene(liquid_motor("cpu", f32, propellant_mass=10.0)),
+                                rocket=RocketParams.create("cpu", f32, propellant_mass=10.0))
+    scene_b, ic_b, _ = sample_dispersions(  # seven lanes: no shared leaf is seven long
+        prng.prng_key(0), scene, InitialConditions.vertical_launch("cpu", f32), n=7)
+    args = prepare_batch(scene_b, ic_b)
+    cfg = SimConfig(**dict(FULL_FLIGHTS, descent_dt_scale=2, ascent_q_threshold=7877.984034123052),
+                    dt=0.08, max_time=21.0)
+    coarse = cfg.dt * cfg.descent_dt_scale
+    ref = fs.flight_summary_reference(*args, cfg)
+    assert [float(ref["apogee_time"][i]) for i in (0, 4)] == pytest.approx([19.28, 18.24], abs=1e-4)
+    got = {k: v.clone() for k, v in ref.items()}
+    for lane in (0, 4):  # landings a step later: landing ties
+        got["n_steps"][lane] += 1
+        got["flight_time"][lane] += coarse
+    got["apogee_time"][0] -= cfg.dt  # float64's apex, a coast coarse a step later
+    got["apogee_time"][4] += coarse  # the step after the apex
+    _, ties, _, _, tied_apex = chip_smoke.tied_landings(args, ref, got, cfg, "t")
+    assert ties.nonzero().flatten().tolist() == tied_apex.nonzero().flatten().tolist() == [0, 4]
+    got["apogee_time"][0] = ref["apogee_time"][0]
+    got["apogee_time"][4] -= 2 * coarse  # the step before
+    with pytest.raises(AssertionError, match="no tie"):
+        chip_smoke.tied_landings(args, ref, got, cfg, "t")
+    got["apogee_time"][4] += 4 * coarse  # three steps after
+    with pytest.raises(AssertionError, match="apogee_time"):
+        chip_smoke.tied_landings(args, ref, got, cfg, "t")
+    got["apogee_time"][2] += 4 * coarse  # three steps later
+    with pytest.raises(AssertionError, match="apogee_time"):
+        chip_smoke.tied_landings(args, ref, got, cfg, "t")
+    got["apogee_time"][0] += 2 * cfg.dt  # three steps later
+    with pytest.raises(AssertionError, match="apogee_time"):
+        chip_smoke.tied_landings(args, ref, got, cfg, "t")

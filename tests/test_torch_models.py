@@ -330,29 +330,46 @@ def test_wind_profiles_with_explicit_noise(kind, rng):
     speed = rng.uniform(0.0, 5.0, 6)
     direction = rng.uniform(0.0, 2 * math.pi, 6)
     if kind == "stochastic":
-        got = tmod.generate_stochastic_profile(tp, t(grid), t(speed), t(direction),
+        got = tmod.generate_stochastic_profile(tp, None, t(grid), t(speed), t(direction),
                                                noise=t(noise))
         ref = [jmod.generate_stochastic_profile(jp, key, grid, speed[i], direction[i],
                                                 noise=noise[i]) for i in range(6)]
     elif kind == "perturb":
         base = rng.normal(size=(100, 3)) * 5
-        got = tmod.perturb_wind_profile(tp, t(grid), t(base), noise=t(noise))
+        got = tmod.perturb_wind_profile(tp, None, t(grid), t(base), noise=t(noise))
         ref = [jmod.perturb_wind_profile(jp, key, grid, base, noise=noise[i])
                for i in range(6)]
     else:
         mean_uv = rng.normal(size=(6, 100, 2))
-        got = torch_ar1_scan(tp, t(grid), t(mean_uv), noise=t(noise))
+        got = torch_ar1_scan(tp, None, t(grid), t(mean_uv), noise=t(noise))
         ref = [jax_ar1_scan(jp, key, jnp.asarray(grid), jnp.asarray(mean_uv[i]),
                             noise=noise[i]) for i in range(6)]
     close(got, np.stack(ref), atol=1e-12)
 
 
 def test_wind_generator_draws_reproducible():
-    tp = tmod.WindModelParams.create(CPU)
-    grid = torch.linspace(0.0, 25000.0, 100, dtype=torch.float64)
-    a = tmod.generate_stochastic_profile(tp, grid, 3.0, generator=torch.Generator().manual_seed(5))
-    b = tmod.generate_stochastic_profile(tp, grid, 3.0, generator=torch.Generator().manual_seed(5))
-    assert a.shape == (100, 3) and torch.equal(a, b)
+    """Drawn under a key (the direction and the turbulence, a batch of keys
+    at once): the JAX package's profiles for the same keys."""
+    import jax
+
+    from erpl_monte_carlo_sim_tpu_torch import random as prandom
+    from erpl_monte_carlo_sim_tpu_torch.ops import prng
+
+    tp, jp = tmod.WindModelParams.create(CPU), jmod.WindModelParams()
+    grid = np.linspace(0.0, 25000.0, 100)
+    keys = jax.random.split(jax.random.PRNGKey(5), 3)
+    tkeys = prandom.split(prng.prng_key(5), 3)
+    a = tmod.generate_stochastic_profile(tp, tkeys, t(grid), t([3.0, 1.0, 4.5]))
+    assert a.shape == (3, 100, 3)
+    ref = [jmod.generate_stochastic_profile(jp, keys[i], jnp.asarray(grid), s)
+           for i, s in enumerate((3.0, 1.0, 4.5))]
+    close(a, np.stack(ref), atol=1e-12)
+    base = np.cumsum(np.ones((100, 3)), axis=0)
+    close(tmod.perturb_wind_profile(tp, tkeys[0], t(grid), t(base)),
+          jmod.perturb_wind_profile(jp, keys[0], jnp.asarray(grid), jnp.asarray(base)),
+          atol=1e-12)
+    assert torch.equal(a, tmod.generate_stochastic_profile(tp, tkeys, t(grid),
+                                                           t([3.0, 1.0, 4.5])))
 
 
 # ------------------------------------------------------------------ scene, config, state

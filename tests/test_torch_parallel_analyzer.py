@@ -428,3 +428,31 @@ def test_pod_scale_two_processes_identical_stats(everything):
     assert outs[0]["lanes"] == 256 and outs[0]["apogee_extremes"]["n"] > 0
     assert outs[0]["apogee_mean_at_cutoff"] > 0
     assert outs[0]["apogee_extremes"]["min"] <= outs[0]["apogee_extremes"]["max"]
+
+
+@pytest.mark.parametrize("size", [1, 2], ids=["world1", "world2"])
+def test_pod_scale_draws_the_jax_scripts_lanes(size):
+    """``pod_scale``'s slab k is the JAX script's: one rank draws the whole
+    slab under ``fold_in(PRNGKey(seed), k)``, more ranks their shares under
+    ``fold_in(slab_key, rank)`` (scripts/pod_scale.py:96-112)."""
+    import jax
+
+    from erpl_monte_carlo_sim_tpu.engine import InitialConditions as JaxIC
+    from erpl_monte_carlo_sim_tpu.mc import sample_dispersions as jax_sample
+    from erpl_monte_carlo_sim_tpu.models import liquid_motor as jax_liquid
+    from erpl_monte_carlo_sim_tpu.models import nominal_scene as jax_nominal
+    from erpl_monte_carlo_sim_tpu_torch.models import nominal_scene
+    from erpl_monte_carlo_sim_tpu_torch.parallel.pod_scale import rank_lanes
+
+    seed, k, n = 3, 1, 8
+    slab_key = jax.random.fold_in(jax.random.PRNGKey(seed), k)
+    for rank in range(size):
+        key = slab_key if size == 1 else jax.random.fold_in(slab_key, rank)
+        _, _, want = jax_sample(key, jax_nominal(jax_liquid()), JaxIC.vertical_launch(), n=n)
+        _, _, got = rank_lanes(nominal_scene(liquid_motor("cpu")),
+                               InitialConditions.vertical_launch("cpu"), seed, k, rank, n, size)
+        for f in ("wind_speed", "wind_direction"):
+            np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(want, f)))
+        for f in ("initial_velocity_offset", "mass_multiplier", "motor_thrust_multiplier"):
+            np.testing.assert_allclose(getattr(got, f).numpy(), np.asarray(getattr(want, f)),
+                                       rtol=1e-12, err_msg=f)

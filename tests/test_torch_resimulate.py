@@ -8,7 +8,11 @@ tests/test_torch_slabbed.py feeds slabs), which a slabbed run's
 re-simulation draws through again. Re-simulated summaries must be the
 port's run's bit for bit, and agree with the JAX package's re-simulation of
 the same lanes at tests/test_trajectory_batch.py's bars, trajectories too.
-The lane counts are chosen so that one JAX compile of the recorder serves
+The port's own runs from the seed (no seam: the port draws the JAX
+package's lanes under ``PRNGKey(seed)`` and ``fold_in(., k)``) are the JAX
+runs too, masks exact and metrics within rtol 1e-6, and re-simulate, slab k
+drawn again under ``fold_in(PRNGKey(seed), k)``, to their own summaries bit
+for bit. The lane counts are chosen so that one JAX compile of the recorder serves
 every re-simulation. Also: ``lane_scenes``, the single-slot memo, the
 rejections, and the first chunk's cap under ``inline=True`` (ROADMAP F2b,
 not copied).
@@ -85,6 +89,13 @@ def runs():
             got = mc.run_monte_carlo(InitialConditions.vertical_launch("cpu"), n_samples=n,
                                      lane_slab=SINGLE, seed=SEED)
             out[kind] = (mc, got, ref_mc, ref)
+    for kind, n in (("single", SINGLE), ("slabbed", SLABBED)):
+        mc = port_analyzer()
+        out[kind + " from seed"] = (mc, mc.run_monte_carlo(
+            InitialConditions.vertical_launch("cpu"), n_samples=n, lane_slab=SINGLE, seed=SEED))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(analyzer_mod, "_draw_single", jax_single)
+        mp.setattr(analyzer_mod, "_draw_slab", jax_slab)
         yield out
 
 
@@ -92,6 +103,29 @@ def run_metric(analysis, name, ids):
     if analysis["summary"] is not None:
         return np.asarray(getattr(analysis["summary"], name))[ids]
     return analysis["metrics"][name][ids]
+
+
+@pytest.mark.parametrize("kind", ["single", "slabbed"])
+def test_from_seed_resimulation_is_jax(runs, kind):
+    """Outside the seams' patch, which the fixture lifts for these runs."""
+    ids = SINGLE_IDS if kind == "single" else SLABBED_IDS
+    mc, mine = runs[kind + " from seed"]
+    _, _, _, ref = runs[kind]
+    np.testing.assert_array_equal(mine["valid_mask"], ref["valid_mask"])
+    for name in ("apogee_altitude", "range", "flight_time"):
+        np.testing.assert_allclose(run_metric(mine, name, slice(None)),
+                                   run_metric(ref, name, slice(None)), rtol=1e-6,
+                                   err_msg=name)
+    with pytest.MonkeyPatch.context() as mp:  # the module's patch off: the port's own draw
+        mp.setattr(analyzer_mod, "_draw_single", DRAW_SINGLE)
+        mp.setattr(analyzer_mod, "_draw_slab", DRAW_SLAB)
+        s, _ = mc.resimulate_trajectories(ids)
+    for name in ("apogee_altitude", "range", "flight_time"):
+        np.testing.assert_array_equal(getattr(to_numpy(s), name), run_metric(mine, name, ids),
+                                      err_msg=name)
+
+
+DRAW_SINGLE, DRAW_SLAB = analyzer_mod._draw_single, analyzer_mod._draw_slab
 
 
 @pytest.mark.parametrize("kind", ["single", "slabbed"])

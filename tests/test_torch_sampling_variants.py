@@ -1,11 +1,13 @@
 """PyTorch port, the sampling variants of ``mc.sample_dispersions`` and the
 analyzer blocks they add, against the JAX package on the CPU.
 
-Each variant is drawn by the JAX package from ``PRNGKey(SEED)``; the port is
-fed the same draws through its seams (``_channels`` the standard normals and
-uniforms, ``ops.sobol`` the scramble seeds and ``_sobol_channels`` the
-points, ``_build_scene`` the turbulence driver, the Sobol-mode tail and the
-ensemble members). Bars: uniform channels bit for bit, the Sobol normals
+Each variant is drawn by the JAX package from ``PRNGKey(SEED)``, and by the
+port from the same key, with the JAX package's key structure: the same
+lanes. The port is also fed JAX's draws through its seams (``_channels`` the
+standard normals and uniforms, ``ops.sobol`` the scramble seeds and
+``_sobol_channels`` the points, ``_build_scene`` the turbulence driver, the
+Sobol-mode tail and the ensemble members), which checks the assembly alone.
+Bars: uniform channels bit for bit, the Sobol normals
 within 4 ulp of JAX's, every scene, initial-condition and sample leaf at
 rtol 1e-12 in float64 and 1e-5 in float32 (against the leaf's largest
 magnitude, for the wind components near zero), members exact.
@@ -44,6 +46,7 @@ from erpl_monte_carlo_sim_tpu_torch.mc import dispersions as D
 from erpl_monte_carlo_sim_tpu_torch.models import (WindModelParams, ar1_transfer_matrix,
                                                    liquid_motor, load_wind_ensemble_from_csvs,
                                                    nominal_scene, solid_motor)
+from erpl_monte_carlo_sim_tpu_torch.ops import prng
 from erpl_monte_carlo_sim_tpu_torch.ops.sobol import sobol_uniform
 from erpl_monte_carlo_sim_tpu_torch.utils.convert import (ic_from_numpy, sample_from_numpy,
                                                          scene_from_numpy)
@@ -142,7 +145,7 @@ def port_lanes(ts, tic, dtype, kw, base_wind, std, seeds, extra):
     grid = torch.as_tensor(GRID, dtype=dtype)
     if seeds is not None:
         d = seeds.shape[1]
-        u = sobol_uniform(N, d, seeds.shape[0], dtype, seeds=torch.as_tensor(seeds))
+        u = sobol_uniform(None, N, d, seeds.shape[0], dtype, seeds=torch.as_tensor(seeds))
         ch = D._sobol_channels(u, ts, D.UncertaintyParams(), kw.get("sobol_wind_modes", 0),
                                GRID)
     else:
@@ -165,28 +168,16 @@ def variant(request):
                      dtype=jnp.float32 if dtype == torch.float32 else None, **jax_kwargs(kw))
     std, seeds, extra = jax_draws(key, N, dtype, kw, base_wind)
     got, ch = port_lanes(ts, tic, dtype, kw, base_wind, std, seeds, extra)
-    return case, dtype, ref, got, ch, seeds
+    from_key = D.sample_dispersions(prng.prng_key(SEED), ts, tic, n=N, base_wind=base_wind,
+                                    **kw)
+    return case, dtype, ref, got, ch, seeds, from_key
 
 
-@pytest.mark.parametrize("variant", VARIANTS, indirect=True,
-                         ids=[f"{c}-{str(d).split('.')[-1]}" for c, d in VARIANTS])
-def test_variant_matches_jax(variant):
-    case, dtype, (js, jic, jsample), (ts, tic, tsample), ch, seeds = variant
-    # uniform channels bit for bit, members exact
-    for f in ("wind_speed", "wind_direction", "wind_member"):
-        np.testing.assert_array_equal(getattr(tsample, f).numpy(),
-                                      np.asarray(getattr(jsample, f)), err_msg=f)
-    if seeds is not None:  # the Sobol normals within 4 ulp of JAX's ndtri
-        from jax.scipy.special import ndtri
-
-        u = sobol_uniform(N, seeds.shape[1], seeds.shape[0], dtype, seeds=torch.as_tensor(seeds))
-        mine = D._sobol_draws(u)
-        ref = np.asarray(ndtri(jnp.asarray(u.numpy())))
-        for name, col in (("vel_off", slice(3, 6)), ("mass_mult", 12), ("density_mult", 18)):
-            a, b = mine[name].numpy(), ref[:, col]
-            assert (np.abs(a - b) / np.spacing(np.maximum(np.abs(a), np.abs(b)))).max() <= 4, name
+def same_lanes(case, dtype, mine_lanes, ref_lanes):
+    """Every scene, initial-condition and sample leaf at the dtype's bar
+    (against the leaf's largest magnitude); returns how many were held."""
     n_leaves = 0
-    for mine_obj, ref_obj in ((ts, js), (tic, jic), (tsample, jsample)):
+    for mine_obj, ref_obj in zip(mine_lanes, ref_lanes):
         for path, mine, ref in pairs(mine_obj, ref_obj):
             if not isinstance(mine, torch.Tensor):
                 assert mine == ref, path
@@ -197,7 +188,28 @@ def test_variant_matches_jax(variant):
             np.testing.assert_allclose(mine.numpy(), ref, rtol=RTOL[dtype],
                                        atol=RTOL[dtype] * scale, err_msg=f"{case}{path}")
             n_leaves += 1
-    assert n_leaves > 50
+    return n_leaves
+
+
+@pytest.mark.parametrize("variant", VARIANTS, indirect=True,
+                         ids=[f"{c}-{str(d).split('.')[-1]}" for c, d in VARIANTS])
+def test_variant_matches_jax(variant):
+    case, dtype, (js, jic, jsample), (ts, tic, tsample), ch, seeds, _ = variant
+    # uniform channels bit for bit, members exact
+    for f in ("wind_speed", "wind_direction", "wind_member"):
+        np.testing.assert_array_equal(getattr(tsample, f).numpy(),
+                                      np.asarray(getattr(jsample, f)), err_msg=f)
+    if seeds is not None:  # the Sobol normals within 4 ulp of JAX's ndtri
+        from jax.scipy.special import ndtri
+
+        u = sobol_uniform(None, N, seeds.shape[1], seeds.shape[0], dtype,
+                          seeds=torch.as_tensor(seeds))
+        mine = D._sobol_draws(u)
+        ref = np.asarray(ndtri(jnp.asarray(u.numpy())))
+        for name, col in (("vel_off", slice(3, 6)), ("mass_mult", 12), ("density_mult", 18)):
+            a, b = mine[name].numpy(), ref[:, col]
+            assert (np.abs(a - b) / np.spacing(np.maximum(np.abs(a), np.abs(b)))).max() <= 4, name
+    assert same_lanes(case, dtype, (ts, tic, tsample), (js, jic, jsample)) > 50
     if CASES[case][0].get("antithetic"):
         # offsets and uniforms mirror exactly; a multiplier mirrors its
         # offset from 1 before the 1 is added, so within an ulp of 1
@@ -209,6 +221,18 @@ def test_variant_matches_jax(variant):
                                    rtol=0.0, atol=eps)
 
 
+@pytest.mark.parametrize("variant", VARIANTS, indirect=True,
+                         ids=[f"{c}-{str(d).split('.')[-1]}" for c, d in VARIANTS])
+def test_variant_from_key_is_jax(variant):
+    """The port's own draw under ``PRNGKey(SEED)``, no seam: the JAX
+    package's lanes at the same bars, uniforms and members exact."""
+    case, dtype, ref, _, _, _, from_key = variant
+    for f in ("wind_speed", "wind_direction", "wind_member"):
+        np.testing.assert_array_equal(getattr(from_key[2], f).numpy(),
+                                      np.asarray(getattr(ref[2], f)), err_msg=f)
+    assert same_lanes(case, dtype, from_key, ref) > 50
+
+
 def test_one_member_ensemble_is_the_single_forecast():
     """The member draw comes after every other draw of the lane set, so a
     K=1 ensemble gives the single forecast's lanes bit for bit, on both
@@ -216,14 +240,14 @@ def test_one_member_ensemble_is_the_single_forecast():
     scene = nominal_scene(liquid_motor("cpu"))
     ic = InitialConditions.vertical_launch("cpu")
     for kw in ({}, {"sampler": "sobol", "sobol_scrambles": 2, "sobol_wind_modes": 4}):
-        one = D.sample_dispersions(torch.Generator().manual_seed(3), scene, ic, n=16,
+        one = D.sample_dispersions(prng.prng_key(3), scene, ic, n=16,
                                    base_wind=(GRID, FORECAST), **kw)
-        ens = D.sample_dispersions(torch.Generator().manual_seed(3), scene, ic, n=16,
+        ens = D.sample_dispersions(prng.prng_key(3), scene, ic, n=16,
                                    base_wind=(GRID, FORECAST[None]), **kw)
         assert torch.equal(one[0].wind.wind, ens[0].wind.wind)
         assert torch.equal(one[2].mass_multiplier, ens[2].mass_multiplier)
         assert not ens[2].wind_member.any()
-        three = D.sample_dispersions(torch.Generator().manual_seed(3), scene, ic, n=16,
+        three = D.sample_dispersions(prng.prng_key(3), scene, ic, n=16,
                                      base_wind=(GRID, ENSEMBLE), **kw)
         assert set(three[2].wind_member.tolist()) == {0, 1, 2}
 
@@ -233,14 +257,13 @@ def test_generator_draws_are_deterministic_and_mirrored():
     ic = InitialConditions.vertical_launch("cpu")
     for kw in ({"antithetic": True}, {"sampler": "sobol", "sobol_scrambles": 4},
                {"importance_shift": {"density": 1.5}}):
-        a = D.sample_dispersions(torch.Generator().manual_seed(5), scene, ic, n=8, **kw)
-        b = D.sample_dispersions(torch.Generator().manual_seed(5), scene, ic, n=8, **kw)
-        c = D.sample_dispersions(torch.Generator().manual_seed(6), scene, ic, n=8, **kw)
+        a = D.sample_dispersions(prng.prng_key(5), scene, ic, n=8, **kw)
+        b = D.sample_dispersions(prng.prng_key(5), scene, ic, n=8, **kw)
+        c = D.sample_dispersions(prng.prng_key(6), scene, ic, n=8, **kw)
         assert torch.equal(a[0].wind.wind, b[0].wind.wind)
         assert torch.equal(a[2].wind_speed, b[2].wind_speed)
         assert not torch.equal(a[2].wind_speed, c[2].wind_speed)
-    s = D.sample_dispersions(torch.Generator().manual_seed(5), scene, ic, n=8,
-                             antithetic=True)
+    s = D.sample_dispersions(prng.prng_key(5), scene, ic, n=8, antithetic=True)
     lo, hi = D.UncertaintyParams().wind_direction_range
     assert torch.equal(s[2].wind_direction[4:], 2 * (0.5 * (lo + hi)) - s[2].wind_direction[:4])
     torch.testing.assert_close(s[2].density_multiplier[4:], 2.0 - s[2].density_multiplier[:4],
@@ -276,7 +299,7 @@ def test_validation_messages_match_jax(kw, base_wind):
         jax_sample(jax.random.PRNGKey(0), js, JaxIC.vertical_launch(), n=n,
                    base_wind=base_wind, **jax_kwargs(kw))
     with pytest.raises(ValueError) as got:
-        D.sample_dispersions(torch.Generator(), ts, InitialConditions.vertical_launch("cpu"),
+        D.sample_dispersions(prng.prng_key(0), ts, InitialConditions.vertical_launch("cpu"),
                              n=n, base_wind=base_wind, **kw)
     assert str(got.value) == str(ref.value)
 
@@ -391,8 +414,8 @@ def test_analysis_blocks_match_jax(analyses):
 
 
 def test_analysis_of_the_sampler_on_the_port_generator():
-    """The same options drawn by the port's own generator: the blocks are
-    present and finite where they should be."""
+    """The same options drawn by the port's own threefry draw: the blocks
+    are present and finite where they should be."""
     mc = MonteCarloAnalyzer(motor=liquid_motor("cpu"), sim_config=SimConfig(max_time=WINDOW),
                             bounds=OutlierBounds(min_apogee=MIN_APOGEE), sampler="sobol",
                             sobol_scrambles=4)

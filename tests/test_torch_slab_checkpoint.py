@@ -1,5 +1,5 @@
 """PyTorch port, mid-run checkpoint and resume of slabbed runs
-(``mc/slab_checkpoint.py``), ``run_to_precision``, the per-slab seeds, and
+(``mc/slab_checkpoint.py``), ``run_to_precision``, the per-slab keys, and
 ``save_summaries`` / ``load_summaries`` across the two packages.
 
 A run killed after two slabs resumes from its checkpoint to the
@@ -25,8 +25,10 @@ from erpl_monte_carlo_sim_tpu_torch.engine import InitialConditions, SimConfig, 
     simulate_summary_batch
 from erpl_monte_carlo_sim_tpu_torch.mc import (MonteCarloAnalyzer, OutlierBounds,
                                                QmcMeanStderr, UncertaintyParams, load_summaries,
-                                               sample_dispersions, save_summaries, slab_seed)
+                                               sample_dispersions, save_summaries)
 from erpl_monte_carlo_sim_tpu_torch.mc.slab_checkpoint import run_fingerprint
+from erpl_monte_carlo_sim_tpu_torch import random as prandom
+from erpl_monte_carlo_sim_tpu_torch.ops import prng
 from erpl_monte_carlo_sim_tpu_torch.models import liquid_motor, nominal_scene
 from erpl_monte_carlo_sim_tpu_torch.utils.convert import to_numpy
 
@@ -100,6 +102,31 @@ def test_another_run_refuses_to_resume(monkeypatch, tmp_path):
     monkeypatch.undo()
     with pytest.raises(ValueError, match="different run"):
         analyzer().run_monte_carlo(IC, n_samples=N, lane_slab=SLAB, seed=8,
+                                   checkpoint_path=ckpt)
+
+
+def test_checkpoint_of_generator_draws_is_refused(monkeypatch, tmp_path):
+    """A state file of the format before the threefry draws (version 5,
+    slabs drawn by torch.Generator) is refused, naming the change, not
+    resumed onto other lanes."""
+    import json
+
+    ckpt = str(tmp_path / "run.ckpt.npz")
+    kill_after(monkeypatch, 1)
+    with pytest.raises(RuntimeError, match="simulated crash"):
+        analyzer().run_monte_carlo(IC, n_samples=N, lane_slab=SLAB, seed=7,
+                                   checkpoint_path=ckpt, checkpoint_every=1)
+    monkeypatch.undo()
+    with np.load(ckpt) as z:
+        arrays = {k: z[k] for k in z.files}
+    meta = json.loads(bytes(arrays["__meta__"]).decode())
+    assert meta["version"] == 6
+    meta["version"] = 5
+    arrays["__meta__"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
+    with open(ckpt, "wb") as f:
+        np.savez(f, **arrays)
+    with pytest.raises(ValueError, match="v5.*torch.Generator.*threefry2x32"):
+        analyzer().run_monte_carlo(IC, n_samples=N, lane_slab=SLAB, seed=7,
                                    checkpoint_path=ckpt)
 
 
@@ -290,24 +317,28 @@ def test_run_to_precision_on_rqmc_replicates():
     same_analysis(a, mc.run_monte_carlo(IC, n_samples=N, lane_slab=SLAB, seed=7))
 
 
-# np.random.SeedSequence([0, k]).generate_state(1, np.uint64), 63 bits
-PINNED_SEEDS = [6569863346532939966, 5836529245451711556, 7971947199917040255]
+# jax.random.fold_in(jax.random.PRNGKey(0), k) for k = 0, 1, 2 (jax 0.9.0)
+PINNED_KEYS = [[1797259609, 2579123966], [928981903, 3453687069], [4146024105, 2718843009]]
 
 
 def test_slab_seed_is_pinned():
-    assert [slab_seed(0, k) for k in range(3)] == PINNED_SEEDS
-    assert slab_seed(5, 1) != slab_seed(1, 5)
-    assert all(slab_seed(s, k) != s for s in range(4) for k in range(4))
-    assert all(0 <= slab_seed(s, k) < 2**63 for s in (0, 2**40, -1) for k in (0, 9))
+    """Slab k's key is ``fold_in(PRNGKey(seed), k)``, the JAX package's."""
+    def slab_key(seed, k):
+        return prandom.fold_in(prng.prng_key(seed), k).tolist()
+
+    assert [slab_key(0, k) for k in range(3)] == PINNED_KEYS
+    assert slab_key(5, 1) != slab_key(1, 5)
+    assert all(slab_key(s, k) != prng.prng_key(s).tolist() for s in range(4) for k in range(4))
+    assert all(0 <= w < 2**32 for s in (0, 2**40, -1) for k in (0, 9) for w in slab_key(s, k))
 
 
 def test_slab_lanes_and_random_seed_are_global(runs):
-    """Slab 1 of the run is one call on ``slab_seed(7, 1)``'s lanes; lane
-    ids (``random_seed``) and record ids are global across slabs."""
+    """Slab 1 of the run is one call on ``fold_in(PRNGKey(7), 1)``'s lanes;
+    lane ids (``random_seed``) and record ids are global across slabs."""
     a = runs["exact"]
     mc = analyzer()
-    scene_b, ic_b, _ = sample_dispersions(torch.Generator().manual_seed(slab_seed(7, 1)),
-                                          mc.scene, IC, n=SLAB)
+    scene_b, ic_b, _ = sample_dispersions(prandom.fold_in(prng.prng_key(7), 1), mc.scene, IC,
+                                          n=SLAB)
     one = to_numpy(simulate_summary_batch(scene_b, ic_b, CFG))
     np.testing.assert_array_equal(a["metrics"]["apogee_altitude"][SLAB:2 * SLAB],
                                   one.apogee_altitude)

@@ -11,7 +11,10 @@ through its one draw seam (``mc.analyzer._draw_slab``) and
 once streaming (``stats_stream_threshold=40, metrics_sample_cap=24``: the
 sketch takes over mid-run and the prefix is capped). Bars: metrics, stats
 blocks, footprint, records and convergence rows at rtol 1e-9; masks, reason
-bits, counts, lane ids and parameter ranges exact.
+bits, counts, lane ids and parameter ranges exact. The port's own run from
+the seed (no seam: slab k drawn under ``fold_in(PRNGKey(seed), k)`` by the
+port) is the JAX analysis too: masks exact, metrics and statistics within
+rtol 1e-6.
 """
 
 import jax
@@ -65,11 +68,16 @@ def both(request):
                                                materialize_results=LIMIT)
     mc = MonteCarloAnalyzer(motor=liquid_motor("cpu"), sim_config=SimConfig(max_time=WINDOW),
                             bounds=OutlierBounds(min_apogee=MIN_APOGEE), **knobs)
+    run = dict(n_samples=N, lane_slab=SLAB, seed=SEED, materialize_results=LIMIT)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(analyzer_mod, "_draw_slab", jax_slab)
-        got = mc.run_monte_carlo(InitialConditions.vertical_launch("cpu"), n_samples=N,
-                                 lane_slab=SLAB, seed=SEED, materialize_results=LIMIT)
+        got = mc.run_monte_carlo(InitialConditions.vertical_launch("cpu"), **run)
+    FROM_SEED[request.param] = mc.run_monte_carlo(InitialConditions.vertical_launch("cpu"),
+                                                  **run)
     return request.param, got, ref
+
+
+FROM_SEED = {}  # the port's run drawn from the seed, by kind
 
 
 def close(a, b, what):
@@ -104,6 +112,21 @@ def test_metrics_and_stats_blocks_match_jax(both):
         assert a.keys() == b.keys(), metric
         for k in ("mean", "std", "min", "max", "percentiles", "percentile_ci"):
             close(a[k], b[k], f"{metric}.{k}")
+
+
+def test_from_seed_is_the_jax_analysis(both):
+    kind, _, ref = both
+    mine = FROM_SEED[kind]
+    np.testing.assert_array_equal(mine["valid_mask"], ref["valid_mask"])
+    np.testing.assert_array_equal(mine["reasons"], ref["reasons"])
+    assert mine["n_samples"] == ref["n_samples"]
+    for k in ref["metrics"]:
+        np.testing.assert_allclose(mine["metrics"][k], ref["metrics"][k], rtol=1e-6,
+                                   err_msg=k)
+    for metric in ("apogee_altitude", "range", "flight_time"):
+        for k in ("mean", "std", "min", "max", "percentiles"):
+            np.testing.assert_allclose(mine[metric][k], ref[metric][k], rtol=1e-6,
+                                       err_msg=f"{metric}.{k}")
 
 
 def test_every_slab_holds_valid_lanes_and_outliers(both):

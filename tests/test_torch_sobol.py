@@ -4,7 +4,7 @@ the scrambled Sobol integers bit for bit for the same seeds (several
 hash on edge words, the unit conversion bit for bit and strictly inside
 (0, 1) in float32, normals within 4 ulp, and the properties
 tests/test_sobol_ops.py pins (net strata, bijective scramble, replicates)
-on seeds from a ``torch.Generator``."""
+on seeds drawn under a threefry key, which are JAX's seeds for that key."""
 
 import filecmp
 import pathlib
@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from erpl_monte_carlo_sim_tpu.ops import sobol as J
+from erpl_monte_carlo_sim_tpu_torch.ops import prng
 from erpl_monte_carlo_sim_tpu_torch.ops import sobol as T
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -68,10 +69,10 @@ def test_uniform_bit_for_bit_and_normal_within_4_ulp(dtype):
     jdt = jnp.float32 if dtype == torch.float32 else jnp.float64
     key = jax.random.PRNGKey(5)
     seeds = torch.as_tensor(jax_seeds(key, 4, 23))
-    u = T.sobol_uniform(512, 23, 4, dtype, seeds=seeds)
+    u = T.sobol_uniform(None, 512, 23, 4, dtype, seeds=seeds)
     np.testing.assert_array_equal(u.numpy(), np.asarray(J.sobol_uniform(key, 512, 23, 4,
                                                                          dtype=jdt)))
-    z = T.sobol_normal(512, 23, 4, dtype, seeds=seeds).numpy()
+    z = T.sobol_normal(None, 512, 23, 4, dtype, seeds=seeds).numpy()
     assert ulps(z, np.asarray(J.sobol_normal(key, 512, 23, 4, dtype=jdt))).max() <= 4
 
 
@@ -87,8 +88,7 @@ def test_float32_unit_strictly_inside_01():
 def test_scramble_preserves_net_strata():
     """1024 scrambled points of dimensions (0, 1) still land one per 32 x 32
     stratum."""
-    u = T.sobol_uniform(1024, 2, dtype=torch.float64,
-                        generator=torch.Generator().manual_seed(9)).numpy()
+    u = T.sobol_uniform(prng.prng_key(9), 1024, 2, dtype=torch.float64).numpy()
     h, _, _ = np.histogram2d(u[:, 0], u[:, 1], bins=32, range=[[0, 1], [0, 1]])
     assert (h == 1).all()
 
@@ -100,17 +100,20 @@ def test_scramble_is_bijective_per_seed():
 
 
 def test_generator_seeds_replicates_and_marginals():
-    gen = torch.Generator().manual_seed(1)
-    u = T.sobol_uniform(1024, 3, 4, torch.float64, generator=gen).numpy()
-    again = T.sobol_uniform(1024, 3, 4, torch.float64,
-                            generator=torch.Generator().manual_seed(1)).numpy()
-    np.testing.assert_array_equal(u, again)
+    """The key's seeds are ``jax.random.bits``'; the same key, the JAX
+    package's points."""
+    key = prng.prng_key(1)
+    np.testing.assert_array_equal(T.draw_seeds(key, 4, 3).numpy(),
+                                  jax_seeds(jax.random.PRNGKey(1), 4, 3))
+    u = T.sobol_uniform(key, 1024, 3, 4, torch.float64).numpy()
+    np.testing.assert_array_equal(u, np.asarray(J.sobol_uniform(
+        jax.random.PRNGKey(1), 1024, 3, 4, dtype=jnp.float64)))
     blocks = u.reshape(4, 256, 3)
     for i in range(1, 4):
         assert not np.allclose(blocks[0], blocks[i])
         assert np.abs(blocks[i].mean(axis=0) - 0.5).max() < 4e-3
     with pytest.raises(ValueError, match="multiple"):
-        T.sobol_uniform(10, 3, 4, generator=gen)
+        T.sobol_uniform(key, 10, 3, 4)
 
 
 def test_direction_table_is_the_jax_packages():

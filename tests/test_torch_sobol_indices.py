@@ -151,3 +151,31 @@ def test_port_draws_are_seeded_per_matrix_and_group():
     assert not torch.equal(a["mass"], b["mass"]) and not torch.equal(a["mass"], a["density"])
     assert a["wind_turbulence"].shape == (8, KNOTS, 3) and a["velocity"].shape == (8, 3)
     assert bool((a["wind_speed"] >= 0).all()) and bool((a["wind_speed"] < 1).all())
+
+
+def test_matrices_and_members_are_the_jax_keys():
+    """The matrices' draws are JAX's (``fold_in(PRNGKey(seed), m)``, group
+    ``i`` under ``fold_in(., i)``), and an ensemble's members are the ones
+    JAX's fixed turbulence key ``PRNGKey(0)`` draws, in every matrix."""
+    for m in (0, 1):
+        got = TSI._draw_matrix(3, m, 8, KNOTS, torch.float64, "cpu")
+        want = JSI._draw_matrix(jax.random.fold_in(jax.random.PRNGKey(3), m), 8, KNOTS,
+                                jnp.float64)
+        assert got.keys() == want.keys()
+        for g in want:
+            np.testing.assert_allclose(got[g].numpy(), np.asarray(want[g]), rtol=1e-12,
+                                       atol=1e-12, err_msg=g)
+    grid = np.linspace(0.0, 25000.0, KNOTS)
+    members = np.stack([np.zeros((KNOTS, 3)), np.full((KNOTS, 3), 2.0), np.ones((KNOTS, 3))])
+    jdraws = JSI._draw_matrix(jax.random.fold_in(jax.random.PRNGKey(3), 0), 8, KNOTS,
+                              jnp.float64)
+    jb = (jnp.asarray(grid), jnp.asarray(members))
+    want, _ = JSI._assemble(jax_nominal(jax_liquid()), JaxIC.vertical_launch(), JaxParams(),
+                            jdraws, jb[0], jb, jnp.float64)
+    tb = tuple(torch.as_tensor(x) for x in (grid, members))
+    got, _ = TSI._assemble(nominal_scene(liquid_motor("cpu")),
+                           InitialConditions.vertical_launch("cpu"), UncertaintyParams(),
+                           TSI._draw_matrix(3, 0, 8, KNOTS, torch.float64, "cpu"), tb[0], tb,
+                           torch.float64)
+    np.testing.assert_allclose(got.wind.wind.numpy(), np.asarray(want.wind.wind), rtol=1e-12,
+                               atol=1e-12)

@@ -1,13 +1,13 @@
 """PyTorch port, the prng sampler's spread against the JAX package's.
 
-The port's sampler (``mc.sample_dispersions``, torch generators) and the
-JAX package's (threefry keys) draw different lanes from the same
-distributions, so they are compared in distribution: each of the 19 scalar
-channels' standard deviation, and the AR(1) wind table's per-knot spread at
-knots 0, 10, 50 and 99, within 4 standard errors of their difference
-(seed 0, float64, 20,000 lanes each, the liquid motor, synthesized wind).
-The means are held by tests/test_torch_analyzer.py; a wrong sigma would
-pass that and fail here.
+Both samplers draw under ``PRNGKey(0)`` (float64, 20,000 lanes each, the
+liquid motor, synthesized wind), so the lanes are the same: the uniform
+channels bit for bit, the Gaussian ones and the wind tables within the
+float64 normals' bar. The distributions are compared too, as for any two
+samples: each of the 19 scalar channels' standard deviation, and the AR(1)
+wind table's per-knot spread at knots 0, 10, 50 and 99, within 4 standard
+errors of their difference. The means are held by
+tests/test_torch_analyzer.py; a wrong sigma would pass that and fail here.
 """
 
 import jax
@@ -22,6 +22,7 @@ from erpl_monte_carlo_sim_tpu.models import nominal_scene as jax_nominal
 from erpl_monte_carlo_sim_tpu_torch.engine import InitialConditions
 from erpl_monte_carlo_sim_tpu_torch.mc import UncertaintyParams, sample_dispersions
 from erpl_monte_carlo_sim_tpu_torch.models import liquid_motor, nominal_scene
+from erpl_monte_carlo_sim_tpu_torch.ops import prng
 
 torch.set_num_threads(1)
 
@@ -49,9 +50,8 @@ def std_and_se(x: np.ndarray) -> tuple:
 @pytest.fixture(scope="module")
 def draws():
     """``(port, JAX)``, each ``{channel: values}`` with the wind knots."""
-    gen = torch.Generator()
-    gen.manual_seed(SEED)
-    scene_b, _, sample = sample_dispersions(gen, nominal_scene(liquid_motor("cpu")),
+    scene_b, _, sample = sample_dispersions(prng.prng_key(SEED),
+                                            nominal_scene(liquid_motor("cpu")),
                                             InitialConditions.vertical_launch("cpu"),
                                             UncertaintyParams(), N)
     ref_scene, _, ref_sample = jax_sample(jax.random.PRNGKey(SEED), jax_nominal(jax_liquid()),
@@ -83,3 +83,16 @@ def test_spread_agrees_with_jax(draws, channel):
         return
     assert abs(s_a - s_b) <= 4 * np.hypot(se_a, se_b), (s_a, s_b, se_a, se_b)
     assert s_a > 0
+
+
+def test_lanes_are_jax(draws):
+    """The same lanes: the uniform channels bit for bit, the others within
+    the float64 normals' bar (2e-13 relative) of their largest magnitude."""
+    mine, ref = draws
+    for channel in ref:
+        a, b = mine[channel], ref[channel]
+        if channel[0] in ("wind_speed", "wind_direction"):
+            np.testing.assert_array_equal(a, b, err_msg=str(channel))
+        else:
+            np.testing.assert_allclose(a, b, rtol=0.0, atol=2e-13 * np.abs(b).max(),
+                                       err_msg=str(channel))

@@ -183,3 +183,20 @@ def test_constructor_checks_match_jax(kw):
         MonteCarloAnalyzer(motor=liquid_motor("cpu"),
                            sim_config=SimConfig(integrator="rk2") if rk2 else SimConfig(), **kw)
     assert str(got.value) == str(ref.value)
+
+
+def test_correction_batch_is_the_jax_key():
+    """The correction batch's lanes are the JAX package's: drawn under
+    ``fold_in(PRNGKey(seed), _KEY_SALT)``."""
+    assert TTL.CORRECTION_SLAB == JTL._KEY_SALT
+    scene = liquid_motor("cpu")
+    from erpl_monte_carlo_sim_tpu_torch.models import nominal_scene
+
+    _, _, got = TTL._draw_correction(nominal_scene(scene), IC, TTL.UncertaintyParams(), 8, 4,
+                                     None, 100, 25000.0)
+    _, _, want = jax_sample(jax.random.fold_in(jax.random.PRNGKey(4), JTL._KEY_SALT),
+                            jax_nominal(jax_liquid()), JaxIC.vertical_launch(), n=8)
+    np.testing.assert_array_equal(got.wind_speed.numpy(), np.asarray(want.wind_speed))
+    for f in ("initial_attitude_offset", "mass_multiplier", "density_multiplier"):
+        np.testing.assert_allclose(getattr(got, f).numpy(), np.asarray(getattr(want, f)),
+                                   rtol=1e-12, err_msg=f)
