@@ -9,7 +9,7 @@ raises and the run exits non-zero:
 
   0. environment: card name and power limit, torch / CUDA versions, nvcc;
   1. build ``erpl_monte_carlo_sim_tpu_torch/csrc/flight_summary.cu`` and,
-     beside it, ``csrc/threefry.cu`` (jax.random's draws);
+     beside it, ``csrc/threefry.cu`` (jax.random's draws and the AR(1) wind chain);
   2. the kernel against its plain PyTorch version, both on the card, on the
      same dispersed lanes (``SimConfig(max_time=6.0)``): 1024 lanes in
      float32, 256 in float64 with one NaN-wind lane;
@@ -19,7 +19,7 @@ raises and the run exits non-zero:
      float32, the solid motor in float64;
   4. the main path at the bench size: ``MonteCarloAnalyzer.run_monte_carlo``
      with 262,144 lanes and ``SimConfig(max_time=6.0)``, the flight kernel's
-     and the threefry kernel's launch counts from that run, then the flight
+     and the threefry kernels' launch counts from that run, then the flight
      kernel against its plain version at that shape,
      compared (float32 bars) and timed, beside its bound (the least time an
      H100 could take for those flights, ``flight_summary.bound_ms``), the
@@ -209,12 +209,22 @@ raises and the run exits non-zero:
      plain version on the card and the committed JAX golden
      (``erpl_monte_carlo_sim_tpu_torch/data/threefry_golden.npz``): keys,
      bits, uniforms and randint exact, normals within 2 ulp (float32) and
-     2e-13 relative (float64); (b) the chain kernel timed beside its bound,
-     its plain version and ``torch.randn`` of as many normals, and the whole
-     draw of 262,144 lanes beside the torch generator's 9.2 ms; (c) the f64
-     analysis of 256 lanes, seed 0 (the 6 s window) against the committed
-     JAX analysis of that seed (``data/analysis_seed0_golden.npz``): valid
-     mask exact, summaries and statistics within rtol 1e-6.
+     2e-13 relative (float64); the main path's three channel draws (normals
+     over 4 and 5 parent keys, uniforms over 2, 262,144 lanes each); the
+     AR(1) kernel, the wind chain fused with its recursion
+     (float32 synthesized and forecast, float64) and the recursion on a given
+     driver (float32, float64), at 262,144 lanes bit for bit against their
+     plain versions; (b) the fused chain timed beside its bound, its plain
+     version and its occupancy, with the recursion on a given driver (beside
+     ``torch.einsum`` of the driver with ``ar1_transfer_matrix``) and the
+     two launches it replaced; the draw kernel on the same chain beside its
+     bound, the largest channel draw, ``torch.randn`` of as many normals; and
+     the whole draw of 262,144 lanes (its wall, its kernels, which must be
+     fewer than 3 a knot, and the AR(1) kernel's one launch) beside the
+     torch generator's 9.2 ms; (c) the f64 analysis of 256 lanes, seed 0
+     (the 6 s window) against the committed JAX analysis of that seed
+     (``data/analysis_seed0_golden.npz``): valid mask exact, summaries and
+     statistics within rtol 1e-6.
 
 The kernels JSON gives each flight_summary and recording row the launches
 of phase 11's example runs (``example_launches``), and the summary rows
@@ -222,8 +232,10 @@ of phase 11's example runs (``example_launches``), and the summary rows
 (``variant_launches``); the summary rows also those of phase 13's runs
 (``estimator_launches``), and those of phases 14 and 15
 (``modes_launches``, ``diff_launches``), and phase 16's per rank
-(``parallel_launches``). Its last row is the threefry kernel's: phase 4's
-launches, phase 17b's times and bound, the whole draw's ms and launches.
+(``parallel_launches``). Its last two rows are the threefry kernels': the
+draw kernel's and the AR(1) kernel's, each with phase 4's launches, phase
+17b's times, bound, occupancy, registers and spills, and the whole draw's ms
+and launches.
 
 Phases 2, 4, 5 and 6 also print ``digest`` lines: the SHA-256 of the
 kernel's outputs with NaN made canonical (``kernels/measure.py digest``). A
@@ -247,8 +259,8 @@ import numpy as np
 import torch
 
 from erpl_monte_carlo_sim_tpu_torch.kernels.measure import (
-    FLAG_SETS, card_line, cuda_ms, digest, flag_set, low_apogee_batch, occupancy, ptxas_usage,
-    sample_batch, time_kernel, with_stall)
+    FLAG_SETS, ar1_timing, card_line, cuda_ms, device_launches, digest, flag_set, kernel_ptxas,
+    low_apogee_batch, occupancy, ptxas_usage, sample_batch, time_kernel, warm_ms, with_stall)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 KERNEL_SOURCE = "erpl_monte_carlo_sim_tpu_torch/csrc/flight_summary.cu"
@@ -342,6 +354,8 @@ ANALYSIS_GOLDEN = os.path.join(DATA, "analysis_seed0_golden.npz")
 THREEFRY_SEEDS = (0, 2**40 + 7)
 CHAIN_LANES = BENCH_LANES
 CHAIN_KEPT = (0, 1, 2, 4095, 131_072, BENCH_LANES - 1)
+# the threefry build's kernels, by a part of their names
+THREEFRY_KERNELS = {"draw": "threefry_kernel", "ar1": "ar1_kernel"}
 NORMAL_ULPS = 2
 NORMAL_F64_RTOL = 2e-13
 ANALYSIS_LANES = 256
@@ -3384,23 +3398,37 @@ def multi_rank(dev, ic, run4: dict, run9a: dict, card: str) -> dict:
     return launches
 
 
-def threefry_phase(dev, ic, mc4, main_launches: int) -> dict:
-    """Phase 17: jax.random's draws through the threefry kernel. (a) Every
+def threefry_phase(dev, ic, mc4, main_launches: dict, ptxas: dict) -> list:
+    """Phase 17: jax.random's draws through the threefry kernels. (a) Every
     ``threefry_cases`` draw against the plain version on the card and the
     committed JAX golden (the chains at 262,144 lanes x 100 knots, the
-    golden's kept lanes); (b) the main path's draw timed: the synthesized
-    wind chain alone (kernel, plain version, ``torch.randn`` of as many
-    normals for context) beside its bound, and the whole draw of 262,144
-    lanes through the analyzer's seam, beside the torch generator's 9.2 ms;
-    (c) the f64 analysis of 256 lanes, seed 0, the 6 s window, held to the
-    committed JAX analysis of the same seed. Returns the kernel's row of the
-    kernels JSON."""
+    golden's kept lanes); the main path's three channel draws (``normal``
+    over 4 keys x (262,144, 3) and 5 keys x (262,144,), ``uniform`` over 2
+    keys x (262,144,): several parent keys, each on the grid's y); the
+    AR(1) kernel's fused chain (float32
+    with ``sub`` 1 and None, float64) and its recursion on a given driver
+    (float32, float64) at 262,144 lanes against their plain versions, bit
+    for bit. (b) The main path's draw timed: the fused chain beside its
+    bound, its plain version, its occupancy, the recursion on a given
+    driver beside the one library call that computes it (``torch.einsum``
+    with ``ar1_transfer_matrix``), and the draw kernel on the same chain
+    (the normals stored, as before the fusion) beside its own bound; the
+    largest channel draw (its timed output held to 17a's);
+    ``torch.randn`` of as many normals for context; the whole draw of
+    262,144 lanes through the analyzer's seam, its kernels (fewer than 3 a
+    knot: no per-knot loop) and the AR(1) kernel's one launch, beside the
+    torch generator's 9.2 ms. (c) The f64 analysis of 256 lanes, seed 0,
+    the 6 s window, held to the committed JAX analysis of the same seed.
+    Returns the two kernels' rows of the kernels JSON."""
+    from erpl_monte_carlo_sim_tpu_torch import random
     from erpl_monte_carlo_sim_tpu_torch.engine import InitialConditions, SimConfig
     from erpl_monte_carlo_sim_tpu_torch.kernels import threefry as tf
     from erpl_monte_carlo_sim_tpu_torch.mc import MonteCarloAnalyzer
     from erpl_monte_carlo_sim_tpu_torch.mc import analyzer as analyzer_mod
-    from erpl_monte_carlo_sim_tpu_torch.models import liquid_motor
+    from erpl_monte_carlo_sim_tpu_torch.models import WindModelParams, liquid_motor
+    from erpl_monte_carlo_sim_tpu_torch.models.wind import _ar1_constants
 
+    f32, f64 = torch.float32, torch.float64
     # ---- 17a: every draw against the plain version and the golden
     with np.load(THREEFRY_GOLDEN) as z:
         golden = {k: z[k] for k in z.files}
@@ -3420,56 +3448,152 @@ def threefry_phase(dev, ic, mc4, main_launches: int) -> dict:
               err_unit="ulp" if dtype == torch.float32 and kind == "normal"
               else "relative" if kind == "normal" else "exact")
         del got
+    keys = random.split(random.prng_key(0, dev), 12)
+    channels = (("normal", keys[0:4], (BENCH_LANES, 3)),
+                ("normal", torch.cat([keys[4:8], keys[10:11]]), (BENCH_LANES,)),
+                ("uniform", keys[8:10], (BENCH_LANES,)))
+    for kind, parents, shape in channels:  # mc.dispersions._prng_draws' three draws
+        tf.launches = 0
+        got = tf.draw(parents, kind, shape, dtype=f32)
+        torch.cuda.synchronize()
+        if tf.launches != 1:
+            raise AssertionError(f"17a channel {kind}: {tf.launches} threefry launches, not 1")
+        plain = threefry_error(got, tf.draw_reference(parents, kind, shape, dtype=f32), kind, f32)
+        phase(f"17a channel {kind} {parents.shape[0]} keys", shape=list(got.shape),
+              plain_err=plain, err_unit="ulp" if kind == "normal" else "exact")
+        if parents.shape[0] == 4:
+            vec = got
+        del got
+    turb = threefry_key(("turb", 0), dev)
+    grid = {d: torch.linspace(0.0, 25_000.0, 100, dtype=d, device=dev) for d in (f32, f64)}
+    consts = {d: _ar1_constants(WindModelParams.create(dev, d), grid[d], d) for d in (f32, f64)}
+    for dtype, sub in ((f32, 1), (f32, None), (f64, 1)):
+        tf.ar1_launches = 0
+        got = tf.ar1(*consts[dtype], key=turb, lanes=CHAIN_LANES, sub=sub)
+        torch.cuda.synchronize()
+        if tf.ar1_launches != 1:
+            raise AssertionError(f"17a AR(1) chain: {tf.ar1_launches} launches, not 1")
+        want = tf.ar1_reference(*consts[dtype], key=turb, lanes=CHAIN_LANES, sub=sub)
+        if not torch.equal(got, want):
+            raise AssertionError(f"17a AR(1) chain {dtype} sub={sub}: not the plain version's "
+                                 f"bits ({float((got - want).abs().max())} apart)")
+        phase(f"17a ar1 chain {str(dtype)[6:]} sub={sub}", shape=list(got.shape),
+              bit_equal=True)
+        del got, want
+    gen = torch.Generator(device=dev).manual_seed(17)
+    for dtype in (f32, f64):
+        noise = torch.randn(CHAIN_LANES, 100, 3, generator=gen, device=dev, dtype=dtype)
+        tf.ar1_launches = 0
+        got = tf.ar1(*consts[dtype], noise=noise)
+        torch.cuda.synchronize()
+        if tf.ar1_launches != 1:
+            raise AssertionError(f"17a AR(1) recursion: {tf.ar1_launches} launches, not 1")
+        if not torch.equal(got, tf.ar1_recursion(noise, *consts[dtype])):
+            raise AssertionError(f"17a AR(1) recursion on a given driver {dtype}: not the "
+                                 "plain version's bits")
+        phase(f"17a ar1 given noise {str(dtype)[6:]}", shape=list(got.shape), bit_equal=True)
+        del got, noise
     torch.cuda.empty_cache()
 
     # ---- 17b: the main path's draw, timed
-    turb = threefry_key(("turb", 0), dev)
-    chain = dict(dtype=torch.float32, lanes=BENCH_LANES, sub=1)
-    tf.draw(turb, "normal", (100, 3), **chain)  # warm
-    kernel_ms, got = cuda_ms(lambda: tf.draw(turb, "normal", (100, 3), **chain), reps=5)
+    ar1 = ar1_timing(BENCH_LANES)
+    got = ar1.pop("out")
+    ar1_plain_ms, ref = cuda_ms(lambda: tf.ar1_reference(*consts[f32], key=turb,
+                                                         lanes=BENCH_LANES, sub=1))
+    if not torch.equal(got, ref):
+        raise AssertionError("17b: the fused chain is not its plain version's bits")
+    ar1_err = float((got - ref).abs().max())
+    del got, ref
+    chain = dict(dtype=f32, lanes=BENCH_LANES, sub=1)
+    got = tf.draw(turb, "normal", (100, 3), **chain)
     plain_ms, ref = cuda_ms(lambda: tf.draw_reference(turb, "normal", (100, 3), **chain))
     max_abs_err = float((got - ref).abs().max())
     ulps = threefry_error(got, ref, "normal", torch.float32)
     del got, ref
     torch.cuda.empty_cache()
+    kernel_ms = ar1["draw_kernel_chain_ms"]
     n_words = BENCH_LANES * 300
-    randn_ms, _ = cuda_ms(lambda: torch.randn(n_words, device=dev), reps=5)
+    randn_ms, _ = warm_ms(lambda: torch.randn(n_words, device=dev))
     bound, bound_by = tf.bound_ms(n_words, 4, hashes_per_word=1 + 2 / 300,
                                   int_ops_per_word=tf.NORMAL_F32_INT_OPS,
                                   fp_ops_per_word=tf.NORMAL_F32_FP_OPS)
+    threads, blocks = tf.occupancy("normal")
+    channel_ms, got = warm_ms(lambda: random.normal(keys[0:4], (BENCH_LANES, 3)))
+    if not torch.equal(got, vec):
+        raise AssertionError("17b: the timed channel draw is not 17a's")
+    del got, vec
+    channel_bound, _ = tf.bound_ms(4 * BENCH_LANES * 3, 4, int_ops_per_word=tf.NORMAL_F32_INT_OPS,
+                                   fp_ops_per_word=tf.NORMAL_F32_FP_OPS)
     draw_ms = warm_draw_ms(mc4, ic, BENCH_LANES)
-    tf.launches = 0
-    analyzer_mod._draw_single(mc4, ic, BENCH_LANES, 0, mc4._base_wind())
-    draw_launches = tf.launches
-    phase("17b draw", lanes=BENCH_LANES, chain_kernel_ms=f"{kernel_ms:.4f}",
-          chain_plain_ms=f"{plain_ms:.2f}", chain_max_abs_err=max_abs_err, chain_max_ulps=ulps,
-          bound_ms=f"{bound:.4f}", bound_by=bound_by, share_of_bound=f"{bound / kernel_ms:.3f}",
-          torch_randn_ms=f"{randn_ms:.4f}", draw_ms=f"{draw_ms:.3f}",
-          torch_generator_draw_ms=TORCH_GENERATOR_DRAW_MS, draw_launches=draw_launches)
+    tf.launches = tf.ar1_launches = 0
+    draw_kernels, _ = device_launches(lambda: analyzer_mod._draw_single(
+        mc4, ic, BENCH_LANES, 0, mc4._base_wind()))
+    draw_launches, draw_ar1 = tf.launches, tf.ar1_launches
+    if draw_ar1 != 1:
+        raise AssertionError(f"17b: the draw ran the AR(1) kernel {draw_ar1} times, not once")
+    if draw_kernels >= 3 * 100:  # an eager loop over the knots adds 3 or more a knot
+        raise AssertionError(f"17b: the draw ran {draw_kernels} kernels, 3 or more a knot: a "
+                             "per-knot loop")
+    phase("17b draw", lanes=BENCH_LANES, ar1_chain_ms=f"{ar1['ms']:.4f}",
+          ar1_chain_plain_ms=f"{ar1_plain_ms:.2f}", ar1_bit_equal=True,
+          ar1_bound_ms=f"{ar1['bound_ms']:.4f}", ar1_bound_by=ar1["bound_by"],
+          ar1_share_of_bound=f"{ar1['share_of_bound']:.3f}", ar1_warps_per_sm=ar1["warps_per_sm"],
+          ar1_given_ms=f"{ar1['given_ms']:.4f}", ar1_given_bound_ms=f"{ar1['given_bound_ms']:.4f}",
+          ar1_given_share=f"{ar1['given_share_of_bound']:.3f}",
+          ar1_given_library_ms=f"{ar1['given_library_ms']:.4f}",
+          ar1_given_library_err=ar1["given_library_err"],
+          draw_then_recursion_ms=f"{ar1['draw_then_recursion_ms']:.4f}",
+          chain_kernel_ms=f"{kernel_ms:.4f}", chain_plain_ms=f"{plain_ms:.2f}",
+          chain_max_abs_err=max_abs_err, chain_max_ulps=ulps, bound_ms=f"{bound:.4f}",
+          bound_by=bound_by, share_of_bound=f"{bound / kernel_ms:.3f}",
+          warps_per_sm=blocks * threads // 32, channel_draw_ms=f"{channel_ms:.4f}",
+          channel_bound_ms=f"{channel_bound:.4f}", torch_randn_ms=f"{randn_ms:.4f}",
+          draw_ms=f"{draw_ms:.3f}", torch_generator_draw_ms=TORCH_GENERATOR_DRAW_MS,
+          draw_kernels=draw_kernels, draw_launches=draw_launches, draw_ar1_launches=draw_ar1)
 
     # ---- 17c: the card's analysis is JAX's
     mc = MonteCarloAnalyzer(motor=liquid_motor(dev, torch.float64),
                             sim_config=SimConfig(max_time=WINDOW))
-    tf.launches = 0
+    tf.launches = tf.ar1_launches = 0
     a = mc.run_monte_carlo(InitialConditions.vertical_launch(dev, torch.float64),
                            n_samples=ANALYSIS_LANES, seed=0)
-    launched = tf.launches
-    if launched < 1:
-        raise AssertionError("17c: the analysis did not draw through the threefry kernel")
+    launched = {"draw": tf.launches, "ar1": tf.ar1_launches}
+    if launched["draw"] < 1 or launched["ar1"] < 1:
+        raise AssertionError(f"17c: the analysis did not draw through both threefry kernels "
+                             f"({launched})")
     with np.load(ANALYSIS_GOLDEN) as z:
         want = {k: z[k] for k in z.files}
     rel = analysis_error(analysis_arrays(a), want)
     phase("17c analysis is JAX's", lanes=ANALYSIS_LANES, dtype="float64", seed=0,
-          threefry_launches=launched, n_valid=a["n_samples"], max_rel_err=rel,
-          rtol=ANALYSIS_RTOL)
-    return {"name": "threefry (jax.random draws)", "route": "cuda",
-            "source": "erpl_monte_carlo_sim_tpu_torch/csrc/threefry.cu",
-            "replaces": "erpl_monte_carlo_sim_tpu/mc/dispersions.py:185 (jax.random's threefry "
-                        "under XLA; no Pallas kernel)",
-            "launches": main_launches, "max_abs_err": max_abs_err, "ms": kernel_ms,
-            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
-            "torch_randn_ms": randn_ms, "draw_ms": draw_ms, "draw_launches": draw_launches,
-            "golden_errs": worst}
+          threefry_launches=launched["draw"], ar1_launches=launched["ar1"],
+          n_valid=a["n_samples"], max_rel_err=rel, rtol=ANALYSIS_RTOL)
+    source = "erpl_monte_carlo_sim_tpu_torch/csrc/threefry.cu"
+    draw_row = {
+        "name": "threefry (jax.random draws)", "route": "cuda", "source": source,
+        "replaces": "erpl_monte_carlo_sim_tpu/mc/dispersions.py:185 (jax.random's threefry "
+                    "under XLA; no Pallas kernel)",
+        "launches": main_launches["draw"], "max_abs_err": max_abs_err, "ms": kernel_ms,
+        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+        "share_of_bound": bound / kernel_ms, "warps_per_sm": blocks * threads // 32,
+        "regs": ptxas["draw"]["regs"],
+        "spill_bytes": ptxas["draw"]["spill_stores"] + ptxas["draw"]["spill_loads"],
+        "channel_draw_ms": channel_ms, "channel_bound_ms": channel_bound,
+        "torch_randn_ms": randn_ms, "draw_ms": draw_ms, "draw_kernels": draw_kernels,
+        "draw_launches": draw_launches, "golden_errs": worst}
+    ar1_row = {
+        "name": "threefry AR(1) wind chain", "route": "cuda", "source": source,
+        "replaces": "erpl_monte_carlo_sim_tpu/models/wind.py:119 (the AR(1) lax.scan on "
+                    "jax.random's normals, vmapped at mc/dispersions.py:443; no Pallas kernel)",
+        "launches": main_launches["ar1"], "max_abs_err": ar1_err, "ms": ar1["ms"],
+        "plain_ms": ar1_plain_ms, "bound_ms": ar1["bound_ms"], "bound_by": ar1["bound_by"],
+        "library_ms": None, "share_of_bound": ar1["share_of_bound"],
+        "warps_per_sm": ar1["warps_per_sm"], "regs": ptxas["ar1"]["regs"],
+        "spill_bytes": ptxas["ar1"]["spill_stores"] + ptxas["ar1"]["spill_loads"],
+        **{k: ar1[k] for k in ("given_ms", "given_bound_ms", "given_bound_by",
+                               "given_warps_per_sm", "given_library_ms", "given_library_err",
+                               "draw_then_recursion_ms")},
+        "draw_ar1_launches": draw_ar1}
+    return [draw_row, ar1_row]
 
 
 def count_landing_ties(lanes: int) -> dict:
@@ -3560,8 +3684,9 @@ def main(argv=None) -> int:
                     for name, (_, log) in zip(record_builds, logs[1 + len(builds):])}
     phase("1 build", seconds=f"{build_s:.2f}", libraries=len({lib for lib, _ in logs}) + 1,
           ptxas=json.dumps(usage))
-    # every instantiation of the threefry kernel: the largest registers and spills
-    phase("1 build threefry", ptxas=json.dumps(ptxas_usage("[f32]\n" + threefry_log)["f32"]))
+    # every instantiation of each threefry kernel: the largest registers and spills
+    threefry_ptxas = kernel_ptxas(threefry_log, THREEFRY_KERNELS)
+    phase("1 build threefry", ptxas=json.dumps(threefry_ptxas))
     for name, use in set_usage.items():
         phase(f"1 build {name}", build=fs.flags_name(builds[name]), ptxas=json.dumps(use))
     for (name, use), flags in zip(record_usage.items(), record_builds.values()):
@@ -3654,15 +3779,17 @@ def main(argv=None) -> int:
     mc = MonteCarloAnalyzer(motor=liquid_motor(dev), sim_config=SimConfig(max_time=WINDOW))
     mc.run_monte_carlo(ic, n_samples=BENCH_LANES, seed=0)  # warm-up
     torch.cuda.synchronize()
-    fs.launches = tf.launches = 0
+    fs.launches = tf.launches = tf.ar1_launches = 0
     t0 = time.time()
     analysis = mc.run_monte_carlo(ic, n_samples=BENCH_LANES, seed=0)
     wall = time.time() - t0
-    launches, threefry_launches = fs.launches, tf.launches
+    launches, threefry_launches = fs.launches, {"draw": tf.launches, "ar1": tf.ar1_launches}
     if launches < 1:
         raise AssertionError("the main path did not launch the flight_summary kernel")
-    if threefry_launches < 1:
+    if threefry_launches["draw"] < 1:
         raise AssertionError("the main path did not draw through the threefry kernel")
+    if threefry_launches["ar1"] < 1:
+        raise AssertionError("the main path's wind did not run the AR(1) kernel")
     stats_ok = all(math.isfinite(analysis[k][s]) for k in ("apogee_altitude", "range",
                                                             "flight_time")
                    for s in ("mean", "std", "min", "max"))
@@ -3671,7 +3798,7 @@ def main(argv=None) -> int:
                              f"finite stats={stats_ok}")
     steps = int(np.max(analysis["summary"].n_steps))
     phase("4 main path", lanes=BENCH_LANES, launches=launches,
-          threefry_launches=threefry_launches,
+          threefry_launches=threefry_launches["draw"], ar1_launches=threefry_launches["ar1"],
           wall_s=f"{wall:.3f}", trajectories_per_s=f"{BENCH_LANES / wall:.1f}",
           n_valid=analysis["n_samples"], n_outliers=analysis["n_outliers"],
           apogee_mean=analysis["apogee_altitude"]["mean"], max_steps=steps)
@@ -3700,11 +3827,11 @@ def main(argv=None) -> int:
     phase("4 digest f32", lanes=BENCH_LANES, sha256=digest(got))
 
     # ---------------------------------------------------------------- 5
-    def drawn() -> int:
-        """The threefry launches since the last call (each later phase's
-        draws, printed on its closing line)."""
-        n = tf.launches
-        tf.launches = 0
+    def drawn() -> dict:
+        """The threefry kernels' launches since the last call (each later
+        phase's draws, printed on its closing line)."""
+        n = {"threefry_launches": tf.launches, "ar1_launches": tf.ar1_launches}
+        tf.launches = tf.ar1_launches = 0
         return n
 
     drawn()
@@ -3846,53 +3973,53 @@ def main(argv=None) -> int:
 
     # ---------------------------------------------------------------- 9
     large_launches, run9a = large_runs(dev, ic)
-    phase("5-9 draws", threefry_launches=drawn())
+    phase("5-9 draws", **drawn())
 
     # ---------------------------------------------------------------- 10
     t0 = time.time()
     record_rows = recordings(dev, ic, mc, analysis, record_usage, record_builds)
     phase("10 done", phase_10_s=f"{time.time() - t0:.1f}", script_s=f"{time.time() - start:.1f}",
-          threefry_launches=drawn())
+          **drawn())
 
     # ---------------------------------------------------------------- 11
     t0 = time.time()
     example_launches = entry_point(dev)
     phase("11 done", phase_11_s=f"{time.time() - t0:.1f}", script_s=f"{time.time() - start:.1f}",
-          threefry_launches=drawn())
+          **drawn())
 
     # ---------------------------------------------------------------- 12
     t0 = time.time()
     variant_launches = sampling_variants(dev, ic, mc, analysis)
     phase("12 done", phase_12_s=f"{time.time() - t0:.1f}", script_s=f"{time.time() - start:.1f}",
-          threefry_launches=drawn())
+          **drawn())
 
     # ---------------------------------------------------------------- 13
     t0 = time.time()
     estimator_launches = estimators(dev, ic, mc, analysis)
     phase("13 done", phase_13_s=f"{time.time() - t0:.1f}", script_s=f"{time.time() - start:.1f}",
-          threefry_launches=drawn())
+          **drawn())
 
     # ---------------------------------------------------------------- 14
     t0 = time.time()
     modes_launches = wind_modes(dev, ic, analysis)
     phase("14 done", phase_14_s=f"{time.time() - t0:.1f}", script_s=f"{time.time() - start:.1f}",
-          threefry_launches=drawn())
+          **drawn())
 
     # ---------------------------------------------------------------- 15
     t0 = time.time()
     diff_launches = differentiable(dev)
     phase("15 done", phase_15_s=f"{time.time() - t0:.1f}", script_s=f"{time.time() - start:.1f}",
-          threefry_launches=drawn())
+          **drawn())
 
     # ---------------------------------------------------------------- 16
     t0 = time.time()
     parallel_launches = multi_rank(dev, ic, analysis, run9a, card)
     phase("16 done", phase_16_s=f"{time.time() - t0:.1f}", script_s=f"{time.time() - start:.1f}",
-          threefry_launches=drawn())
+          **drawn())
 
     # ---------------------------------------------------------------- 17
     t0 = time.time()
-    threefry_row = threefry_phase(dev, ic, mc, threefry_launches)
+    threefry_rows = threefry_phase(dev, ic, mc, threefry_launches, threefry_ptxas)
     phase("17 done", phase_17_s=f"{time.time() - t0:.1f}", script_s=f"{time.time() - start:.1f}")
 
     report = {"kernels": [
@@ -3919,7 +4046,7 @@ def main(argv=None) -> int:
          **({"variant_launches": {"12d": variant_launches["12d record"]}}
             if name == "parity" else {}), **row}
         for name, row in record_rows.items()
-    ] + [threefry_row]}
+    ] + threefry_rows}
     print(card, flush=True)
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

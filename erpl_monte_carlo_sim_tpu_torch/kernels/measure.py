@@ -23,13 +23,17 @@ The walls of the main path are chip_smoke's phases 4, 5 and 7.
 
 With ``--draw`` it profiles the main path's draw instead: the analyzer's
 seam ``_draw_single`` at 262,144 lanes (seed 0, ``SimConfig(max_time=6.0)``),
-its wall (median of 5 warm calls, the card synchronized around each) and one
-``torch.profiler`` pass over 3 warm calls: the ops by host time and by
-device time, with the device's busy time and its share of the wall. Where
-the threefry kernel exists it also counts the opcodes of each of its
-instantiations in ``cuobjdump -sass`` (``--sass`` keeps the listing). The
-draw is imported from ``sys.path``: run this file by its path with
-``PYTHONPATH`` at another checkout to profile that checkout's draw.
+its wall (median of 5 warm calls, the card synchronized around each), the
+kernels one draw runs (``device_launches``), its peak of device memory above
+what was allocated before it, and one ``torch.profiler`` pass over 3 warm
+calls: the ops by host time and by device time, with the device's busy
+time and its share of the wall. Where the threefry kernels exist it also
+counts the opcodes of each of their instantiations in ``cuobjdump -sass``
+(``--sass`` keeps the listing), and where the AR(1) kernel exists it times
+it alone (``ar1_timing``: the fused chain, the recursion on a given driver,
+beside their bounds and the given driver's one library call). The draw is
+imported from ``sys.path``: run this file by its path with ``PYTHONPATH``
+at another checkout to profile that checkout's draw.
 """
 
 from __future__ import annotations
@@ -183,6 +187,17 @@ def cuda_ms(fn, reps=1):
     return start.elapsed_time(end) / reps, out
 
 
+def warm_ms(fn, reps=5):
+    """``cuda_ms`` of ``fn`` after two warm calls whose outputs are alive at
+    once, as the timed loop keeps its last output alive while it makes the
+    next: the allocator then holds both blocks, and no timed call waits on
+    ``cudaMalloc``."""
+    first = fn()
+    second = fn()
+    del first, second
+    return cuda_ms(fn, reps)
+
+
 def digest(out: dict) -> str:
     """SHA-256 (first 16 hex digits) of a ``flight_summary`` result: its
     float rows in ``SUMMARY_KEYS`` order, then its integer rows, as bytes,
@@ -213,6 +228,36 @@ def ptxas_usage(log: str) -> dict:
                        "spill_stores": max((int(s) for s, _ in spills), default=0),
                        "spill_loads": max((int(l) for _, l in spills), default=0)}
     return usage
+
+
+def kernel_ptxas(log: str, kinds: dict) -> dict:
+    """The largest registers and spills of each group of a ``-Xptxas -v``
+    log's entry functions: ``kinds`` maps a group's name to a substring of
+    its functions' (mangled) names, e.g. ``{"draw": "threefry_kernel",
+    "ar1": "ar1_kernel"}``."""
+    sections = re.split(r"Compiling entry function '(\S+)'", log)[1:]
+    groups = {name: "" for name in kinds}
+    for fn, sec in zip(sections[::2], sections[1::2]):
+        for name, part in kinds.items():
+            if part in fn:
+                groups[name] += sec
+    return {name: ptxas_usage("[f32]\n" + sec)["f32"] for name, sec in groups.items()}
+
+
+def device_launches(fn) -> tuple[int, object]:
+    """The kernels ``fn()`` runs on the card, counted by one
+    ``torch.profiler`` pass (the device's kernel events; copies and fills
+    not counted), and its result."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset"))]
+    return len(kernels), out
 
 
 def occupancy(fs, dtype_key, scene_nw, grid, flags=None):
@@ -310,6 +355,59 @@ def _histogram(ops) -> dict:
     return dict(sorted(counts.items(), key=lambda kv: -kv[1]))
 
 
+def ar1_timing(lanes: int, n_knots: int = 100, reps: int = 5) -> dict:
+    """The AR(1) kernel at the main path's shape (float32, the synthesized
+    wind's chain ``sub=1`` under seed 0's turbulence key): the fused chain's
+    mean ms by CUDA events over ``reps`` calls after a warm-up, its bound
+    (``threefry.ar1_bound_ms``), share and occupancy; the same for the
+    recursion on a given driver (``torch.randn``'s), beside the one library
+    call that computes that recursion, ``torch.einsum`` of the driver with
+    ``ar1_transfer_matrix`` (float32; timed and compared only, since it
+    rounds otherwise than the loop the kernel must equal); and the two launches
+    the chain replaced (the draw kernel writing the normals, then the
+    recursion on them). The outputs are returned under ``out``."""
+    from erpl_monte_carlo_sim_tpu_torch import random
+    from erpl_monte_carlo_sim_tpu_torch.kernels import threefry as tf
+    from erpl_monte_carlo_sim_tpu_torch.models import WindModelParams
+    from erpl_monte_carlo_sim_tpu_torch.models.wind import _ar1_constants, ar1_transfer_matrix
+
+    dev, f32 = torch.device("cuda"), torch.float32
+    key = random.split(random.prng_key(0, dev), 12)[11]
+    grid = torch.linspace(0.0, 25_000.0, n_knots, dtype=f32, device=dev)
+    params = WindModelParams.create(dev, f32)
+    consts = _ar1_constants(params, grid, f32)
+    chain = dict(key=key, lanes=lanes, sub=1)
+    ms, turb = warm_ms(lambda: tf.ar1(*consts, **chain), reps)
+    bound, by = tf.ar1_bound_ms(lanes, n_knots)
+    threads, blocks = tf.occupancy("ar1")
+    noise = torch.randn(lanes, n_knots, 3, device=dev)
+    given_ms, given = warm_ms(lambda: tf.ar1(*consts, noise=noise), reps)
+    given_bound, given_by = tf.ar1_bound_ms(lanes, n_knots, given=True)
+    g_threads, g_blocks = tf.occupancy("ar1_noise")
+    a = torch.tensor(ar1_transfer_matrix(params, grid.cpu().numpy()), dtype=f32, device=dev)
+    vert = torch.tensor([1.0, 1.0, 0.3], dtype=f32, device=dev)
+
+    def library():
+        return torch.einsum("ij,njc,c->nic", a, noise, vert)
+
+    library_ms, lib_out = warm_ms(library, reps)
+    library_err = float((lib_out - given).abs().max())
+    del noise, given, lib_out
+    def draw():
+        return tf.draw(key, "normal", (n_knots, 3), dtype=f32, lanes=lanes, sub=1)
+
+    draw_ms, _ = warm_ms(draw, reps)
+    two_ms, _ = warm_ms(lambda: tf.ar1(*consts, noise=draw()), reps)
+    return {"lanes": lanes, "knots": n_knots, "ms": ms, "bound_ms": bound, "bound_by": by,
+            "share_of_bound": bound / ms, "threads": threads, "blocks_per_sm": blocks,
+            "warps_per_sm": blocks * threads // 32,
+            "given_ms": given_ms, "given_bound_ms": given_bound, "given_bound_by": given_by,
+            "given_share_of_bound": given_bound / given_ms,
+            "given_warps_per_sm": g_blocks * g_threads // 32,
+            "given_library_ms": library_ms, "given_library_err": library_err,
+            "draw_kernel_chain_ms": draw_ms, "draw_then_recursion_ms": two_ms, "out": turb}
+
+
 def draw_profile(lanes: int, sass_out=None) -> dict:
     """The ``--draw`` measurement (module docstring)."""
     import importlib.util
@@ -325,6 +423,7 @@ def draw_profile(lanes: int, sass_out=None) -> dict:
     dev = torch.device("cuda")
     rec = {"card": card_line(), "package": os.path.dirname(analyzer_mod.__file__),
            "lanes": lanes}
+    tf = None
     if importlib.util.find_spec("erpl_monte_carlo_sim_tpu_torch.kernels.threefry"):
         from erpl_monte_carlo_sim_tpu_torch.kernels import threefry as tf
 
@@ -353,6 +452,14 @@ def draw_profile(lanes: int, sass_out=None) -> dict:
         walls.append(1e3 * (time.perf_counter() - t0))
     rec["wall_ms"] = walls
     rec["wall_ms_median"] = float(np.median(walls))
+    rec["draw_kernels"], _ = device_launches(draw)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = draw()
+    torch.cuda.synchronize()
+    rec["draw_peak_mb"] = (torch.cuda.max_memory_allocated() - before) / 2**20
+    del out
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(3):
@@ -371,6 +478,8 @@ def draw_profile(lanes: int, sass_out=None) -> dict:
     rec["host_self_ms"] = sum(r["host_self_ms"] for r in rows)
     rec["by_host"] = sorted(rows, key=lambda r: -r["host_self_ms"])[:25]
     rec["by_device"] = sorted(rows, key=lambda r: -r["device_self_ms"])[:25]
+    if hasattr(tf, "ar1"):  # the AR(1) kernel, alone
+        rec["ar1"] = {k: v for k, v in ar1_timing(lanes).items() if k != "out"}
     return rec
 
 

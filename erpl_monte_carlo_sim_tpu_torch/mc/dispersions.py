@@ -42,8 +42,8 @@ import torch
 from .. import random
 from ..engine.state import InitialConditions
 from ..models.scene import Scene
-from ..models.wind import (WindField, ar1_transfer_matrix, generate_stochastic_profile,
-                           perturb_wind_profile)
+from ..models.wind import (WindField, _perturbed_profile, _stochastic_profile,
+                           ar1_transfer_matrix)
 from ..ops import prng
 from ..ops.sobol import max_dims, ndtri, sobol_uniform
 from ..utils.convert import to_numpy
@@ -252,8 +252,10 @@ def _build_scene(scene: Scene, ic: InitialConditions, ch: dict, base_wind, grid,
     b_tail]``, the tail ``ch["b_tail"]`` or drawn under ``fold_in(turb_key,
     1)``; otherwise lane ``b``'s is drawn under ``split(turb_key, n)[b]``
     (then ``split(.)[1]`` for a synthesized profile, whose first key would
-    draw a direction the channels already give). With a forecast ensemble
-    (``base_wind[1]`` of ``[K, N, 3]``) each lane perturbs the member
+    draw a direction the channels already give), inside the AR(1) recursion
+    (``models.wind._ar1_scan``): on a card one launch draws each lane's
+    normals and runs its recursion, and the driver is never stored. With a
+    forecast ensemble (``base_wind[1]`` of ``[K, N, 3]``) each lane perturbs the member
     ``ch["member"]``, or one drawn by ``randint`` under ``fold_in(turb_key,
     2)``, a key no other draw uses, so that a one-member ensemble gives the
     single forecast's lanes bit for bit."""
@@ -290,6 +292,7 @@ def _build_scene(scene: Scene, ic: InitialConditions, ch: dict, base_wind, grid,
         return random.as_key(turb_key, device)
 
     n_knots = grid.shape[0]
+    noise, chain = None, {}
     if "noise" in ch:
         noise = torch.as_tensor(ch["noise"], dtype=dtype, device=device)
     elif "b_lead" in ch:
@@ -299,9 +302,9 @@ def _build_scene(scene: Scene, ic: InitialConditions, ch: dict, base_wind, grid,
                                    dtype))
         vt = torch.as_tensor(ch["vt"], dtype=dtype, device=device)
         noise = torch.einsum("ij,njc->nic", vt.T, torch.cat([b_lead, b_tail], dim=1))
-    else:
-        noise = random.lane_normal(key(), n, (n_knots, 3), dtype,
-                                 sub=1 if base_wind is None else None)
+    else:  # the lane chain, drawn inside the recursion (on a card, never stored)
+        chain = {"lanes": n, "sub": 1 if base_wind is None else None}
+    chain_key = key() if chain else None
     member = torch.zeros(n, dtype=torch.int32, device=device)
     if base_wind is not None:
         base_profile = torch.as_tensor(base_wind[1], dtype=dtype, device=device)
@@ -311,14 +314,15 @@ def _build_scene(scene: Scene, ic: InitialConditions, ch: dict, base_wind, grid,
             else:
                 member = random.randint(random.fold_in(key(), 2), (n,), 0, base_profile.shape[0])
             base_profile = base_profile[member.long()]  # one [n, N, 3] gather
-        profiles = perturb_wind_profile(scene.wind_model, None, grid, base_profile, noise=noise)
+        profiles = _perturbed_profile(scene.wind_model, chain_key, grid, base_profile,
+                                      noise=noise, **chain)
         offset = torch.stack([wind_speed * torch.cos(wind_dir),
                               wind_speed * torch.sin(wind_dir),
                               torch.zeros_like(wind_speed)], dim=-1)
         profiles = profiles + offset[:, None, :]
     else:
-        profiles = generate_stochastic_profile(scene.wind_model, None, grid, wind_speed,
-                                               wind_dir, noise=noise)
+        profiles = _stochastic_profile(scene.wind_model, grid, wind_speed, wind_dir, chain_key,
+                                       noise=noise, **chain)
 
     batched_scene = Scene(rocket=rocket, motor=motor, atmosphere=atmosphere,
                           wind=WindField(altitudes=grid, wind=profiles),

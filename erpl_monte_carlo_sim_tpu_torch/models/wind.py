@@ -77,34 +77,42 @@ def power_law_profile(p: WindModelParams, altitude, reference_wind_speed,
 _VERTICAL = (1.0, 1.0, 0.3)
 
 
-def _ar1_scan(p: WindModelParams, key, altitudes, mean_uv, mean_w=None, noise=None):
-    """AR(1) turbulence over the grid ``altitudes[N]`` added to the mean wind.
-
-    ``mean_uv [..., N, 2]``, ``mean_w [..., N]`` (zero when None), ``noise``
-    ``[..., N, 3]`` standard normals (``normal(key, (N, 3))`` for each key of
-    ``key [..., 2]`` when None). Returns ``[..., N, 3]``."""
-    n = altitudes.shape[0]
-    dtype, device = mean_uv.dtype, mean_uv.device
-    if mean_w is None:
-        mean_w = torch.zeros(mean_uv.shape[:-1], dtype=dtype, device=device)
-
+def _ar1_constants(p: WindModelParams, altitudes, dtype):
+    """The recursion's constants on ``altitudes``' device: ``rho [N]``,
+    ``vert * sigma_0 [3]`` and ``innov_sigma_i * vert [N, 3]``, each rounded
+    as the eager loop rounds it (``kernels.threefry.ar1_recursion``)."""
     sigma = p.turbulence_intensity * torch.exp(-altitudes / 2000.0)
     dh = torch.clamp_min(torch.diff(altitudes, prepend=altitudes[:1]), 1e-6)
     rho = torch.clamp(torch.exp(-dh / p.correlation_length), 0.1, 0.95)
     innov_sigma = sigma * torch.sqrt(torch.clamp_min(1.0 - rho * rho, 0.01))
+    vert = torch.ones(3, dtype=dtype, device=altitudes.device)
+    vert[2:].fill_(_VERTICAL[2])  # filled on the device: no copy from the host
+    return rho, vert * sigma[0], innov_sigma[:, None] * vert
 
-    if noise is None:
-        noise = random.normal(random.as_key(key, device), (n, 3), dtype)
-    else:
+
+def _ar1_scan(p: WindModelParams, key, altitudes, mean_uv, mean_w=None, noise=None,
+              lanes=None, sub=None):
+    """AR(1) turbulence over the grid ``altitudes[N]`` added to the mean wind.
+
+    ``mean_uv [..., N, 2]``, ``mean_w [..., N]`` (zero when None), ``noise``
+    ``[..., N, 3]`` standard normals (``normal(key, (N, 3))`` for each key of
+    ``key [..., 2]`` when None). ``lanes`` and ``sub``: ``key`` is the
+    parent of a lane chain, lane ``b`` driven by ``normal(split(key,
+    lanes)[b], (N, 3))`` (after ``split(., 2)[sub]``), the sampler's
+    ``jax.vmap`` over ``split(turb_key, n)``. Returns ``[..., N, 3]``. The
+    turbulence is ``kernels.threefry.ar1``'s: the eager loop on the CPU, one
+    launch on a card, where a drawn driver never reaches memory."""
+    from ..kernels import threefry  # here: the kernel's module pulls in the engine
+
+    dtype, device = mean_uv.dtype, mean_uv.device
+    if mean_w is None:
+        mean_w = torch.zeros(mean_uv.shape[:-1], dtype=dtype, device=device)
+    rho, scale0, scale = _ar1_constants(p, altitudes, dtype)
+    if noise is not None:
         noise = torch.as_tensor(noise, dtype=dtype, device=device)
-
-    vert = torch.tensor(_VERTICAL, dtype=dtype, device=device)
-    turb = vert * sigma[0] * noise[..., 0, :]
-    rows = [turb]
-    for i in range(1, n):
-        turb = rho[i] * turb + (innov_sigma[i] * vert) * noise[..., i, :]
-        rows.append(turb)
-    turb = torch.stack(rows, dim=-2)
+    elif key is not None:
+        key = random.as_key(key, device)
+    turb = threefry.ar1(rho, scale0, scale, key=key, lanes=lanes, sub=sub, noise=noise)
     mean = torch.cat([mean_uv, mean_w[..., None]], dim=-1)
     return mean + turb
 
@@ -118,8 +126,7 @@ def generate_stochastic_profile(p: WindModelParams, key, altitudes, base_wind_sp
     dtype), the turbulence under ``turb_key`` unless ``noise`` is given.
     ``key [..., 2]``, ``base_wind_speed`` and ``base_wind_direction`` may
     carry leading batch dims; returns ``[..., N, 3]``."""
-    dtype, device = altitudes.dtype, altitudes.device
-    speed_in = torch.as_tensor(base_wind_speed, dtype=dtype, device=device)
+    device = altitudes.device
     if key is None:
         if base_wind_direction is None or noise is None:
             raise ValueError("generate_stochastic_profile draws: it needs a key")
@@ -128,11 +135,23 @@ def generate_stochastic_profile(p: WindModelParams, key, altitudes, base_wind_sp
         dir_key, turb_key = random.split(random.as_key(key, device)).unbind(-2)
     if base_wind_direction is None:
         base_wind_direction = random.uniform(dir_key, (), torch.float64, 0.0, 2.0 * math.pi)
+    return _stochastic_profile(p, altitudes, base_wind_speed, base_wind_direction,
+                               turb_key, noise=noise)
+
+
+def _stochastic_profile(p: WindModelParams, altitudes, base_wind_speed, base_wind_direction,
+                        turb_key=None, noise=None, lanes=None, sub=None) -> torch.Tensor:
+    """``generate_stochastic_profile`` with its direction given and its
+    turbulence under ``turb_key`` (or ``noise``); ``lanes`` and ``sub``
+    make ``turb_key`` the parent of a lane chain (``_ar1_scan``): the
+    sampler's route, which on a card never stores the normals."""
+    dtype, device = altitudes.dtype, altitudes.device
+    speed_in = torch.as_tensor(base_wind_speed, dtype=dtype, device=device)
     direction = torch.as_tensor(base_wind_direction, device=device).to(dtype)
     speed = power_law_profile(p, altitudes, speed_in[..., None])
     mean_uv = torch.stack([speed * torch.cos(direction)[..., None],
                            speed * torch.sin(direction)[..., None]], dim=-1)
-    return _ar1_scan(p, turb_key, altitudes, mean_uv, noise=noise)
+    return _ar1_scan(p, turb_key, altitudes, mean_uv, noise=noise, lanes=lanes, sub=sub)
 
 
 def perturb_wind_profile(p: WindModelParams, key, altitudes, base_profile,
@@ -140,13 +159,20 @@ def perturb_wind_profile(p: WindModelParams, key, altitudes, base_profile,
     """AR(1) turbulence under ``key`` (unless ``noise`` is given) around a
     forecast ``base_profile [..., N, 3]``; all three components keep their
     forecast mean."""
+    return _perturbed_profile(p, key, altitudes, base_profile, noise=noise)
+
+
+def _perturbed_profile(p: WindModelParams, key, altitudes, base_profile, noise=None,
+                       lanes=None, sub=None) -> torch.Tensor:
+    """``perturb_wind_profile``; ``lanes`` and ``sub`` make ``key`` the
+    parent of a lane chain (``_ar1_scan``), the sampler's route."""
     base_profile = torch.as_tensor(base_profile, dtype=altitudes.dtype,
                                    device=altitudes.device)
     if noise is not None:
         base_profile = torch.broadcast_to(
             base_profile, torch.as_tensor(noise).shape)
     return _ar1_scan(p, key, altitudes, base_profile[..., :2],
-                     mean_w=base_profile[..., 2], noise=noise)
+                     mean_w=base_profile[..., 2], noise=noise, lanes=lanes, sub=sub)
 
 
 def ar1_transfer_matrix(p: WindModelParams, altitudes) -> np.ndarray:

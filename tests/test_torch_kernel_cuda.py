@@ -565,3 +565,31 @@ def test_threefry_kernel_is_plain_and_jax_on_cuda():
         assert tf.launches == before + 1, name
         threefry_error(got, tf.draw_reference(key, kind, shape, **kw), kind, kw.get("dtype"))
         threefry_error(threefry_kept(name, got), golden[name], kind, kw.get("dtype"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["chain", "given"])
+def test_ar1_kernel_is_plain_on_cuda(mode):
+    """The AR(1) kernel against its plain version on the card, bit for bit:
+    the fused wind chain (float32 and float64, ``sub`` 1 and None, 4,099
+    lanes: a ragged last block) and the recursion on a given driver; one
+    launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from chip_smoke import threefry_key
+    from erpl_monte_carlo_sim_tpu_torch.kernels import threefry as tf
+    from erpl_monte_carlo_sim_tpu_torch.models import WindModelParams
+    from erpl_monte_carlo_sim_tpu_torch.models.wind import _ar1_constants
+
+    dev = torch.device("cuda")
+    turb = threefry_key(("turb", 0), dev)
+    for dtype in (torch.float32, torch.float64):
+        grid = torch.linspace(0.0, 25_000.0, 100, dtype=dtype, device=dev)
+        consts = _ar1_constants(WindModelParams.create(dev, dtype), grid, dtype)
+        for sub in ((1, None) if mode == "chain" else (None,)):
+            kw = (dict(key=turb, lanes=4099, sub=sub) if mode == "chain" else
+                  dict(noise=torch.randn(4099, 100, 3, dtype=dtype, device=dev)))
+            before = tf.ar1_launches
+            got = tf.ar1(*consts, **kw)
+            assert tf.ar1_launches == before + 1
+            assert torch.equal(got, tf.ar1_reference(*consts, **kw)), (dtype, sub)

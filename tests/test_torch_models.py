@@ -347,29 +347,70 @@ def test_wind_profiles_with_explicit_noise(kind, rng):
     close(got, np.stack(ref), atol=1e-12)
 
 
-def test_wind_generator_draws_reproducible():
-    """Drawn under a key (the direction and the turbulence, a batch of keys
-    at once): the JAX package's profiles for the same keys."""
+@pytest.fixture(scope="module")
+def jax_wind_profiles():
+    """The JAX package's profiles under each of ``split(PRNGKey(5), 3)``: the
+    synthesized ones (speeds ``WIND_SPEEDS``, each direction drawn under the
+    key) and the perturbed ones around a ramp forecast, one call a key."""
     import jax
 
+    jp = jmod.WindModelParams()
+    grid = jnp.asarray(np.linspace(0.0, 25000.0, 100))
+    keys = jax.random.split(jax.random.PRNGKey(5), 3)
+    base = jnp.asarray(np.cumsum(np.ones((100, 3)), axis=0))
+    return {"stochastic": np.stack([jmod.generate_stochastic_profile(jp, keys[i], grid, s)
+                                    for i, s in enumerate(WIND_SPEEDS)]),
+            "perturb": np.stack([jmod.perturb_wind_profile(jp, keys[i], grid, base)
+                                 for i in range(3)]),
+            "base": np.array(base)}
+
+
+WIND_SPEEDS = (3.0, 1.0, 4.5)
+
+
+def test_wind_generator_draws_reproducible(jax_wind_profiles):
+    """Drawn under a key (the direction and the turbulence, a batch of keys
+    at once): the JAX package's profiles for the same keys."""
     from erpl_monte_carlo_sim_tpu_torch import random as prandom
     from erpl_monte_carlo_sim_tpu_torch.ops import prng
 
-    tp, jp = tmod.WindModelParams.create(CPU), jmod.WindModelParams()
+    tp = tmod.WindModelParams.create(CPU)
     grid = np.linspace(0.0, 25000.0, 100)
-    keys = jax.random.split(jax.random.PRNGKey(5), 3)
     tkeys = prandom.split(prng.prng_key(5), 3)
-    a = tmod.generate_stochastic_profile(tp, tkeys, t(grid), t([3.0, 1.0, 4.5]))
+    a = tmod.generate_stochastic_profile(tp, tkeys, t(grid), t(WIND_SPEEDS))
     assert a.shape == (3, 100, 3)
-    ref = [jmod.generate_stochastic_profile(jp, keys[i], jnp.asarray(grid), s)
-           for i, s in enumerate((3.0, 1.0, 4.5))]
-    close(a, np.stack(ref), atol=1e-12)
-    base = np.cumsum(np.ones((100, 3)), axis=0)
-    close(tmod.perturb_wind_profile(tp, tkeys[0], t(grid), t(base)),
-          jmod.perturb_wind_profile(jp, keys[0], jnp.asarray(grid), jnp.asarray(base)),
-          atol=1e-12)
-    assert torch.equal(a, tmod.generate_stochastic_profile(tp, tkeys, t(grid),
-                                                           t([3.0, 1.0, 4.5])))
+    close(a, jax_wind_profiles["stochastic"], atol=1e-12)
+    close(tmod.perturb_wind_profile(tp, tkeys[0], t(grid), t(jax_wind_profiles["base"])),
+          jax_wind_profiles["perturb"][0], atol=1e-12)
+    assert torch.equal(a, tmod.generate_stochastic_profile(tp, tkeys, t(grid), t(WIND_SPEEDS)))
+
+
+@pytest.mark.parametrize("sub", [1, None], ids=["synthesized", "forecast"])
+def test_wind_profiles_on_a_lane_chain_are_jax(sub, jax_wind_profiles):
+    """The sampler's route (``_stochastic_profile`` / ``_perturbed_profile``
+    with ``lanes`` and ``sub``, which on a card draws each lane's normals
+    inside the AR(1) kernel): lane ``b`` under ``split(key, n)[b]`` is the
+    JAX package's ``generate_stochastic_profile`` (its own ``split(.)[1]``
+    for the turbulence) or ``perturb_wind_profile`` on that lane key, as
+    its sampler vmaps them over ``split(turb_key, n)``."""
+    from erpl_monte_carlo_sim_tpu_torch import random as prandom
+    from erpl_monte_carlo_sim_tpu_torch.models import wind as twind
+    from erpl_monte_carlo_sim_tpu_torch.ops import prng
+
+    tp = tmod.WindModelParams.create(CPU)
+    grid = t(np.linspace(0.0, 25000.0, 100))
+    parent = prng.prng_key(5)
+    if sub == 1:  # each lane's direction as JAX draws it, under split(lane key)[0]
+        dir_keys = prandom.split(prandom.split(parent, 3))[:, 0]
+        direction = prandom.uniform(dir_keys, (), torch.float64, 0.0, 2.0 * math.pi)
+        got = twind._stochastic_profile(tp, grid, t(WIND_SPEEDS), direction, parent, lanes=3,
+                                        sub=1)
+        ref = jax_wind_profiles["stochastic"]
+    else:
+        got = twind._perturbed_profile(tp, parent, grid, t(jax_wind_profiles["base"]), lanes=3)
+        ref = jax_wind_profiles["perturb"]
+    assert got.shape == (3, 100, 3)
+    close(got, ref, atol=1e-12)
 
 
 # ------------------------------------------------------------------ scene, config, state

@@ -10,12 +10,15 @@ over ``split(turb_key, n)``; batched keys against ``jax.vmap``. The golden
 file chip_smoke.py holds the card's draws to is regenerated from JAX and must
 equal the committed one.
 
-The kernel's source is built with g++ against the CPU shim of
+The kernels' source is built with g++ against the CPU shim of
 tests/test_torch_kernel_emulated.py (a ``std::thread`` per CUDA thread, one
-block at a time; ``-ffp-contract=off`` for the kernel's ``-fmad=false``) and
-fed through the wrapper's own argument layout (``kernels.threefry
-launch_args``): every kind, both chains, a ragged last block and a block
-whose words span many lanes, held to the plain version at the same bars.
+block at a time, here over a two-dimensional grid; ``-ffp-contract=off`` for
+the kernel's ``-fmad=false``) and fed through the wrappers' own argument
+layouts (``kernels.threefry launch_args`` and ``ar1_args``): every kind of
+draw, both chains, ragged last blocks, blocks that hold one or many
+key-lanes and key-lanes that span many blocks, held to the plain version at the same
+bars; the AR(1) kernel's fused chain (float32 and float64, ``sub`` 1 and
+None) and its recursion on a given driver bit for bit.
 The CPU's math library stands in for CUDA's, so this checks the kernel's
 logic and order of operations; chip_smoke.py phase 17 checks its bits on
 the card. It skips without g++.
@@ -228,17 +231,38 @@ inline int __float_as_int(float f) { int i; memcpy(&i, &f, 4); return i; }
 inline float __int_as_float(int i) { float f; memcpy(&f, &i, 4); return f; }
 inline float __uint_as_float(unsigned u) { float f; memcpy(&f, &u, 4); return f; }
 inline double __longlong_as_double(long long i) { double d; memcpy(&d, &i, 8); return d; }
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+struct EmuGrid { dim3 grid; int threads; long long smem; void* stream; };
+#define EMU_GRID(...) EmuGrid{__VA_ARGS__}
+// the shim's launch over a grid of x and y blocks, one block at a time
+template <class F, class... A> void emu_grid_launch(EmuGrid c, F f, A... a) {
+  blockDim.x = c.threads;
+  gridDim.x = c.grid.x;
+  gridDim.y = c.grid.y;
+  for (unsigned by = 0; by < c.grid.y; ++by)
+    for (unsigned bx = 0; bx < c.grid.x; ++bx) {
+      EmuBarrier bar(c.threads);
+      emu_bar = &bar;
+      std::vector<std::thread> ts;
+      for (int t = 0; t < c.threads; ++t)
+        ts.emplace_back([&, t, bx, by] {
+          threadIdx.x = t;
+          blockIdx.x = bx;
+          blockIdx.y = by;
+          f(a...);
+        });
+      for (auto& th : ts) th.join();
+    }
+}
 """
-
-_ENTRY = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-          ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_double,
-          ctypes.c_double, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-          ctypes.c_void_p, ctypes.c_void_p]
-
 
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
-    """``threefry_draw`` of the kernel's source, built for the CPU."""
+    """The kernels' source built for the CPU: its library, whose C entries
+    take the arguments of ``threefry_draw`` and ``threefry_ar1``."""
     from test_torch_kernel_emulated import SHIM
 
     gxx = shutil.which("g++")
@@ -248,18 +272,20 @@ def emulated(tmp_path_factory):
     (d / "cuda_runtime.h").write_text(SHIM + INTRINSICS)
     with open(tf.SOURCE) as f:
         src = f.read()
-    src, n = re.subn(r"(\w+<[^<>]*>)<<<(.*?)>>>\(", r"emu_launch(EMU_CFG(\2), \1, ", src,
-                     flags=re.S)
-    assert n == 1
+    src, n = re.subn(r"(\w+<[^<>]*>)<<<(.*?)>>>\(", r"emu_grid_launch(EMU_GRID(\2), \1, ",
+                     src, flags=re.S)
+    assert n == 2  # the source's launches: the draw kernel's and the AR(1) kernel's
     (d / "kernel.cpp").write_text(src.replace("__shared__", "static"))
     lib = d / "threefry.so"
     p = subprocess.run([gxx, "-std=c++17", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
-                        f"-I{d}", str(d / "kernel.cpp"), "-o", str(lib), "-lpthread", "-lm"],
+                        f"-I{d}", str(d / "kernel.cpp"), "-o",
+                        str(lib), "-lpthread", "-lm"],
                        capture_output=True, text=True, timeout=300)
     assert p.returncode == 0, f"g++ failed:\n{p.stdout}{p.stderr}"
-    fn = ctypes.CDLL(str(lib)).threefry_draw
-    fn.argtypes, fn.restype = _ENTRY, ctypes.c_int
-    return fn
+    lib = ctypes.CDLL(str(lib))
+    lib.threefry_draw.argtypes, lib.threefry_draw.restype = tf._ENTRY_ARGS, ctypes.c_int
+    lib.threefry_ar1.argtypes, lib.threefry_ar1.restype = tf._AR1_ARGS, ctypes.c_int
+    return lib
 
 
 EMULATED = [  # (kind, shape, keyword arguments); keys of PRNGKey(2**40 + 7)
@@ -274,6 +300,10 @@ EMULATED = [  # (kind, shape, keyword arguments); keys of PRNGKey(2**40 + 7)
     ("normal", (100, 3), {"dtype": F32, "lanes": 9, "sub": 1}),
     ("normal", (100, 3), {"dtype": F64, "lanes": 9}),
     ("normal", (), {"dtype": F32, "lanes": 600, "sub": 0}),  # 256 lanes a block
+    ("uniform", (5,), {"dtype": F64, "minval": 0.0, "maxval": 5.0, "lanes": 60}),  # 51 a block
+    ("randint", (7,), {"minval": -7, "maxval": 300_000, "lanes": 5}),
+    ("bits", (1500,), {"lanes": 3}),  # one key-lane a block
+    ("bits", (5000,), {}),  # key-lanes longer than a block's words: grid y, the stride loop
 ]
 
 
@@ -285,11 +315,75 @@ def test_emulated_kernel_is_plain(emulated, kind, shape, kw):
     plain version on two keys at once (the batch of parent keys)."""
     key = prandom.split(prng.prng_key(2**40 + 7), 2)
     out, keys, args = tf.launch_args(key, kind, shape, **kw)
-    assert emulated(*args, None) == 0
+    assert emulated.threefry_draw(*args, None) == 0
     got = tf.words_of(kind, out)
     want = tf.draw_reference(key, kind, shape, **kw)
     assert got.shape == want.shape
     threefry_error(got, want, kind, kw.get("dtype"))
+
+
+def test_emulated_draw_refuses_a_key_lane_beyond_the_grid(emulated):
+    """A key-lane of more words than the draw kernel's grid y holds (65,535
+    blocks of 2,048 words) is refused before any launch, not drawn short."""
+    key = prandom.split(prng.prng_key(0), 2)
+    out, keys, args = tf.launch_args(key, "bits", (5000,))
+    assert emulated.threefry_draw(*args[:4], 2048 * 65535 + 1, *args[5:], None) == -2
+    assert emulated.threefry_draw(*args, None) == 0  # the same draw within the grid
+
+
+def ar1_constants(n_knots, dtype):
+    """The wind model's AR(1) constants on an ``n_knots`` grid to 25 km."""
+    from erpl_monte_carlo_sim_tpu_torch.models import WindModelParams
+    from erpl_monte_carlo_sim_tpu_torch.models.wind import _ar1_constants
+
+    grid = torch.linspace(0.0, 25_000.0, n_knots, dtype=dtype)
+    return _ar1_constants(WindModelParams.create("cpu", dtype), grid, dtype)
+
+
+AR1_CHAINS = [  # (dtype, lanes, sub, parent keys): ragged last blocks of 32 lanes
+    (F32, 40, 1, 1), (F32, 20, None, 2), (F64, 33, 1, 1), (F64, 9, None, 1),
+]
+
+
+@pytest.mark.parametrize("dtype,lanes,sub,parents", AR1_CHAINS,
+                         ids=[f"{str(d)[6:]}-{n}-sub{s}-keys{k}" for d, n, s, k in AR1_CHAINS])
+def test_emulated_ar1_chain_is_plain(emulated, dtype, lanes, sub, parents):
+    """The fused chain (each lane's normals drawn and run through the
+    recursion in one launch) against its plain version, the draw and the
+    eager loop, over 100 knots: bit for bit in float32. In float64 the CPU's
+    ``log1p`` stands in for CUDA's, so the chain is held bit for bit to the
+    eager loop on the draw kernel's own normals, and those to the plain
+    draw at the float64 bar (on the card, chip_smoke phase 17 holds the
+    chain to the plain version bit for bit)."""
+    key = prandom.split(prng.prng_key(0), 12)[11]
+    if parents > 1:  # a batch of parent keys, each split into the lanes
+        key = prandom.split(key, parents)
+    rho, scale0, scale = ar1_constants(100, dtype)
+    out, _, args = tf.ar1_args(rho, scale0, scale, key=key, lanes=lanes, sub=sub)
+    assert emulated.threefry_ar1(*args, None) == 0
+    assert out.shape == key.shape[:-1] + (lanes, 100, 3)
+    if dtype == F32:
+        assert torch.equal(out, tf.ar1_reference(rho, scale0, scale, key=key, lanes=lanes,
+                                                 sub=sub))
+        return
+    draw = dict(dtype=dtype, lanes=lanes, sub=sub)
+    z, _, draw_args = tf.launch_args(key, "normal", (100, 3), **draw)
+    assert emulated.threefry_draw(*draw_args, None) == 0
+    assert torch.equal(out, tf.ar1_recursion(z, rho, scale0, scale))
+    threefry_error(z, tf.draw_reference(key, "normal", (100, 3), **draw), "normal", dtype)
+
+
+@pytest.mark.parametrize("dtype,lanes,knots",
+                         [(F32, 40, 100), (F32, 33, 61), (F64, 9, 37), (F32, 3, 1)])
+def test_emulated_ar1_given_noise_is_plain(emulated, dtype, lanes, knots):
+    """The recursion on a given driver (the Sobol, modes and Sobol'-index
+    paths'), read through the staging buffer, against the eager loop bit
+    for bit."""
+    noise = torch.as_tensor(np.random.default_rng(7).normal(size=(lanes, knots, 3))).to(dtype)
+    rho, scale0, scale = ar1_constants(knots, dtype)
+    out, _, args = tf.ar1_args(rho, scale0, scale, noise=noise)
+    assert emulated.threefry_ar1(*args, None) == 0
+    assert torch.equal(out, tf.ar1_recursion(noise, rho, scale0, scale))
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take():
@@ -302,6 +396,15 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         tf.launch_args(key, "normal", (3,), dtype=torch.float16)
     with pytest.raises(ValueError, match="CPU or a CUDA device"):
         tf.draw(key.to("meta"), "bits", (3,))
+    rho, scale0, scale = ar1_constants(10, F32)
+    with pytest.raises(ValueError, match="a key or a driver"):
+        tf.ar1(rho, scale0, scale)
+    with pytest.raises(TypeError, match="one dtype"):
+        tf.ar1_args(rho, scale0.double(), scale, key=key)
+    with pytest.raises(ValueError, match=r"driver \[\.\.\., 10, 3\]"):
+        tf.ar1_args(rho, scale0, scale, noise=torch.zeros(2, 9, 3))
+    with pytest.raises(ValueError, match="CPU or a CUDA device"):
+        tf.ar1(rho.to("meta"), scale0.to("meta"), scale.to("meta"), key=key.to("meta"))
 
 
 if __name__ == "__main__" and sys.argv[1:] == ["--write-golden"]:
