@@ -70,8 +70,9 @@ raises and the run exits non-zero:
      analysis bit for bit but for ``performance`` and ``sequential``. Each
      run counts its kernel launches from 0: one a slab;
  10. lanes flown again with their trajectories recorded, through the
-     kernel's recording build (``MonteCarloAnalyzer.resimulate_trajectories``,
-     launches counted from 0 before each): (a) 256 lanes spread over phase
+     kernel's recording build, its flight and its derived pass
+     (``MonteCarloAnalyzer.resimulate_trajectories``, the launches of both
+     counted from 0 before each): (a) 256 lanes spread over phase
      4's run, float32, every summary leaf the run's bit for bit, 64 of the
      trajectories held to the plain recorder on the card at the float32
      bars (``compare_records``), and the same 256 lanes in float64 at rtol
@@ -88,7 +89,11 @@ raises and the run exits non-zero:
      envelope fed by the plain recorder (counts and histograms exact,
      moments at 1e-9), the in-loop envelope against the frame path, and
      the in-loop reduction alone timed on 2,048 lanes. The recording
-     builds are timed in both precisions beside their bound;
+     builds are timed in both precisions (``measure.record_case``) beside
+     their bound and their latency floor, the records of (a) and (b) in
+     both precisions must have the digests of the build before its
+     redesign (``RECORD_DIGESTS``), and the derived pass is held to the
+     plain ``derived_c`` on (a)'s frames and timed alone;
  11. the user's entry point, in a temporary working directory: (a)
      ``example.main(n_samples=262,144, stabilized=True, device="cuda")``,
      each stage clocked and its launches counted (``StageClock``): the
@@ -232,7 +237,13 @@ of phase 11's example runs (``example_launches``), and the summary rows
 (``variant_launches``); the summary rows also those of phase 13's runs
 (``estimator_launches``), and those of phases 14 and 15
 (``modes_launches``, ``diff_launches``), and phase 16's per rank
-(``parallel_launches``). Its last two rows are the threefry kernels': the
+(``parallel_launches``). A recording row's ``ms`` is ``flight_record``'s
+time (the build's launches and the frames' gather), its ``build_ms`` the
+build's launches alone (``measure.record_case``), and its
+``latency_floor_ms`` the least time of the flight's serial chain, whose
+``share_of_floor`` is of ``build_ms``. After the recording rows comes the
+derived pass's row (phase 10's launches, times, bound, registers and
+occupancy). Its last two rows are the threefry kernels': the
 draw kernel's and the AR(1) kernel's, each with phase 4's launches, phase
 17b's times, bound, occupancy, registers and spills, and the whole draw's ms
 and launches.
@@ -259,8 +270,10 @@ import numpy as np
 import torch
 
 from erpl_monte_carlo_sim_tpu_torch.kernels.measure import (
-    FLAG_SETS, ar1_timing, card_line, cuda_ms, device_launches, digest, flag_set, kernel_ptxas,
-    low_apogee_batch, occupancy, ptxas_usage, sample_batch, time_kernel, warm_ms, with_stall)
+    FLAG_SETS, ar1_timing, card_line, cuda_ms, device_launches, digest,
+    flag_set, head, kernel_ptxas, low_apogee_batch, map_tensors, occupancy, ptxas_usage,
+    record_case, record_ptxas, records_digest, sample_batch, sass_listing, sm_clock_mhz, spread,
+    step_instructions, time_kernel, warm_ms, widened, with_stall)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 KERNEL_SOURCE = "erpl_monte_carlo_sim_tpu_torch/csrc/flight_summary.cu"
@@ -270,6 +283,9 @@ REPLACES = (
     ("simulate_summary_pallas",
      "erpl_monte_carlo_sim_tpu/experimental/pallas_kernel.py:217"),
 )
+# the recording build's derived pass: what the JAX package runs in its place
+DERIVED_REPLACES = ("erpl_monte_carlo_sim_tpu/engine/component.py:335 (derived_c, which XLA "
+                    "evaluates inside the recorder's loop; no Pallas kernel)")
 WINDOW = 6.0
 BENCH_LANES = 262_144
 FULL_FLIGHT_LANES = 16_384
@@ -296,6 +312,11 @@ ATOL = 1e-6
 # plain-fed check
 RESIM_LANES = 256
 HELD_LANES = 64
+# the digests of phase 10's recordings (``measure.records_digest``: 10a's 256
+# lanes in float32 and float64, 10b's 256 lanes in float32 and 64 in
+# float64), which a change to the recording build that moves no bit keeps
+RECORD_DIGESTS = {"10a f32": "268cc0bf997e0a3c", "10a f64": "7ff32da17f9ac667",
+                  "10b f32": "675857a0b26e7a5a", "10b f64": "cab6013e93add0ca"}
 ENVELOPE_LANES = 4096
 ENVELOPE_HELD = 1024
 # phase 12: the sampling variants at the main path's width; the Sobol run's
@@ -782,26 +803,6 @@ def kernel_and_plain(scene_b, ic_b, cfg):
     ref = fs.flight_summary_reference(scene_nw, grid, wind, ics, cfg)
     torch.cuda.synchronize()
     return ref, got
-
-
-def map_tensors(fn, x):
-    """``fn`` applied to every tensor of prepared inputs or an output dict."""
-    if dataclasses.is_dataclass(x):
-        return dataclasses.replace(x, **{f.name: map_tensors(fn, getattr(x, f.name))
-                                         for f in dataclasses.fields(x)})
-    if isinstance(x, (tuple, list)):
-        return type(x)(map_tensors(fn, v) for v in x)
-    if isinstance(x, dict):
-        return {k: map_tensors(fn, v) for k, v in x.items()}
-    return fn(x) if isinstance(x, torch.Tensor) else x
-
-
-def head(x, lanes: int, n: int):
-    """The first ``n`` of ``lanes`` lanes of prepared inputs or of an output
-    dict: every tensor whose first dimension is ``lanes`` is cut; shared
-    leaves (tables, the grid, shared scalars) stay."""
-    return map_tensors(
-        lambda t: t[:n].contiguous() if t.ndim >= 1 and t.shape[0] == lanes else t, x)
 
 
 def plain_on_head(args, got, cfg, n=None):
@@ -1367,27 +1368,34 @@ def large_runs(dev, ic) -> tuple:
     return launches, a
 
 
-def spread(n_run: int, n: int) -> np.ndarray:
-    """``n`` lane ids spread evenly over a run of ``n_run`` lanes."""
-    return np.linspace(0, n_run - 1, n).round().astype(np.int64)
-
-
 def resimulated(mc, ids, tag: str, want_launches: int):
     """The main path of phase 10: ``resimulate_trajectories(ids)``, the
-    launches counted from 0 just before it and read just after. Returns
-    ``(summary, trajectory, launches, wall s)``."""
+    launches counted from 0 just before it and read just after: the
+    recording build's flight and its derived pass, ``want_launches`` each.
+    Returns ``(summary, trajectory, launches, wall s)``."""
     from erpl_monte_carlo_sim_tpu_torch.kernels import flight_summary as fs
 
     torch.cuda.synchronize()
-    fs.launches = 0
+    fs.launches = fs.derived_launches = 0
     t0 = time.time()
     s, traj = mc.resimulate_trajectories(ids)
     torch.cuda.synchronize()
     wall, launched = time.time() - t0, fs.launches
-    if launched != want_launches:
-        raise AssertionError(f"phase {tag}: {launched} launches of the recording build, "
-                             f"{want_launches} expected")
+    if launched != want_launches or fs.derived_launches != want_launches:
+        raise AssertionError(f"phase {tag}: {launched} launches of the recording build and "
+                             f"{fs.derived_launches} of its derived pass, {want_launches} "
+                             "each expected")
     return s, traj, launched, wall
+
+
+def same_records(recs: dict, tag: str) -> str:
+    """The digest of a recording (``records_digest``), which must be
+    ``RECORD_DIGESTS[tag]``, the recording build's before its redesign."""
+    got = records_digest(recs)
+    if got != RECORD_DIGESTS[tag]:
+        raise AssertionError(f"{tag}: the records' digest {got} is not "
+                             f"{RECORD_DIGESTS[tag]}")
+    return got
 
 
 def same_summary(summary, run: dict, ids, tag: str) -> None:
@@ -1405,24 +1413,18 @@ def same_summary(summary, run: dict, ids, tag: str) -> None:
             np.testing.assert_array_equal(getattr(got, k), v[ids], err_msg=f"{tag} {k}")
 
 
-def recording_row(fs, args, res, recs, cfg, ms, usage, flags) -> dict:
-    """A kernels-JSON row of a recording build: its time, bound and share
-    on these inputs, registers, spills and warps per SM."""
-    dtype = args[3][0].dtype
-    key = "f32" if dtype == torch.float32 else "f64"
-    b = fs.bound_ms(res, cfg, dtype, fs.input_bytes(*args, cfg), recs)
-    use = usage[key]
-    threads, blocks = occupancy(fs, key, args[0], args[1], flags)
-    return {"lanes": int(args[3][0].shape[0]), "frames": int(recs["time"].shape[0]),
-            "channels": len(fs.FRAME_KEYS) + len(recs["derived"]), "ms": ms,
-            "bound_ms": b.ms, "bound_by": b.by, "share_of_bound": b.ms / ms,
-            "regs": use["regs"], "spill_bytes": use["spill_stores"] + use["spill_loads"],
-            "warps_per_sm": blocks * threads // 32}
-
-
-def widened(args):
-    """Prepared inputs in float64, every float widened exactly."""
-    return map_tensors(lambda t: t.double() if t.is_floating_point() else t, args)
+def recording_row(case: dict, ms: float, digest_: str) -> dict:
+    """A kernels-JSON row of a recording build: ``ms``, the time of
+    ``flight_record`` (its launches and the frames' gather), and the bound's
+    share of it; from ``measure.record_case`` on the same inputs, ``build_ms`` (the build's launches alone, its flight and its
+    derived pass, by CUDA events), the latency floor and its share of
+    ``build_ms``, the bound, the flight kernel's registers, spills, threads
+    per block and warps per SM; the records' digest."""
+    keys = ("lanes", "frames", "channels", "bound_ms", "bound_by", "latency_floor_ms",
+            "share_of_floor", "step_instructions", "max_steps", "regs", "spill_bytes",
+            "threads_per_block", "warps_per_sm")
+    return {**{k: case[k] for k in keys}, "ms": ms, "share_of_bound": case["bound_ms"] / ms,
+            "build_ms": case["ms"], "digest": digest_}
 
 
 def stop_frames(recs) -> torch.Tensor:
@@ -1430,12 +1432,14 @@ def stop_frames(recs) -> torch.Tensor:
     return recs["valid"].sum(0) - 1
 
 
-ROW_KEYS = ("ms", "bound_ms", "share_of_bound", "regs", "spill_bytes", "warps_per_sm",
-            "frames", "channels")
+ROW_KEYS = ("ms", "build_ms", "bound_ms", "share_of_bound", "latency_floor_ms",
+            "share_of_floor", "regs", "spill_bytes", "threads_per_block", "warps_per_sm",
+            "frames", "channels", "digest")
 
 
 def recordings(dev, ic, mc4, run4, record_usage, record_flags) -> dict:
-    """Phase 10; returns the kernels-JSON rows of the recording builds."""
+    """Phase 10; returns the kernels-JSON rows of the recording builds and
+    of the derived pass."""
     from erpl_monte_carlo_sim_tpu_torch.engine import (InitialConditions, SimConfig,
                                                        simulate_flight_batch)
     from erpl_monte_carlo_sim_tpu_torch.engine.batch import (prepare_batch,
@@ -1448,10 +1452,18 @@ def recordings(dev, ic, mc4, run4, record_usage, record_flags) -> dict:
 
     f32, f64 = torch.float32, torch.float64
     rows = {}
+    # the step's SASS instructions of each recording build, for its latency floor
+    sass = {name: step_instructions(sass_listing(fs.build(flags)[0]))
+            for name, flags in record_flags.items()}
+    clock = sm_clock_mhz()
+
+    def case(args, cfg, name):
+        return record_case(fs, args, cfg, 3, record_usage[name], sass[name], clock)
 
     # ---- 10a: 256 lanes of phase 4's run, window
     ids = spread(BENCH_LANES, RESIM_LANES)
     s, traj, launched, wall = resimulated(mc4, ids, "10a", 1)
+    derived_launched = fs.derived_launches
     same_summary(s, run4, ids, "10a")
     cfg = mc4.sim_config
     args = prepare_batch(*mc4._select_lanes(ids))
@@ -1460,29 +1472,42 @@ def recordings(dev, ic, mc4, run4, record_usage, record_flags) -> dict:
     if not torch.equal(recs["pz"], records_of(traj, RESIM_LANES)["pz"]):
         raise AssertionError("10a: the timed recording is not the re-simulated one")
     terminal_is_summary(recs, res, "10a")
+    dig = same_records(recs, "10a f32")
     part = head(args, RESIM_LANES, HELD_LANES)
     plain_ms, (ref, ref_recs) = cuda_ms(lambda: fs.flight_record_reference(*part, cfg))
     err = compare(ref, head(res, RESIM_LANES, HELD_LANES), f32)
     frame_err = compare_records(ref_recs, records_of(traj, HELD_LANES), f32)
+    # the derived pass against the plain derived_c on the same frames
+    n = int(stop_frames(recs).max()) + 1
+    stored = map_tensors(lambda t: t[:n], recs)
+    derived_plain_ms, plain_derived = cuda_ms(lambda: derived_of_frames(args, stored, cfg))
+    derived_err = compare_records(plain_derived, stored, f32)
+    del stored, plain_derived
     args64 = widened(args)
     fs.flight_record(*args64, cfg)  # warm-up
     ms64, (got64, recs64) = cuda_ms(lambda: fs.flight_record(*args64, cfg), reps=3)
+    dig64 = same_records(recs64, "10a f64")
     plain64_ms, (ref64, ref_recs64) = cuda_ms(lambda: fs.flight_record_reference(*args64, cfg))
     err64 = max(compare(ref64, got64, f64), compare_records(ref_recs64, recs64, f64))
-    row = recording_row(fs, args, res, recs, cfg, ms, record_usage["parity"],
-                        record_flags["parity"])
+    del res, recs, got64, recs64, ref_recs, ref_recs64, traj
+    torch.cuda.empty_cache()
+    timed, timed64 = case(args, cfg, "parity"), case(args64, cfg, "parity")
+    row = recording_row(timed, ms, dig)
     row.update(launches=launched, plain_ms=plain_ms, max_abs_err=err,
                max_abs_err_lanes=HELD_LANES, frames_max_abs_err=frame_err,
-               f64=recording_row(fs, args64, got64, recs64, cfg, ms64,
-                                 record_usage["parity"], record_flags["parity"]))
+               f64=recording_row(timed64, ms64, dig64))
     row["f64"].update(plain_ms=plain64_ms, max_abs_err=err64)
     rows["window"] = row
+    derived = {**timed["derived"], "launches": derived_launched, "plain_ms": derived_plain_ms,
+               "max_abs_err": derived_err, "f64": timed64["derived"]}
     phase("10a re-simulated window", lanes=RESIM_LANES, launches=launched,
-          wall_s=f"{wall:.3f}", summary_equal_to_run=True, held_lanes=HELD_LANES,
-          max_abs_err=err, frames_max_abs_err=frame_err, plain_ms=f"{plain_ms:.1f}",
-          f64_lanes=RESIM_LANES, f64_max_abs_err=err64, f64_ms=f"{ms64:.3f}",
-          f64_plain_ms=f"{plain64_ms:.1f}", **{k: row[k] for k in ROW_KEYS})
-    del args, res, recs, args64, got64, recs64, ref_recs, ref_recs64, traj
+          derived_launches=derived_launched, wall_s=f"{wall:.3f}", summary_equal_to_run=True,
+          held_lanes=HELD_LANES, max_abs_err=err, frames_max_abs_err=frame_err,
+          plain_ms=f"{plain_ms:.1f}", f64_lanes=RESIM_LANES, f64_max_abs_err=err64,
+          f64_ms=f"{ms64:.3f}", f64_build_ms=f"{timed64['ms']:.3f}",
+          f64_plain_ms=f"{plain64_ms:.1f}", f64_latency_floor_ms=timed64["latency_floor_ms"],
+          f64_digest=dig64, **{k: row[k] for k in ROW_KEYS})
+    del args, args64
     torch.cuda.empty_cache()
 
     # ---- 10b: 256 stabilized full flights of phase 7's run, to landing
@@ -1490,9 +1515,12 @@ def recordings(dev, ic, mc4, run4, record_usage, record_flags) -> dict:
     mc7 = MonteCarloAnalyzer(motor=liquid_motor(dev), sim_config=cfg7)
     run7 = mc7.run_monte_carlo(ic, n_samples=BENCH_LANES, seed=0)
     s, traj, launched, wall = resimulated(mc7, ids, "10b", 1)
+    launched_derived = fs.derived_launches
+    derived_launched += launched_derived
     same_summary(s, run7, ids, "10b")
     args = prepare_batch(*mc7._select_lanes(ids))
     ms, (res, recs) = cuda_ms(lambda: fs.flight_record(*args, cfg7))
+    dig = same_records(recs, "10b f32")
     steps = res["n_steps"]
     if not (bool(res["parachute_deployed"].all()) and bool((res["final_pz"] <= 0.5).all())):
         raise AssertionError("10b: not every lane landed under its chute")
@@ -1509,6 +1537,7 @@ def recordings(dev, ic, mc4, run4, record_usage, record_flags) -> dict:
     part64 = widened(part)
     fs.flight_record(*part64, cfg7)  # warm-up
     ms64, (got64, recs64) = cuda_ms(lambda: fs.flight_record(*part64, cfg7))
+    dig64 = same_records(recs64, "10b f64")
     plain64_ms, (ref64, ref_recs64) = cuda_ms(lambda: fs.flight_record_reference(*part64, cfg7))
     err64 = max(compare(ref64, got64, f64), compare_records(ref_recs64, recs64, f64))
     got_recs = records_of(traj, HELD_LANES)
@@ -1534,9 +1563,10 @@ def recordings(dev, ic, mc4, run4, record_usage, record_flags) -> dict:
     n = int(stop_got.max()) + 1
     got_recs = map_tensors(lambda t: t[:n], got_recs)
     epilogue_err = compare_records(derived_of_frames(part, got_recs, cfg7), got_recs, f32)
-    del ref_recs, ref_recs64, got_recs, keep
-    row = recording_row(fs, args, res, recs, cfg7, ms, record_usage["full_flights"],
-                        record_flags["full_flights"])
+    del ref_recs, ref_recs64, got_recs, keep, recs, recs64, traj
+    torch.cuda.empty_cache()
+    timed, timed64 = case(args, cfg7, "full_flights"), case(part64, cfg7, "full_flights")
+    row = recording_row(timed, ms, dig)
     row.update(launches=launched, plain_ms=plain_ms, max_abs_err=err,
                max_abs_err_lanes=HELD_LANES - int(ties.sum()), frames_max_abs_err=frame_err,
                frames_held=held_frames, frames_valid=int((stop_got + 1).sum()),
@@ -1545,20 +1575,32 @@ def recordings(dev, ic, mc4, run4, record_usage, record_flags) -> dict:
                epilogue_max_abs_err=epilogue_err, landing_ties=int(ties.sum()),
                tie_flight_time_diff_max=float(dt_time.max()) if dt_time.numel() else 0.0,
                median_n_steps=float(steps.double().median()), max_n_steps=int(steps.max()),
-               f64=recording_row(fs, part64, got64, recs64, cfg7, ms64,
-                                 record_usage["full_flights"], record_flags["full_flights"]))
+               f64=recording_row(timed64, ms64, dig64))
     row["f64"].update(plain_ms=plain64_ms, max_abs_err=err64)
     rows["full_flights"] = row
+    derived.update(launches=derived_launched, full_flights=timed["derived"],
+                   full_flights_f64=timed64["derived"], full_flights_max_abs_err=epilogue_err)
     phase("10b re-simulated full flights", lanes=RESIM_LANES, launches=launched,
-          wall_s=f"{wall:.3f}", summary_equal_to_run=True, held_lanes=HELD_LANES,
+          derived_launches=launched_derived, wall_s=f"{wall:.3f}",
+          summary_equal_to_run=True, held_lanes=HELD_LANES,
           landing_ties=row["landing_ties"], max_abs_err=err, frames_max_abs_err=frame_err,
           **{k: row[k] for k in ("frames_held", "frames_valid", "f32_horizon_median",
                                  "f32_lanes_leaving_f64", "lanes_leaving_plain",
                                  "epilogue_max_abs_err")},
           plain_ms=f"{plain_ms:.1f}", f64_held_lanes=HELD_LANES, f64_max_abs_err=err64,
-          f64_ms=f"{ms64:.3f}", f64_plain_ms=f"{plain64_ms:.1f}",
-          **{k: row[k] for k in ROW_KEYS + ("median_n_steps", "max_n_steps")})
-    del args, res, recs, traj, mc7, run7, part64, got64, recs64
+          f64_ms=f"{ms64:.3f}", f64_build_ms=f"{timed64['ms']:.3f}",
+          f64_plain_ms=f"{plain64_ms:.1f}", f64_latency_floor_ms=timed64["latency_floor_ms"],
+          f64_digest=dig64, **{k: row[k] for k in ROW_KEYS + ("median_n_steps", "max_n_steps")})
+    phase("10 derived pass", launches=derived_launched, max_abs_err=derived_err,
+          plain_ms=f"{derived_plain_ms:.3f}", full_flights_max_abs_err=epilogue_err,
+          **{k: derived[k] for k in ("ms", "bound_ms", "bound_by", "share_of_bound", "frames",
+                                     "regs", "spill_bytes", "threads_per_block",
+                                     "warps_per_sm")},
+          full_flights_ms=derived["full_flights"]["ms"],
+          full_flights_bound_ms=derived["full_flights"]["bound_ms"],
+          f64_ms=derived["f64"]["ms"], full_flights_f64_ms=derived["full_flights_f64"]["ms"])
+    rows["derived"] = derived
+    del args, res, mc7, run7, part64, got64
     torch.cuda.empty_cache()
 
     # ---- 10c: one lane of each slab of 9a's run
@@ -1566,6 +1608,7 @@ def recordings(dev, ic, mc4, run4, record_usage, record_flags) -> dict:
     run9 = mc9.run_monte_carlo(ic, n_samples=LARGE_LANES, seed=0)
     ids9 = np.array([7, BENCH_LANES + 1234, 2 * BENCH_LANES + 99_999, 4 * BENCH_LANES - 1])
     s, _, launched9, wall = resimulated(mc9, ids9, "10c", 4)
+    derived["launches"] += fs.derived_launches
     same_summary(s, run9, ids9, "10c")
     phase("10c re-simulated slabbed", lanes=ids9.tolist(), launches=launched9,
           wall_s=f"{wall:.3f}", metrics_equal_to_run=True)
@@ -3680,7 +3723,8 @@ def main(argv=None) -> int:
     build_s = time.time() - t0
     usage = ptxas_usage(logs[0][1])
     set_usage = {name: ptxas_usage(log) for name, (_, log) in zip(builds, logs[1:])}
-    record_usage = {name: ptxas_usage(log)
+    # the recording builds' two kernels apart: the flight and the derived pass
+    record_usage = {name: record_ptxas(log)
                     for name, (_, log) in zip(record_builds, logs[1 + len(builds):])}
     phase("1 build", seconds=f"{build_s:.2f}", libraries=len({lib for lib, _ in logs}) + 1,
           ptxas=json.dumps(usage))
@@ -3693,7 +3737,7 @@ def main(argv=None) -> int:
         phase(f"1 build record {name}", build=fs.flags_name(flags), ptxas=json.dumps(use))
     for flags, (_, log) in zip(example_builds, logs[1 + len(builds) + len(record_builds):]):
         phase("1 build record example", build=fs.flags_name(flags),
-              ptxas=json.dumps(ptxas_usage(log)))
+              ptxas=json.dumps(record_ptxas(log)))
 
     # ---------------------------------------------------------------- 2
     cfg = SimConfig(max_time=WINDOW)
@@ -3978,6 +4022,7 @@ def main(argv=None) -> int:
     # ---------------------------------------------------------------- 10
     t0 = time.time()
     record_rows = recordings(dev, ic, mc, analysis, record_usage, record_builds)
+    derived_row = record_rows.pop("derived")
     phase("10 done", phase_10_s=f"{time.time() - t0:.1f}", script_s=f"{time.time() - start:.1f}",
           **drawn())
 
@@ -4046,6 +4091,10 @@ def main(argv=None) -> int:
          **({"variant_launches": {"12d": variant_launches["12d record"]}}
             if name == "parity" else {}), **row}
         for name, row in record_rows.items()
+    ] + [
+        {"name": "flight_summary [record derived pass]", "route": "cuda",
+         "source": KERNEL_SOURCE, "replaces": DERIVED_REPLACES, "library_ms": None,
+         **derived_row}
     ] + threefry_rows}
     print(card, flush=True)
     print(json.dumps(report), flush=True)

@@ -74,14 +74,25 @@
 // flight_record) is the same flight with one epilogue: each lane writes a
 // frame of engine/component.py flight_components_trajectory at the rail
 // exit, every record_stride steps, and at its termination if that falls
-// inside a block of record_stride steps: the time since rail exit, the 14
-// state values and the derived channels of derived_c that the channel mask
-// asks for, lane-minor ([frame][channel][B], so that a warp's stores
-// coalesce), and the frame it stopped at. The wrapper fills the frames after
-// that one with it and forms valid (frame <= stop). The flight's arithmetic
-// is untouched, so its summary outputs are the summary build's, bit for
-// bit; with FS_RECORD=0 every record statement is discarded by if constexpr
-// and the kernel's signature is the one without recording.
+// inside a block of record_stride steps: the time since rail exit and the 14
+// state values, lane-minor ([frame][channel][B], so that a warp's stores
+// coalesce), and the frame it stopped at. A second kernel of the same build,
+// the derived pass (record_derived_kernel, its own note below), then fills
+// the derived channels of derived_c that the channel mask asks for, from the
+// stored frames, off the lane's serial chain. The wrapper fills the frames
+// after the stop frame with it and forms valid (frame <= stop). The flight's
+// arithmetic is untouched, so its summary outputs are the summary build's,
+// bit for bit; with FS_RECORD=0 every record statement is discarded by if
+// constexpr and the kernel's signature is the one without recording.
+//
+// Every launch of the recording build is a few-lane launch (1 lane for a
+// single flight, 50 for the exports, 256 to 4,096 for re-simulation and the
+// envelope's frame chunks), which fills a few of the 132 SMs: one lane's
+// serial chain sets its time, and warps per SM buy nothing. So the build
+// has its own launch shape (32 threads a block, a register budget for one
+// block an SM, chosen by a sweep on the card, PERF.md) and holds the lane
+// constants in registers, not in the block's shared memory: a read of one
+// is then no shared-memory load on the chain.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -128,9 +139,11 @@
 namespace {
 
 // launch bounds: threads per block, and the blocks per SM the register
-// budget must allow (128 registers a thread)
-constexpr int kThreads = 128;
-constexpr int kMinBlocks = 4;
+// budget must allow. The summary builds: 128 and 4 (128 registers a
+// thread). The recording build: 32 and 1 (255 registers; the head of this
+// file)
+constexpr int kThreads = FS_RECORD ? 32 : 128;
+constexpr int kMinBlocks = FS_RECORD ? 1 : 4;
 
 constexpr bool kRk2 = FS_RK2;                      // integrator="rk2"
 constexpr bool kWindPerStep = FS_WIND_PER_STEP;    // wind_eval_per_step
@@ -316,10 +329,11 @@ enum Derived {
 
 // Per-lane parameters (constant over the flight) plus lane-constant
 // sub-expressions the JAX code recomputes on every call; the values are
-// the same expressions, evaluated once. They live in the block's shared
-// memory, field-major ([field][thread]: a warp's reads of one field hit 32
-// banks), so that the registers are left to the state, the stage sum and
-// the event carry.
+// the same expressions, evaluated once (setup_lane). In the summary builds
+// they live in the block's shared memory, field-major ([field][thread]: a
+// warp's reads of one field hit 32 banks), so that the registers are left
+// to the state, the stage sum and the event carry; in the recording build,
+// whose register budget holds them, in registers.
 enum LaneField {
   LF_DIAMETER, LF_DRY_MASS, LF_PROP_MASS, LF_COM_DRY, LF_IXX_DRY, LF_IYY_DRY, LF_REF_AREA,
   LF_REF_DIAM, LF_CP_LOCATION, LF_CHUTE_AREA, LF_CHUTE_CD, LF_CHUTE_ALT, LF_POWER_OFF,
@@ -329,12 +343,31 @@ enum LaneField {
   N_LANE_FIELDS
 };
 
+#if FS_RECORD
+struct Lane {
+  T field[N_LANE_FIELDS];
+  const W* wind;
+  bool wind_bad[3];
+  __device__ __forceinline__ T& operator[](int f) { return field[f]; }
+  __device__ __forceinline__ T operator[](int f) const { return field[f]; }
+};
+#else
 struct Lane {
   T* field;  // this thread's column of the block's [N_LANE_FIELDS][kThreads] array
   const W* wind;
   bool wind_bad[3];
   __device__ __forceinline__ T& operator[](int f) const { return field[f * kThreads]; }
 };
+#endif
+
+// The recording build holds the lane constants in registers: every function
+// that reads them is inlined there, so that they never go to the stack. In
+// the summary builds this is empty, and their code is as it was.
+#if FS_RECORD
+#define FS_LANE_INLINE __forceinline__
+#else
+#define FS_LANE_INLINE
+#endif
 
 // ------------------------------------------------------------ shared tables
 // Each block copies the shared tables and the wind grid into shared memory
@@ -465,7 +498,7 @@ __device__ __forceinline__ int wind_segment(const Knots& g, T xc, bool sorted) {
 // The lane's wind at altitude alt. Only knots i-1..i+2 around the segment
 // [g_i, g_i+1] holding xc can carry weight; a component whose table holds
 // a non-finite value is summed over every knot (0 * NaN = NaN, as in JAX).
-__device__ void wind_at(const Tables& tb, const Lane& ln, T alt, T out[3]) {
+__device__ FS_LANE_INLINE void wind_at(const Tables& tb, const Lane& ln, T alt, T out[3]) {
   const Knots& g = tb.g;
   const int n = g.k;
   const W* w = ln.wind;
@@ -500,7 +533,7 @@ struct Atm { T temperature, pressure, density, sound; };
 
 // models/atmosphere.py atmosphere_properties; only the selected regime is
 // evaluated (each regime is a pure function of h, so the value is the same)
-__device__ Atm atmosphere(const Lane& ln, T h) {
+__device__ FS_LANE_INLINE Atm atmosphere(const Lane& ln, T h) {
   T temperature, pressure;
   if (h <= ln[LF_H_TROP]) {
     temperature = ln[LF_T0] - ln[LF_L] * h;
@@ -560,8 +593,8 @@ __device__ __forceinline__ T thrust_at(const Tables& tb, const Lane& ln, T t, T 
 struct Aero { T cd, cl, cy, cpitch, cyaw; };
 
 // models/rocket.py aero_coefficients
-__device__ Aero aero(const Tables& tb, const Lane& ln, T mach, T alpha, T beta, T cg,
-                     bool power_on) {
+__device__ FS_LANE_INLINE Aero aero(const Tables& tb, const Lane& ln, T mach, T alpha, T beta,
+                                    T cg, bool power_on) {
   T cd0, cda;
   interp_pair(mach, tb.cd, s_flags[F_CD] != 0, cd0, cda);
   T cd = cd0 + cda * (alpha * alpha);
@@ -633,8 +666,9 @@ enum { S_PX, S_PY, S_PZ, S_VX, S_VY, S_VZ, S_QW, S_QX, S_QY, S_QZ, S_OX, S_OY, S
 
 // engine/component.py dynamics_c; updates the parachute latch in place.
 // wstep: the step's wind under wind_eval_per_step, unread otherwise
-__device__ void dynamics(const Tables& tb, const Lane& ln, const Cfg& cfg, T t,
-                         const T s[N_STATE], int& para, T d[N_STATE], const T wstep[3]) {
+__device__ FS_LANE_INLINE void dynamics(const Tables& tb, const Lane& ln, const Cfg& cfg, T t,
+                                        const T s[N_STATE], int& para, T d[N_STATE],
+                                        const T wstep[3]) {
   T frac = nmax(s[S_FRAC], T(0));
   T qw = s[S_QW], qx = s[S_QX], qy = s[S_QY], qz = s[S_QZ];
   quat_normalize(qw, qx, qy, qz);
@@ -771,19 +805,24 @@ __device__ __forceinline__ T leaf(const Leaves& lv, int k, long long lane) {
   return lv.p[k][lane * lv.stride[k]];
 }
 
-// The recording build's epilogue: frame f of the lane at state s, t_off
-// after rail exit. The derived channels are engine/component.py derived_c,
-// expression for expression: the mass properties of the unclamped
-// propellant fraction, thrust at t_off gated by the burn only, the Euler
-// angles of the quaternion with the +-90 degree pitch clamp.
-__device__ __forceinline__ void record_frame(const Tables& tb, const Lane& ln, const Rec& rec,
-                                             long long B, long long lane, int f, T t_off,
-                                             const T s[N_STATE]) {
+// The recording build's epilogue: frame f of the lane, t_off after rail
+// exit at state s: the time and the state. The derived channels are the
+// derived pass's.
+__device__ __forceinline__ void record_state(const Rec& rec, long long B, long long lane, int f,
+                                             T t_off, const T s[N_STATE]) {
   T* o = rec.frames + static_cast<long long>(f) * rec.n_channels * B + lane;
   o[0] = t_off;
 #pragma unroll
   for (int i = 0; i < N_STATE; ++i) o[(i + 1) * B] = s[i];
-  if (rec.mask == 0) return;
+}
+
+// The derived channels of a frame, t_off after rail exit at state s, that
+// `mask` asks for, stored from o[(1 + N_STATE) * B] on: engine/component.py
+// derived_c, expression for expression: the mass properties of the
+// unclamped propellant fraction, thrust at t_off gated by the burn only,
+// the Euler angles of the quaternion with the +-90 degree pitch clamp.
+__device__ __forceinline__ void derived_channels(const Tables& tb, const Lane& ln, unsigned mask,
+                                                 T t_off, const T s[N_STATE], T* o, long long B) {
   const T pz = s[S_PZ], vx = s[S_VX], vy = s[S_VY], vz = s[S_VZ];
   const T qw = s[S_QW], qx = s[S_QX], qy = s[S_QY], qz = s[S_QZ], frac = s[S_FRAC];
   const Mass mp = mass_props(ln, frac);
@@ -828,31 +867,14 @@ __device__ __forceinline__ void record_frame(const Tables& tb, const Lane& ln, c
   int c = 1 + N_STATE;
 #pragma unroll
   for (int j = 0; j < N_DERIVED; ++j)
-    if ((rec.mask >> j) & 1u) o[(c++) * B] = d[j];
+    if ((mask >> j) & 1u) o[(c++) * B] = d[j];
 }
 
-// the record build's kernel takes the Rec; the other builds' signature is
-// the one without recording
-#if FS_RECORD
-#define FS_REC_KPARAM , Rec rec
-#define FS_REC_PARAM , const Rec& rec
-#define FS_REC_ARG , rec
-#else
-#define FS_REC_KPARAM
-#define FS_REC_PARAM
-#define FS_REC_ARG
-#endif
-
-// one lane's whole flight
-__device__ __forceinline__ void fly(const Leaves& lv, const Tables& tb, const Cfg& cfg,
-                                    T* __restrict__ out_f, int32_t* __restrict__ out_i,
-                                    int n_lanes, long long lane FS_REC_PARAM) {
-#if !FS_RECORD
-  constexpr Rec rec{};  // read by no statement: the record code is discarded
-#endif
-
-  Lane ln;
-  ln.field = smem() + tb.lane_base + threadIdx.x;
+// The lane's constants (LaneField), its wind table and which of the table's
+// components hold a non-finite value. The flight and the derived pass both
+// set a lane up here, so their constants are the same bits.
+__device__ __forceinline__ void setup_lane(const Leaves& lv, const Tables& tb, long long lane,
+                                           Lane& ln) {
   ln[LF_DIAMETER] = leaf(lv, L_DIAMETER, lane);
   const T fin_span = leaf(lv, L_FIN_SPAN, lane);
   const T fin_root = leaf(lv, L_FIN_ROOT, lane);
@@ -906,6 +928,33 @@ __device__ __forceinline__ void fly(const Leaves& lv, const Tables& tb, const Cf
       bad |= !m_finite(wval(ln.wind[(3 * j + c) * tb.wind_comp_stride]));
     ln.wind_bad[c] = bad;
   }
+}
+
+// the record build's kernel takes the Rec; the other builds' signature is
+// the one without recording
+#if FS_RECORD
+#define FS_REC_KPARAM , Rec rec
+#define FS_REC_PARAM , const Rec& rec
+#define FS_REC_ARG , rec
+#else
+#define FS_REC_KPARAM
+#define FS_REC_PARAM
+#define FS_REC_ARG
+#endif
+
+// one lane's whole flight
+__device__ __forceinline__ void fly(const Leaves& lv, const Tables& tb, const Cfg& cfg,
+                                    T* __restrict__ out_f, int32_t* __restrict__ out_i,
+                                    int n_lanes, long long lane FS_REC_PARAM) {
+#if !FS_RECORD
+  constexpr Rec rec{};  // read by no statement: the record code is discarded
+#endif
+
+  Lane ln;
+#if !FS_RECORD
+  ln.field = smem() + tb.lane_base + threadIdx.x;
+#endif
+  setup_lane(lv, tb, lane, ln);
 
   // launch attitude: intrinsic-xyz Euler -> quaternion
   T roll = leaf(lv, L_ROLL, lane), pitch = leaf(lv, L_PITCH, lane), yaw = leaf(lv, L_YAW, lane);
@@ -983,7 +1032,7 @@ __device__ __forceinline__ void fly(const Leaves& lv, const Tables& tb, const Cf
   // the recording build: the frame last written, and the steps since
   int frame = 0, since = 0;
   if constexpr (kRecord) {
-    record_frame(tb, ln, rec, n_lanes, lane, 0,
+    record_state(rec, n_lanes, lane, 0,
                  (kTiered ? t_lane : step_time(rail_time, step, cfg.dt)) - rail_time, s);
   }
 
@@ -1073,14 +1122,14 @@ __device__ __forceinline__ void fly(const Leaves& lv, const Tables& tb, const Cf
     if constexpr (kRecord) {
       if (++since == rec.stride) {
         since = 0;
-        record_frame(tb, ln, rec, n_lanes, lane, ++frame, t_new - rail_time, s);
+        record_state(rec, n_lanes, lane, ++frame, t_new - rail_time, s);
       }
     }
   }
   if constexpr (kRecord) {
     // a lane that stopped inside a block: its terminal frame ends the block
     if (since > 0) {
-      record_frame(tb, ln, rec, n_lanes, lane, ++frame,
+      record_state(rec, n_lanes, lane, ++frame,
                    (kTiered ? t_lane : step_time(rail_time, step, cfg.dt)) - rail_time, s);
     }
     rec.stop[lane] = frame;
@@ -1122,15 +1171,21 @@ __device__ __forceinline__ void fly(const Leaves& lv, const Tables& tb, const Cf
   oi[O_NSTEPS * B] = step;
 }
 
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-flight_summary_kernel(Leaves lv, Tables tb, Cfg cfg, T* __restrict__ out_f,
-                      int32_t* __restrict__ out_i, int n_lanes FS_REC_KPARAM) {
+// each block: the shared tables and the wind grid into shared memory, the
+// table flags, the wind segment guess's scale
+__device__ __forceinline__ void stage_tables(const Tables& tb) {
   stage_knots(tb.cd, tb.cd_mach, tb.cd0, tb.cda);
   stage_knots(tb.cp, tb.cp_mach, tb.cp_shift, nullptr);
   stage_knots(tb.th, tb.curve_t, tb.curve_f, nullptr);
   stage_knots(tb.g, tb.grid, nullptr, nullptr);
   if (threadIdx.x < N_FLAGS) s_flags[threadIdx.x] = tb.flags[threadIdx.x];
   if (threadIdx.x == 0) s_grid_inv_h = T(tb.g.k - 1) / (tb.grid[tb.g.k - 1] - tb.grid[0]);
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+flight_summary_kernel(Leaves lv, Tables tb, Cfg cfg, T* __restrict__ out_f,
+                      int32_t* __restrict__ out_i, int n_lanes FS_REC_KPARAM) {
+  stage_tables(tb);
   // every thread of the block reaches this barrier: the ragged last block's
   // idle threads skip only the flight
   __syncthreads();
@@ -1138,15 +1193,108 @@ flight_summary_kernel(Leaves lv, Tables tb, Cfg cfg, T* __restrict__ out_f,
   if (lane < n_lanes) fly(lv, tb, cfg, out_f, out_i, n_lanes, lane FS_REC_ARG);
 }
 
+#if FS_RECORD
+// ------------------------------------------------------------ derived pass
+// The recording build's derived pass, record_derived_kernel: the derived
+// channels of every recorded frame up to each lane's stop frame, from the
+// frame's stored time and state (derived_channels), written into the
+// frames the flight left them in.
+//
+// It replaces no TPU kernel. It is engine/component.py derived_c, which the
+// JAX package's recorder (flight_components_trajectory) evaluates on each
+// frame inside XLA's loop. Run as the flight's epilogue, it was close to a
+// fifth dynamics evaluation on the lane's serial chain at every recorded
+// step; here it runs after the flight, in parallel over (frame, lane), with
+// the flight's own functions and lane constants (setup_lane), so each
+// channel is the epilogue's value bit for bit.
+//
+// What bounds it: bytes. A frame reads its 15 stored values and writes its
+// derived channels: 140 bytes in float32 with all 20, against about 300
+// operations (kernels/flight_summary.py OPS_PER_FRAME), some 2 operations a
+// byte, below the H100's 20 (67 TFLOP/s over 3.35 TB/s).
+// Design, against that: a warp holds 32 neighbouring lanes of one frame, so
+// each load and store of a channel is one coalesced row of the lane-minor
+// buffer; a block is kDRows warps over kDRows runs of kDFrames frames of
+// the same 32 lanes, so the shared tables are staged once for
+// kDRows x kDFrames frames and a lane's set-up (its constants, its wind
+// table's finiteness scan) once for kDFrames; a block whose frames all lie
+// past its lanes' stop frames returns before it stages anything.
+constexpr int kDLanes = 32;
+constexpr int kDRows = 4;
+constexpr int kDThreads = kDLanes * kDRows;
+constexpr int kDFrames = 16;
+
+__global__ void __launch_bounds__(kDThreads)
+record_derived_kernel(Leaves lv, Tables tb, Rec rec, int n_lanes, int n_frames,
+                      int lane_blocks) {
+  const int lb = blockIdx.x % lane_blocks, fb = blockIdx.x / lane_blocks;
+  const long long lane = static_cast<long long>(lb) * kDLanes + (threadIdx.x % kDLanes);
+  const int f0 = (fb * kDRows + static_cast<int>(threadIdx.x / kDLanes)) * kDFrames;
+  const int stop = lane < n_lanes ? rec.stop[lane] : -1;
+  int f1 = f0 + kDFrames;
+  if (f1 > stop + 1) f1 = stop + 1;
+  if (f1 > n_frames) f1 = n_frames;
+  // every thread reaches both barriers
+  if (!__syncthreads_or(f0 < f1)) return;
+  stage_tables(tb);
+  __syncthreads();
+  if (f0 >= f1) return;
+  Lane ln;
+  setup_lane(lv, tb, lane, ln);
+  const long long B = n_lanes;
+  for (int f = f0; f < f1; ++f) {
+    T* o = rec.frames + static_cast<long long>(f) * rec.n_channels * B + lane;
+    T s[N_STATE];
+#pragma unroll
+    for (int i = 0; i < N_STATE; ++i) s[i] = o[(i + 1) * B];
+    derived_channels(tb, ln, rec.mask, o[0], s, o, B);
+  }
+}
+#endif
+
 // the places of the shared tables and the lane constants in the block's
-// shared memory, and its bytes
+// shared memory, and its bytes (the recording build keeps no lane constants
+// there)
 __host__ int layout(Tables& tb, int k_cd, int k_cp, int k_th, int n_wind) {
   tb.cd = Knots{0, k_cd};
   tb.cp = Knots{tb.cd.base + 7 * k_cd, k_cp};
   tb.th = Knots{tb.cp.base + 6 * k_cp, k_th};
   tb.g = Knots{tb.th.base + 6 * k_th, n_wind};
   tb.lane_base = tb.g.base + 5 * n_wind;
-  return static_cast<int>((tb.lane_base + N_LANE_FIELDS * kThreads) * sizeof(T));
+  return static_cast<int>((tb.lane_base + (kRecord ? 0 : N_LANE_FIELDS * kThreads)) * sizeof(T));
+}
+
+// Leaves and Tables from the C entries' host arrays (their comment below);
+// returns the block's shared memory bytes, or -1 for a wrong leaf count
+__host__ int read_inputs(const void* const* leaf_ptrs, const int* leaf_strides, int n_leaves,
+                         const void* const* table_ptrs, const int* table_sizes,
+                         long long wind_lane_stride, int n_lanes, Leaves& lv, Tables& tb) {
+  if (n_leaves != N_LEAVES) return -1;
+  for (int k = 0; k < N_LEAVES; ++k) {
+    lv.p[k] = static_cast<const T*>(leaf_ptrs[k]);
+    lv.stride[k] = leaf_strides[k];
+  }
+  tb.cd_mach = static_cast<const T*>(table_ptrs[0]);
+  tb.cd0 = static_cast<const T*>(table_ptrs[1]);
+  tb.cda = static_cast<const T*>(table_ptrs[2]);
+  tb.cp_mach = static_cast<const T*>(table_ptrs[3]);
+  tb.cp_shift = static_cast<const T*>(table_ptrs[4]);
+  tb.curve_t = static_cast<const T*>(table_ptrs[5]);
+  tb.curve_f = static_cast<const T*>(table_ptrs[6]);
+  tb.grid = static_cast<const T*>(table_ptrs[7]);
+  tb.wind = static_cast<const W*>(table_ptrs[8]);
+  tb.wind_lane_stride = wind_lane_stride;
+  tb.wind_comp_stride = wind_lane_stride == 0 ? 1 : n_lanes;
+  tb.flags = static_cast<const int*>(table_ptrs[9]);
+  return layout(tb, table_sizes[0], table_sizes[1], table_sizes[2], table_sizes[3]);
+}
+
+// a kernel's dynamic shared memory above the default 48 KB
+template <class K>
+__host__ int allow_smem(K kernel, int smem) {
+  if (smem <= 48 * 1024) return 0;
+  return static_cast<int>(
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
 }
 
 }  // namespace
@@ -1191,29 +1339,10 @@ extern "C" int FS_CAT(flight_summary_, FS_SUFFIX)(
   if (n_leaves != N_LEAVES || n_cfg != N_CFG) return -1;
   if (n_lanes <= 0) return 0;
   Leaves lv;
-  for (int k = 0; k < N_LEAVES; ++k) {
-    lv.p[k] = static_cast<const T*>(leaf_ptrs[k]);
-    lv.stride[k] = leaf_strides[k];
-  }
   Tables tb;
-  tb.cd_mach = static_cast<const T*>(table_ptrs[0]);
-  tb.cd0 = static_cast<const T*>(table_ptrs[1]);
-  tb.cda = static_cast<const T*>(table_ptrs[2]);
-  tb.cp_mach = static_cast<const T*>(table_ptrs[3]);
-  tb.cp_shift = static_cast<const T*>(table_ptrs[4]);
-  tb.curve_t = static_cast<const T*>(table_ptrs[5]);
-  tb.curve_f = static_cast<const T*>(table_ptrs[6]);
-  tb.grid = static_cast<const T*>(table_ptrs[7]);
-  tb.wind = static_cast<const W*>(table_ptrs[8]);
-  tb.wind_lane_stride = wind_lane_stride;
-  tb.wind_comp_stride = wind_lane_stride == 0 ? 1 : n_lanes;
-  tb.flags = static_cast<const int*>(table_ptrs[9]);
-  const int smem = layout(tb, table_sizes[0], table_sizes[1], table_sizes[2], table_sizes[3]);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        flight_summary_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  const int smem = read_inputs(leaf_ptrs, leaf_strides, n_leaves, table_ptrs, table_sizes,
+                               wind_lane_stride, n_lanes, lv, tb);
+  if (const int e = allow_smem(flight_summary_kernel, smem)) return e;
   Cfg cfg;
   cfg.dt = static_cast<T>(cfg_in[0]);
   cfg.half_dt = static_cast<T>(cfg_in[1]);
@@ -1245,8 +1374,8 @@ extern "C" int FS_CAT(flight_summary_, FS_SUFFIX)(
   return static_cast<int>(cudaGetLastError());
 }
 
-// C entry: flight_summary_occupancy_f32 / _f64. The kernel's threads per
-// block and the blocks of it one SM holds at once, for tables of
+// C entry: flight_summary_occupancy_f32 / _f64. The flight kernel's threads
+// per block and the blocks of it one SM holds at once, for tables of
 // table_sizes knots (as in the launch); returns the CUDA error of the query.
 extern "C" int FS_CAT(flight_summary_occupancy_, FS_SUFFIX)(const int* table_sizes,
                                                             int* threads,
@@ -1257,3 +1386,53 @@ extern "C" int FS_CAT(flight_summary_occupancy_, FS_SUFFIX)(const int* table_siz
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks_per_sm, flight_summary_kernel, kThreads, smem));
 }
+
+#if FS_RECORD
+// C entry of the derived pass: flight_record_derived_f32 / _f64, after
+// flight_record_* on the same stream. The inputs as flight_record_* takes
+// them, then the frames [n_frames][n_channels][B] and stop [B] that it
+// wrote (device pointers), n_frames, n_channels and the derived-channel
+// mask (not 0). Launches on `stream`, allocates nothing, returns
+// cudaGetLastError() after the launch.
+extern "C" int FS_CAT(flight_record_derived_, FS_SUFFIX)(
+    const void* const* leaf_ptrs, const int* leaf_strides, int n_leaves,
+    const void* const* table_ptrs, const int* table_sizes, long long wind_lane_stride,
+    int n_lanes, void* stream, void* frames, void* stop, int n_frames, int n_channels,
+    unsigned channel_mask) {
+  if (channel_mask == 0 || n_channels != 1 + N_STATE + __builtin_popcount(channel_mask) ||
+      (channel_mask >> N_DERIVED) != 0 || n_frames < 1)
+    return -1;
+  if (n_lanes <= 0) return 0;
+  Leaves lv;
+  Tables tb;
+  const int smem = read_inputs(leaf_ptrs, leaf_strides, n_leaves, table_ptrs, table_sizes,
+                               wind_lane_stride, n_lanes, lv, tb);
+  if (smem < 0) return -1;
+  if (const int e = allow_smem(record_derived_kernel, smem)) return e;
+  Rec rec;
+  rec.frames = static_cast<T*>(frames);
+  rec.stop = static_cast<int32_t*>(stop);
+  rec.n_channels = n_channels;
+  rec.mask = channel_mask;
+  const int lane_blocks = (n_lanes + kDLanes - 1) / kDLanes;
+  const int frame_blocks = (n_frames + kDRows * kDFrames - 1) / (kDRows * kDFrames);
+  const long long blocks = static_cast<long long>(lane_blocks) * frame_blocks;
+  if (blocks > 0x7fffffffLL) return -1;
+  record_derived_kernel<<<static_cast<unsigned>(blocks), kDThreads, smem,
+                          static_cast<cudaStream_t>(stream)>>>(lv, tb, rec, n_lanes, n_frames,
+                                                               lane_blocks);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// C entry: flight_record_derived_occupancy_f32 / _f64, the derived pass's
+// threads per block and blocks per SM, as flight_summary_occupancy_*.
+extern "C" int FS_CAT(flight_record_derived_occupancy_, FS_SUFFIX)(const int* table_sizes,
+                                                                   int* threads,
+                                                                   int* blocks_per_sm) {
+  Tables tb;
+  const int smem = layout(tb, table_sizes[0], table_sizes[1], table_sizes[2], table_sizes[3]);
+  *threads = kDThreads;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, record_derived_kernel, kDThreads, smem));
+}
+#endif

@@ -20,14 +20,18 @@ content hash of the source, the flags and the defines names the library, so
 an edited source rebuilds) and bound with ``ctypes``; ``build_many`` starts
 the compilers of several flag sets at once. The parity flag set
 (``PARITY``) compiles to the same code as before the flags existed.
-``launches`` counts kernel launches, of every flag set and both builds;
-``record_launches`` counts those of the recording build alone.
+``launches`` counts flight kernel launches, of every flag set and both
+builds; ``record_launches`` counts those of the recording build alone, and
+``derived_launches`` those of its derived pass.
 
 The recording build (``KernelFlags.record``, ``-DFS_RECORD=1``) is the same
-flight with an epilogue that writes a frame of
+flight with an epilogue that writes the time and state of a frame of
 ``engine.component.flight_components_trajectory`` every ``record_stride``
-steps: ``flight_record`` launches it on CUDA tensors (its summary is the
-summary build's, bit for bit), and runs that recorder on CPU tensors.
+steps, in its own launch shape (few lanes: one lane's serial chain sets
+its time); a second kernel of the build, the derived pass, then computes
+the frames' derived channels in parallel over (frame, lane).
+``flight_record`` launches both on CUDA tensors (its summary is the summary
+build's, bit for bit), and runs that recorder on CPU tensors.
 
 Besides the inputs, the wrapper hands the kernel a lane-minor ``[N, 3, B]``
 copy of a per-lane wind table (a warp's loads of one knot are then
@@ -58,17 +62,20 @@ from ..models.wind import WindModes, expand_modes
 
 __all__ = ["flight_summary", "flight_summary_reference", "flight_record",
            "flight_record_reference", "record_layout", "build", "build_many",
-           "launches", "record_launches", "SOURCE", "KernelFlags", "PARITY", "kernel_flags", "flags_name",
-           "stored_wind", "wind_fn_of", "expanded", "cfg_values", "ops_per_step", "bound_ms", "input_bytes"]
+           "launches", "record_launches", "derived_launches", "SOURCE", "KernelFlags",
+           "PARITY", "kernel_flags", "flags_name", "stored_wind", "wind_fn_of", "expanded",
+           "cfg_values", "ops_per_step", "bound_ms", "derived_bound_ms", "input_bytes"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "flight_summary.cu")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
-# kernel launches so far (the count a run reads to show the kernel ran), and
-# of them the recording build's
+# flight kernel launches so far (the count a run reads to show the kernel
+# ran), of them the recording build's, and the recording build's derived
+# pass launches
 launches = 0
 record_launches = 0
+derived_launches = 0
 
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # -fmad=false: no a*b+c contraction, so the kernel rounds as the eager
@@ -230,6 +237,15 @@ _ENTRY_ARGS = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
 ]
 _RECORD_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_uint]
+# the derived pass's entry (flight_record_derived_*)
+_DERIVED_ARGS = [
+    ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+    ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int), ctypes.c_int64,
+    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+    ctypes.c_int, ctypes.c_uint,
+]
+_OCC_ARGS = [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+             ctypes.POINTER(ctypes.c_int)]
 
 
 def entry_name(flags: KernelFlags, suffix: str) -> str:
@@ -244,13 +260,16 @@ def _load(flags: KernelFlags = PARITY):
         path, _ = build(flags)
         lib = ctypes.CDLL(path)
         for _, suffix in _PRECISIONS.values():
-            fn = getattr(lib, entry_name(flags, suffix))
-            fn.argtypes = _ENTRY_ARGS + (_RECORD_ARGS if flags.record else [])
-            fn.restype = ctypes.c_int
-            occ = getattr(lib, f"flight_summary_occupancy_{suffix}")
-            occ.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
-                            ctypes.POINTER(ctypes.c_int)]
-            occ.restype = ctypes.c_int
+            entries = [(entry_name(flags, suffix),
+                        _ENTRY_ARGS + (_RECORD_ARGS if flags.record else [])),
+                       (f"flight_summary_occupancy_{suffix}", _OCC_ARGS)]
+            if flags.record:
+                entries += [(f"flight_record_derived_{suffix}", _DERIVED_ARGS),
+                            (f"flight_record_derived_occupancy_{suffix}", _OCC_ARGS)]
+            for name, argtypes in entries:
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
         _libs[flags] = lib
     return lib
 
@@ -462,18 +481,45 @@ def entry_args(a: KernelArgs, cfg: SimConfig, out_f, out_i, stream, rec=None) ->
     return args
 
 
+def derived_args(a: KernelArgs, frames, stop, lay, stream) -> list:
+    """The derived pass's C entry arguments for ``a``, the ``frames`` and
+    ``stop`` a recording wrote under ``lay``, and the stream."""
+    return [(ctypes.c_void_p * _N_LEAVES)(*a.ptrs), (ctypes.c_int * _N_LEAVES)(*a.strides),
+            _N_LEAVES, (ctypes.c_void_p * len(a.table_ptrs))(*a.table_ptrs),
+            (ctypes.c_int * len(a.sizes))(*a.sizes), ctypes.c_int64(a.wind_lane_stride), a.n,
+            stream, ctypes.c_void_p(frames.data_ptr()), ctypes.c_void_p(stop.data_ptr()),
+            lay.n_frames, lay.n_channels, ctypes.c_uint(lay.mask)]
+
+
+def _stream(device):
+    with torch.cuda.device(device):
+        return torch.cuda.current_stream(device).cuda_stream
+
+
+def _launch_derived(a: KernelArgs, frames, stop, lay: RecordLayout) -> None:
+    """Launch the recording build's derived pass on the frames and stop
+    frames of a recording of ``a`` under ``lay`` (``lay.mask`` not 0)."""
+    suffix = _PRECISIONS[frames.dtype][1]
+    rc = getattr(_load(a.build), f"flight_record_derived_{suffix}")(
+        *derived_args(a, frames, stop, lay, _stream(frames.device)))
+    if rc != 0:
+        raise RuntimeError(f"flight_summary derived pass launch failed ({flags_name(a.build)}, "
+                           f"CUDA error {rc})")
+    global derived_launches
+    derived_launches += 1
+
+
 def _launch(scene_nw, grid, wind, ics, cfg: SimConfig, rec=None) -> dict:
     """Launch the build of ``cfg`` on CUDA tensors: the summary build, or
-    with ``rec = (frames, stop, RecordLayout)`` the recording build."""
+    with ``rec = (frames, stop, RecordLayout)`` the recording build's flight
+    and, where the layout records derived channels, its derived pass."""
     a = _kernel_args(scene_nw, grid, wind, ics, cfg, record=rec is not None)
     dtype, device = ics[0].dtype, ics[0].device
     out_f = torch.empty((len(_FLOAT_KEYS), a.n), dtype=dtype, device=device)
     out_i = torch.empty((len(INT_KEYS), a.n), dtype=torch.int32, device=device)
 
     fn = getattr(_load(a.build), entry_name(a.build, _PRECISIONS[dtype][1]))
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(*entry_args(a, cfg, out_f, out_i, stream, rec))
+    rc = fn(*entry_args(a, cfg, out_f, out_i, _stream(device), rec))
     if rc != 0:
         raise RuntimeError(f"flight_summary kernel launch failed ({flags_name(a.build)}, "
                            f"CUDA error {rc})")
@@ -481,6 +527,8 @@ def _launch(scene_nw, grid, wind, ics, cfg: SimConfig, rec=None) -> dict:
     launches += 1
     if rec is not None:
         record_launches += 1
+        if rec[2].mask:
+            _launch_derived(a, *rec)
     return _outputs(out_f, out_i)
 
 
@@ -575,7 +623,8 @@ def flight_record(scene_nw, grid: torch.Tensor, wind: torch.Tensor, ics, cfg: Si
 
     CPU tensors run that recorder; CUDA tensors launch the recording build
     of ``kernel_flags(cfg, ..., record=True)``, whose summary is the summary
-    build's bit for bit, after checking that the card holds the frames (it
+    build's bit for bit, and then its derived pass where ``cfg`` records
+    derived channels, after checking that the card holds the frames (it
     raises with the numbers, never truncates)."""
     device = ics[0].device
     if device.type == "cpu":
@@ -668,8 +717,8 @@ TIERED_OPS = {  # descent_dt_scale > 1, beside the events
 
 
 # one recorded frame's derived channels (csrc/flight_summary.cu
-# record_frame), counted as DYNAMICS_OPS; the thrust lookup is left out, as
-# there, and the stores are free
+# derived_channels, the derived pass), counted as DYNAMICS_OPS; the thrust
+# lookup is left out, as there, and the stores are free
 DERIVED_OPS = {
     "mass, cg, Ixx, Iyy": 12,
     "troposphere": 11,
@@ -764,3 +813,21 @@ def bound_ms(out: dict, cfg: SimConfig, dtype, in_bytes: int, recs: dict = None)
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     return Bound(max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
                  steps + rail, ops, nbytes)
+
+
+def derived_bound_ms(recs: dict, dtype) -> Bound:
+    """The least time an H100 SXM at 700 W could take for the derived pass
+    of the records ``recs`` (``flight_record``'s, with derived channels):
+    the larger of its operations (``OPS_PER_FRAME`` for each lane's frames
+    up to its stop) over the FP32 or FP64 peak, and of its bytes over the
+    memory rate: each of those frames' time and 14 state values read once
+    and its derived channels written once (the leaves and tables, some
+    hundred bytes, left out). ``lane_steps`` holds the frames."""
+    frames = int(recs["valid"].sum())
+    size = torch.finfo(dtype).bits // 8
+    ops = float(frames * OPS_PER_FRAME)
+    nbytes = frames * (len(FRAME_KEYS) + len(recs["derived"])) * size
+    t_ops = ops / H100_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    return Bound(max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
+                 frames, ops, nbytes)

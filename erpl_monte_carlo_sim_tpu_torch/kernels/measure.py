@@ -2,6 +2,7 @@
 
     python3 -m erpl_monte_carlo_sim_tpu_torch.kernels.measure [--reps 3] [--out FILE]
     python3 -m erpl_monte_carlo_sim_tpu_torch.kernels.measure --draw [--sass FILE] [--out FILE]
+    python3 -m erpl_monte_carlo_sim_tpu_torch.kernels.measure --record [--out FILE]
 
 The helpers here are also ``chip_smoke.py``'s: the card line, the dispersed
 sample batch, the catalogue of flag sets (``FLAG_SETS``), CUDA-event timing,
@@ -34,6 +35,23 @@ it alone (``ar1_timing``: the fused chain, the recursion on a given driver,
 beside their bounds and the given driver's one library call). The draw is
 imported from ``sys.path``: run this file by its path with ``PYTHONPATH``
 at another checkout to profile that checkout's draw.
+
+With ``--record`` it times the recording build (``flight_record``'s
+kernels) alone, by CUDA events over ``--reps`` launches after two warm ones
+(``warm_ms``), on preallocated frames (the wrapper's gather of the frames
+left out): phase 4's window in float32 at ``RECORD_WINDOW_LANES`` lanes of
+the sample batch, and chip_smoke phase 10's inputs (``phase10_inputs``: 256
+lanes of phase 4's run in float32 and float64, 256 of phase 7's stabilized
+full flights in float32 and 64 of them in float64). Each case: ms (and
+the derived pass alone where the build has one), registers and spills of
+each kernel of the build, threads per block and warps per SM, the bound
+(``flight_summary.bound_ms``) and the latency floor (``latency_floor``)
+with the shares of each, and the digest of the records
+(``records_digest``; phase 10's are chip_smoke's ``RECORD_DIGESTS``). Like
+``--draw``, it flies the package on ``sys.path``: run it by its path with
+``PYTHONPATH`` at another checkout to time that checkout's build in the
+same call (a build without a derived pass, as before it had one, is timed
+whole).
 """
 
 from __future__ import annotations
@@ -47,6 +65,7 @@ import os
 import re
 import subprocess
 import sys
+from collections import deque
 
 import numpy as np
 import torch
@@ -92,6 +111,12 @@ COMBINED = {
 }
 # propellant masses of tests/test_descent.py's low-apogee scenes, kg
 LOW_APOGEE_PROPELLANT = (5.0, 7.0)
+# --record: the window's lanes in float32 (a single flight, the per-sim
+# exports, re-simulation, the envelope's frame chunks); chip_smoke phase
+# 10's lanes re-simulated and, of them, those flown to landing in float64
+RECORD_WINDOW_LANES = (1, 50, 256, 1024, 4096)
+RESIM_LANES = 256
+RESIM_F64_LANES = 64
 
 
 def combined(names) -> tuple:
@@ -174,6 +199,36 @@ def low_apogee_batch(device, dtype):
     ic = InitialConditions.vertical_launch(device, dtype)
     return scene, InitialConditions(*(v.expand(2, 3).contiguous() for v in (
         ic.position, ic.velocity, ic.attitude, ic.angular_velocity)))
+
+
+def map_tensors(fn, x):
+    """``fn`` applied to every tensor of prepared inputs or an output dict."""
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{f.name: map_tensors(fn, getattr(x, f.name))
+                                         for f in dataclasses.fields(x)})
+    if isinstance(x, (tuple, list)):
+        return type(x)(map_tensors(fn, v) for v in x)
+    if isinstance(x, dict):
+        return {k: map_tensors(fn, v) for k, v in x.items()}
+    return fn(x) if isinstance(x, torch.Tensor) else x
+
+
+def head(x, lanes: int, n: int):
+    """The first ``n`` of ``lanes`` lanes of prepared inputs or of an output
+    dict: every tensor whose first dimension is ``lanes`` is cut; shared
+    leaves (tables, the grid, shared scalars) stay."""
+    return map_tensors(
+        lambda t: t[:n].contiguous() if t.ndim >= 1 and t.shape[0] == lanes else t, x)
+
+
+def widened(args):
+    """Prepared inputs in float64, every float widened exactly."""
+    return map_tensors(lambda t: t.double() if t.is_floating_point() else t, args)
+
+
+def spread(n_run: int, n: int) -> np.ndarray:
+    """``n`` lane ids spread evenly over a run of ``n_run`` lanes."""
+    return np.linspace(0, n_run - 1, n).round().astype(np.int64)
 
 
 def cuda_ms(fn, reps=1):
@@ -260,14 +315,15 @@ def device_launches(fn) -> tuple[int, object]:
     return len(kernels), out
 
 
-def occupancy(fs, dtype_key, scene_nw, grid, flags=None):
-    """``(threads, blocks per SM)`` of a build (parity by default) for these
-    tables, asked of the CUDA runtime through the library's
-    ``flight_summary_occupancy_{f32,f64}``."""
+def occupancy(fs, dtype_key, scene_nw, grid, flags=None, kernel="flight_summary"):
+    """``(threads, blocks per SM)`` of a build's flight kernel (parity by
+    default; a recording build's derived pass with ``kernel=
+    "flight_record_derived"``) for these tables, asked of the CUDA runtime
+    through the library's ``{kernel}_occupancy_{f32,f64}``."""
     sizes = [scene_nw.rocket.cd_mach.numel(), scene_nw.rocket.cp_shift_mach.numel(),
              scene_nw.motor.curve_time.numel(), grid.numel()]
     threads, blocks = ctypes.c_int(), ctypes.c_int()
-    rc = getattr(fs._load(flags or fs.PARITY), f"flight_summary_occupancy_{dtype_key}")(
+    rc = getattr(fs._load(flags or fs.PARITY), f"{kernel}_occupancy_{dtype_key}")(
         (ctypes.c_int * 4)(*sizes), ctypes.byref(threads), ctypes.byref(blocks))
     if rc != 0:
         raise RuntimeError(f"occupancy query failed (CUDA error {rc})")
@@ -483,17 +539,336 @@ def draw_profile(lanes: int, sass_out=None) -> dict:
     return rec
 
 
+def records_digest(recs: dict) -> str:
+    """SHA-256 (first 16 hex digits) of ``flight_record``'s records up to
+    the last lane's stop frame (the frames after it are copies): each lane's
+    stop frame (int64), then the time and state channels in ``FRAME_KEYS``
+    order and the derived channels in theirs, as bytes, every NaN made
+    canonical."""
+    from erpl_monte_carlo_sim_tpu_torch.engine.component import FRAME_KEYS
+
+    stop = recs["valid"].sum(0).to(torch.int64) - 1
+    n = int(stop.max()) + 1
+    h = hashlib.sha256(stop.cpu().numpy().tobytes())
+    for t in [recs[k] for k in FRAME_KEYS] + list(recs["derived"].values()):
+        a = t[:n].cpu().numpy().copy()
+        a[np.isnan(a)] = np.nan
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()[:16]
+
+
+def phase10_inputs(dev) -> dict:
+    """chip_smoke phase 10's recorded inputs, ``name: (prepared inputs,
+    SimConfig)``: ``10a f32``, 256 lanes spread over phase 4's run (262,144
+    lanes, seed 0, the 6 s window), and ``10a f64`` the same widened;
+    ``10b f32``, the same lanes of phase 7's run of stabilized full flights,
+    and ``10b f64`` the first 64 of them widened."""
+    from erpl_monte_carlo_sim_tpu_torch.engine import InitialConditions, SimConfig
+    from erpl_monte_carlo_sim_tpu_torch.engine.batch import prepare_batch
+    from erpl_monte_carlo_sim_tpu_torch.mc import MonteCarloAnalyzer
+    from erpl_monte_carlo_sim_tpu_torch.models import liquid_motor
+
+    ic = InitialConditions.vertical_launch(dev)
+    ids = spread(MAIN_LANES, RESIM_LANES)
+    out = {}
+    for tag, cfg in (("10a", SimConfig(max_time=WINDOW)), ("10b", flag_set("full_flights")[0])):
+        mc = MonteCarloAnalyzer(motor=liquid_motor(dev), sim_config=cfg)
+        mc.run_monte_carlo(ic, n_samples=MAIN_LANES, seed=0)
+        args = prepare_batch(*mc._select_lanes(ids))
+        n64 = RESIM_LANES if tag == "10a" else RESIM_F64_LANES
+        out[f"{tag} f32"] = (args, cfg)
+        out[f"{tag} f64"] = (widened(head(args, RESIM_LANES, n64)), cfg)
+        del mc
+    return out
+
+
+def record_ptxas(log: str) -> dict:
+    """``{"f32": {"flight": usage, "derived": usage}, "f64": ...}`` from the
+    ``-Xptxas -v`` log of a recording build: the flight kernel's and the
+    derived pass's registers and spills (``ptxas_usage``; the derived pass's
+    ``regs`` are None in a build without one)."""
+    out = {}
+    for sec in re.split(r"^(?=\[f(?:32|64)\]$)", log, flags=re.M):
+        m = re.match(r"\[(f32|f64)\]", sec)
+        if m:
+            out[m.group(1)] = kernel_ptxas(sec, {"flight": "flight_summary_kernel",
+                                                 "derived": "record_derived_kernel"})
+    return out
+
+
+# a cuobjdump -sass instruction: its address, guard predicate, opcode and
+# operands
+_SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
+
+
+def _sccs(succ: list) -> list:
+    """The strongly connected components of a graph (``succ[i]``: node i's
+    successors), each a list of nodes; iterative Tarjan."""
+    index, low, on, stack, comps, n = {}, {}, set(), [], [], 0
+    for root in range(len(succ)):
+        if root in index:
+            continue
+        work = [(root, 0)]
+        while work:
+            v, i = work.pop()
+            if i == 0:
+                index[v] = low[v] = n
+                n += 1
+                stack.append(v)
+                on.add(v)
+            if i < len(succ[v]):
+                work.append((v, i + 1))
+                w = succ[v][i]
+                if w not in index:
+                    work.append((w, 0))
+                elif w in on:
+                    low[v] = min(low[v], index[w])
+                continue
+            for w in succ[v]:
+                if w in on:
+                    low[v] = min(low[v], low[w])
+            if low[v] == index[v]:
+                comp = []
+                while True:
+                    w = stack.pop()
+                    on.discard(w)
+                    comp.append(w)
+                    if w == v:
+                        break
+                comps.append(comp)
+    return comps
+
+
+def _distances(adj: list, src: int, allowed: set) -> dict:
+    """Edges from ``src`` to each node it reaches through ``allowed`` nodes
+    of the graph ``adj`` (breadth first)."""
+    d, todo = {src: 0}, deque([src])
+    while todo:
+        v = todo.popleft()
+        for w in adj[v]:
+            if w in allowed and w not in d:
+                d[w] = d[v] + 1
+                todo.append(w)
+    return d
+
+
+def _loop_instructions(insns: list, stages: int) -> int:
+    """``step_instructions`` of one function's ``(address, guard, opcode,
+    operands)`` list."""
+    at = {addr: i for i, (addr, *_) in enumerate(insns)}
+    succ = []
+    for i, (_, guard, op, operands) in enumerate(insns):
+        always = guard in (None, "@PT")
+        out = []
+        if op.startswith("BRA"):
+            target = re.findall(r"0x[0-9a-f]+", operands)
+            if target and int(target[-1], 16) in at:
+                out.append(at[int(target[-1], 16)])
+            if not (always and not re.search(r"\bU?P[0-7T]\b", operands)):
+                out.append(i + 1)
+        elif not ((op.startswith(("EXIT", "RET", "BRX", "JMX")) and always)):
+            out.append(i + 1)  # a CALL returns to the next instruction
+        succ.append([j for j in out if j < len(insns)])
+    pred = [[] for _ in insns]
+    for i, out in enumerate(succ):
+        for j in out:
+            pred[j].append(i)
+
+    def entered(nodes):  # the nodes of a loop entered from outside it
+        return {j for j in nodes if any(i not in nodes for i in pred[j])}
+
+    # the main loop: the largest cycle; the stage loop: the largest cycle in
+    # it once the edges back to its head are cut
+    main = set(max(_sccs(succ), key=len))
+    heads = entered(main)
+    inner = [[j for j in succ[i] if j in main and j not in heads] if i in main else []
+             for i in range(len(insns))]
+    stage = set(max((c for c in _sccs(inner) if len(c) > 1 or c[0] in inner[c[0]]), key=len))
+    best = None
+    for head in entered(stage):
+        around = _distances(succ, head, stage)  # inside the stage loop
+        back = _distances(pred, head, main)  # to the stage loop's head, backwards
+        cycle = min(around[i] + 1 for i in pred[head] if i in around)
+        step = min(around[i] + 1 + back[j] for i in around for j in succ[i]
+                   if j in back and j not in stage)
+        n = step + (stages - 1) * cycle
+        best = n if best is None else min(best, n)
+    return best
+
+
+def step_instructions(listing: str, stages: int = 4) -> dict:
+    """The fewest SASS instructions a main-loop step of each precision's
+    flight kernel can issue, from a ``cuobjdump -sass`` listing: ``{"f32":
+    n, "f64": n}``. On the kernel's control-flow graph (an instruction's
+    successors: the next one, unless it is an unconditional branch, exit or
+    return, and a branch's target; a call returns to the next one), the main
+    loop is the largest strongly connected component and the RK4 stage loop
+    the largest one inside it once the edges back to the main loop's head
+    are cut. A step is the shortest walk from the stage loop's head that
+    leaves the stage loop and comes back to the head, plus the stage loop's
+    shortest cycle ``stages - 1`` times more: every branch takes its cheaper
+    side, an inner loop (a table's knot window) runs once, and a subroutine
+    called from the loop (the slow paths of a division or a square root)
+    not at all. It is a lower bound: no lane's step issues fewer."""
+    funcs, name = {}, None
+    for line in listing.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+            continue
+        m = _SASS_INSN.search(line)
+        if name and m:
+            guard = m.group(2).strip() if m.group(2) else None
+            funcs[name].append((int(m.group(1), 16), guard, m.group(3), m.group(4)))
+    out = {}
+    for name, insns in funcs.items():
+        if "flight_summary_kernel" not in name or not insns:
+            continue
+        key = "f32" if "CfgEPf" in name else ("f64" if "CfgEPd" in name else None)
+        if key:
+            out[key] = _loop_instructions(insns, stages)
+    return out
+
+
+def sm_clock_mhz() -> float:
+    """The card's highest SM clock (``nvidia-smi clocks.max.sm``), MHz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def latency_floor(max_steps: int, instructions: int, clock_mhz: float) -> float:
+    """The least ms one lane's serial chain could take: its ``max_steps``
+    main-loop steps of at least ``instructions`` SASS instructions each
+    (``step_instructions``), issued at one a clock for its warp at
+    ``clock_mhz``. The rail steps and the set-up are left out."""
+    return max_steps * instructions / (clock_mhz * 1e3)
+
+
+def sass_listing(lib: str) -> str:
+    from erpl_monte_carlo_sim_tpu_torch.kernels import flight_summary as fs
+
+    cuobjdump = os.path.join(os.path.dirname(fs._nvcc()), "cuobjdump")
+    return subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True,
+                          check=True, timeout=600).stdout
+
+
+def record_case(fs, args, cfg, reps, usage, instructions, clock) -> dict:
+    """One recording-build case on prepared inputs ``args`` (module
+    docstring, ``--record``): the build's C entries launched on arguments
+    laid out once (``entry_args``, ``derived_args``), so that the host's
+    preparation of a call is not timed, and the frames allocated once; each
+    launch writes them anew. The launches are not counted."""
+    lay = fs.record_layout(cfg)
+    dtype, n = args[3][0].dtype, args[3][0].shape[0]
+    key = "f32" if dtype == torch.float32 else "f64"
+    frames = torch.empty((lay.n_frames, lay.n_channels, n), dtype=dtype, device="cuda")
+    stop = torch.empty(n, dtype=torch.int32, device="cuda")
+    out_f = torch.empty((len(fs._FLOAT_KEYS), n), dtype=dtype, device="cuda")
+    out_i = torch.empty((len(fs.INT_KEYS), n), dtype=torch.int32, device="cuda")
+    table, kcfg = fs.expanded(args[2], cfg)
+    a = fs._kernel_args(args[0], args[1], table, args[3], kcfg, record=True)
+    lib, stream = fs._load(a.build), torch.cuda.current_stream().cuda_stream
+    launches = [(getattr(lib, fs.entry_name(a.build, key)),
+                 fs.entry_args(a, kcfg, out_f, out_i, stream, (frames, stop, lay)))]
+    if lay.mask and hasattr(lib, f"flight_record_derived_{key}"):  # the derived pass
+        launches.append((getattr(lib, f"flight_record_derived_{key}"),
+                         fs.derived_args(a, frames, stop, lay, stream)))
+
+    def launch(which):
+        for fn, fn_args in which:
+            if fn(*fn_args) != 0:
+                raise RuntimeError("recording build launch failed")
+
+    ms, _ = warm_ms(lambda: launch(launches), reps)
+    res = fs._outputs(out_f, out_i)
+    recs = fs.unpack_frames(frames, stop, lay)
+    threads, blocks = occupancy(fs, key, args[0], args[1], a.build)
+    b = fs.bound_ms(res, cfg, dtype, fs.input_bytes(*args, cfg), recs)
+    steps = int(res["n_steps"].max())
+    use = usage[key]
+    row = {"lanes": n, "frames": lay.n_frames, "valid_frames": int(recs["valid"].sum()),
+           "channels": lay.n_channels, "ms": ms, "regs": use["flight"]["regs"],
+           "spill_bytes": use["flight"]["spill_stores"] + use["flight"]["spill_loads"],
+           "threads_per_block": threads, "blocks_per_sm": blocks,
+           "warps_per_sm": blocks * threads // 32, "max_steps": steps,
+           "bound_ms": b.ms, "bound_by": b.by, "share_of_bound": b.ms / ms,
+           "digest": records_digest(recs)}
+    if instructions.get(key):
+        floor = latency_floor(steps, instructions[key], clock)
+        row.update(step_instructions=instructions[key], latency_floor_ms=floor,
+                   share_of_floor=floor / ms)
+    if len(launches) > 1:
+        dms, _ = warm_ms(lambda: launch(launches[1:]), reps)
+        db = fs.derived_bound_ms(recs, dtype)
+        dthreads, dblocks = occupancy(fs, key, args[0], args[1], a.build,
+                                      kernel="flight_record_derived")
+        row["derived"] = {"ms": dms, "bound_ms": db.ms, "bound_by": db.by,
+                          "share_of_bound": db.ms / dms, "frames": db.lane_steps,
+                          "regs": use["derived"]["regs"],
+                          "spill_bytes": use["derived"]["spill_stores"]
+                          + use["derived"]["spill_loads"],
+                          "threads_per_block": dthreads, "warps_per_sm": dblocks * dthreads // 32}
+        # the records once more, after the derived pass timed alone
+        if records_digest(fs.unpack_frames(frames, stop, lay)) != row["digest"]:
+            raise AssertionError("the derived pass timed alone moved the records")
+    del frames, stop, recs, res, out_f, out_i
+    torch.cuda.empty_cache()
+    return row
+
+
+def record_cases(dev) -> dict:
+    """``name: (prepared inputs, SimConfig)`` of ``--record``: the window in
+    float32 at ``RECORD_WINDOW_LANES`` lanes, then ``phase10_inputs``."""
+    from erpl_monte_carlo_sim_tpu_torch.engine import SimConfig
+    from erpl_monte_carlo_sim_tpu_torch.engine.batch import prepare_batch
+
+    window = SimConfig(max_time=WINDOW)
+    cases = {f"window f32 {n}": (prepare_batch(*sample_batch(n, torch.float32)), window)
+             for n in RECORD_WINDOW_LANES}
+    cases.update(phase10_inputs(dev))
+    return cases
+
+
+def record_profile(reps: int) -> dict:
+    """The ``--record`` measurement (module docstring)."""
+    from erpl_monte_carlo_sim_tpu_torch.kernels import flight_summary as fs
+
+    record_builds = {"parity": fs.PARITY._replace(record=True),
+                     "full_flights": flag_set("full_flights")[2]._replace(record=True)}
+    clock = sm_clock_mhz()
+    logs = fs.build_many(list(record_builds.values()), verbose=True)
+    usage = {name: record_ptxas(log) for name, (_, log) in zip(record_builds, logs)}
+    sass = {name: step_instructions(sass_listing(lib))
+            for name, (lib, _) in zip(record_builds, logs)}
+    rows = {}
+    for name, (args, cfg) in record_cases(torch.device("cuda")).items():
+        build = "full_flights" if name.startswith("10b") else "parity"
+        rows[name] = record_case(fs, args, cfg, reps, usage[build], sass[build], clock)
+    return {"card": card_line(), "package": os.path.dirname(os.path.dirname(fs.__file__)),
+            "clocks_max_sm_mhz": clock, "ptxas": usage, "step_instructions": sass,
+            "cases": rows}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--reps", type=int, default=3)
     p.add_argument("--out", help="also append the line to this file")
     p.add_argument("--draw", action="store_true", help="profile the main path's draw")
     p.add_argument("--sass", help="with --draw: write the threefry kernel's SASS here")
+    p.add_argument("--record", action="store_true", help="time the recording build alone")
     a = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("measure: no CUDA device", file=sys.stderr)
         return 1
-    line = json.dumps(draw_profile(MAIN_LANES, a.sass) if a.draw else measure(a.reps))
+    if a.record:
+        line = json.dumps(record_profile(a.reps))
+    elif a.draw:
+        line = json.dumps(draw_profile(MAIN_LANES, a.sass))
+    else:
+        line = json.dumps(measure(a.reps))
     print(line, flush=True)
     if a.out:
         os.makedirs(os.path.dirname(a.out) or ".", exist_ok=True)

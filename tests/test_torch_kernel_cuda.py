@@ -17,8 +17,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (compare, compare_records, head, kernel_and_plain, records_of,
-                        sample_batch, slab_reference)
+from chip_smoke import (compare, compare_records, derived_of_frames, head, kernel_and_plain,
+                        records_of, sample_batch, slab_reference)
 from erpl_monte_carlo_sim_tpu_torch.engine import (InitialConditions, SimConfig,
                                                    simulate_flight_batch, simulate_summary_batch)
 from erpl_monte_carlo_sim_tpu_torch.engine.batch import prepare_batch
@@ -237,19 +237,21 @@ def test_slabbed_run_is_its_single_calls_on_cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,n", [(torch.float32, 256), (torch.float64, 64)],
-                         ids=["f32-256", "f64-64"])
+@pytest.mark.parametrize("dtype,n", [(torch.float32, 256), (torch.float64, 64),
+                                     (torch.float32, 1), (torch.float32, 4096)],
+                         ids=["f32-256", "f64-64", "f32-1", "f32-4096"])
 def test_record_build_matches_plain_recorder_on_cuda(dtype, n):
-    """The recording build against the plain recorder (graph-replayed on
-    the card) on 64 of the lanes, a frame every 3 steps for 6 s; its summary
-    the summary build's bit for bit."""
+    """The recording build (its flight and its derived pass, one launch
+    each) against the plain recorder (graph-replayed on the card) on up to
+    64 of the lanes, a frame every 3 steps for 6 s; its summary the summary
+    build's bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc; the CPU records with the plain version only")
     cfg = SimConfig(max_time=6.0, record_stride=3)
     args = prepare_batch(*sample_batch(n, dtype))
-    before = fs.launches
+    before, derived_before = fs.launches, fs.derived_launches
     got, recs = fs.flight_record(*args, cfg)
-    assert fs.launches == before + 1
+    assert fs.launches == before + 1 and fs.derived_launches == derived_before + 1
     summary = fs.flight_summary(*args, cfg)
     assert digest(got) == digest(summary)
     part = head(args, n, 64)
@@ -258,6 +260,40 @@ def test_record_build_matches_plain_recorder_on_cuda(dtype, n):
     compare_records(ref_recs, {k: ({c: x[:, :64] for c, x in v.items()} if k == "derived"
                                    else v[:, :64]) for k, v in recs.items()}, dtype)
     assert bool((recs["valid"].sum(0) > 300).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_derived_pass_is_the_plain_derived_c_on_cuda(dtype):
+    """The recording build's derived pass alone, on frames whose derived
+    channels were wiped, against the plain ``derived_c`` on the same frames
+    (time and state): bit for bit in float64. In float32 within the bars of
+    ``compare_records``: the kernel's own float32 sine and cosine (the fin
+    sweep's, in every lift slope) are not torch's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    cfg = SimConfig(max_time=6.0, record_stride=3)
+    args = prepare_batch(*sample_batch(256, dtype))
+    lay = fs.record_layout(cfg)
+    frames = torch.empty((lay.n_frames, lay.n_channels, 256), dtype=dtype, device="cuda")
+    stop = torch.empty(256, dtype=torch.int32, device="cuda")
+    fs._launch(*args, cfg, rec=(frames, stop, lay))
+    whole = fs.unpack_frames(frames.clone(), stop, lay)
+    frames[:, len(fs.FRAME_KEYS):] = float("nan")
+    before = fs.derived_launches
+    fs._launch_derived(fs._kernel_args(*args, cfg, record=True), frames, stop, lay)
+    assert fs.derived_launches == before + 1
+    recs = fs.unpack_frames(frames, stop, lay)
+    for k, v in whole["derived"].items():  # the pass alone is the build's pass
+        assert torch.equal(v.nan_to_num(-1.0), recs["derived"][k].nan_to_num(-1.0)), k
+    plain = derived_of_frames(args, recs, cfg)
+    valid = recs["valid"]
+    if dtype == torch.float64:
+        for k, v in recs["derived"].items():
+            a, b = v[valid], plain["derived"][k][valid]
+            assert bool(((a == b) | (a.isnan() & b.isnan())).all()), k
+    else:
+        compare_records(plain, recs, dtype)
 
 
 @pytest.mark.cuda

@@ -13,9 +13,12 @@ motor's 10-knot thrust curve, float32 and float64; and every flag set's
 build (``kernel_flags``) on a window of dispersed lanes (the tiered ones
 also fly the low-apogee scenes of tests/test_descent.py to landing, in
 tests/test_torch_landing_f64.py and _f32.py). The recording build
-(``flight_record``) against the plain recorder, its summary against the
-summary build's: parity windows in both precisions, and a low-apogee scene
-to landing under the tiered set with a subset of the derived channels.
+(``flight_record``: its flight, then its derived pass) against the plain
+recorder, its summary against the summary build's: parity windows in both
+precisions at 1, 33 and 64 lanes under three channel masks (every derived
+channel, a subset, none), and a low-apogee scene to landing under the
+tiered set with a subset of the derived channels; a frame written past a
+lane's stop frame fails.
 The CPU's math library stands in for CUDA's, so this checks the kernel's
 logic and order of operations, not its last bits on the card (chip_smoke.py
 does that). It skips without g++. This file imports no JAX.
@@ -72,26 +75,32 @@ inline emu_dim3 blockDim, gridDim;
 struct EmuBarrier {
   std::mutex m;
   std::condition_variable cv;
-  int n, count = 0, phase = 0;
+  int n, count = 0, phase = 0, any = 0, result = 0;
   explicit EmuBarrier(int threads) : n(threads) {}
-  void wait() {
+  // the barrier, returning whether any thread passed a nonzero v
+  int wait(int v = 0) {
     std::unique_lock<std::mutex> lk(m);
     const int ph = phase;
+    any |= v != 0;
     if (++count == n) {
       count = 0;
+      result = any;
+      any = 0;
       ++phase;
       cv.notify_all();
-      return;
+      return result;
     }
     if (!cv.wait_for(lk, std::chrono::seconds(60), [&] { return phase != ph; })) {
       fprintf(stderr, "__syncthreads: a thread of the block never arrived\n");
       abort();
     }
+    return result;
   }
 };
 inline EmuBarrier* emu_bar = nullptr;
 alignas(16) inline char emu_dyn_smem[256 * 1024];
 inline void __syncthreads() { emu_bar->wait(); }
+inline int __syncthreads_or(int v) { return emu_bar->wait(v); }
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 constexpr int cudaSuccess = 0;
@@ -146,7 +155,8 @@ def flags_of(name):
 
 def build_emulated(tmp_path_factory, builds) -> dict:
     """``libs[flags][dtype]``: the kernel's C entries of ``builds``, built
-    from its source for the CPU, all compilers started at once."""
+    from its source for the CPU, all compilers started at once; a recording
+    build's derived pass under ``libs[flags][dtype, "derived"]``."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the kernel's source for the CPU")
@@ -174,9 +184,14 @@ def build_emulated(tmp_path_factory, builds) -> dict:
     for flags, dtype, suffix, lib, p in jobs:
         out, _ = p.communicate(timeout=600)
         assert p.returncode == 0, f"g++ failed for {flags}:\n{out}"
-        fn = getattr(ctypes.CDLL(str(lib)), fs.entry_name(flags, suffix))
+        cdll = ctypes.CDLL(str(lib))
+        fn = getattr(cdll, fs.entry_name(flags, suffix))
         fn.restype = ctypes.c_int
         libs.setdefault(flags, {})[dtype] = fn
+        if flags.record:
+            derived = getattr(cdll, f"flight_record_derived_{suffix}")
+            derived.restype = ctypes.c_int
+            libs[flags][dtype, "derived"] = derived
     return libs
 
 
@@ -209,17 +224,24 @@ def run_emulated(libs, scene_nw, grid, wind, ics, cfg) -> dict:
 
 def record_emulated(libs, scene_nw, grid, wind, ics, cfg):
     """``flight_record`` through the emulated recording build of ``cfg``'s
-    flags: ``(summary dict, records)``, the frames filled as the wrapper
-    fills them (``unpack_frames``)."""
+    flags, its flight and then, where ``cfg`` records derived channels, its
+    derived pass: ``(summary dict, records)``, the frames filled as the
+    wrapper fills them (``unpack_frames``). Every frame past a lane's stop
+    frame is left as it was: a pass that writes one fails here."""
     a = fs._kernel_args(scene_nw, grid, wind, ics, cfg, record=True)
     lay = fs.record_layout(cfg)
-    fn = libs[a.build][ics[0].dtype]
-    out_f = torch.empty((len(fs._FLOAT_KEYS), a.n), dtype=ics[0].dtype)
+    dtype = ics[0].dtype
+    out_f = torch.empty((len(fs._FLOAT_KEYS), a.n), dtype=dtype)
     out_i = torch.empty((len(INT_KEYS), a.n), dtype=torch.int32)
     # NaN where no frame is written, so that a frame left out shows
-    frames = torch.full((lay.n_frames, lay.n_channels, a.n), float("nan"), dtype=ics[0].dtype)
+    frames = torch.full((lay.n_frames, lay.n_channels, a.n), float("nan"), dtype=dtype)
     stop = torch.full((a.n,), -1, dtype=torch.int32)
-    assert fn(*fs.entry_args(a, cfg, out_f, out_i, None, (frames, stop, lay))) == 0
+    assert libs[a.build][dtype](*fs.entry_args(a, cfg, out_f, out_i, None,
+                                               (frames, stop, lay))) == 0
+    if lay.mask:
+        assert libs[a.build][dtype, "derived"](*fs.derived_args(a, frames, stop, lay, None)) == 0
+    past = torch.arange(lay.n_frames)[:, None] > stop.long()[None, :]
+    assert bool(frames.isnan().all(1)[past].all()), "a frame past its lane's stop was written"
     return fs._outputs(out_f, out_i), fs.unpack_frames(frames, stop, lay)
 
 
@@ -321,16 +343,34 @@ def check_record_build(libs, args, cfg, dtype):
     return got, recs
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
-def test_emulated_record_build_window(emulated, dtype):
-    """64 dispersed lanes for 2 s, a frame every 3 steps (lanes stop inside
-    a block), every derived channel."""
-    args = prepare_batch(*batch(64, dtype, seed=9))
-    got, recs = check_record_build(emulated, args, RECORD_WINDOW, dtype)
+# the window's recording cases: name: (dtype, lanes, the derived channels);
+# 1 lane, and 33, past the recording build's block of 32
+RECORD_WINDOW_CASES = {
+    "f32": (torch.float32, 64, {}),
+    "f64": (torch.float64, 64, {}),
+    "f32-1-lane-landing-channels": (torch.float32, 1,
+                                    {"record_channels": RECORD_LANDING.record_channels}),
+    "f64-33-lanes-landing-channels": (torch.float64, 33,
+                                      {"record_channels": RECORD_LANDING.record_channels}),
+    "f32-33-lanes-no-derived": (torch.float32, 33, {"record_derived": False}),
+}
+
+
+@pytest.mark.parametrize("case", list(RECORD_WINDOW_CASES))
+def test_emulated_record_build_window(emulated, case):
+    """Dispersed lanes for 2 s, a frame every 3 steps (lanes stop inside a
+    block): the flight and the derived pass of the recording build together
+    against the plain recorder, with every derived channel, the landing
+    run's subset, or none (no derived pass)."""
+    dtype, n, channels = RECORD_WINDOW_CASES[case]
+    cfg = dataclasses.replace(RECORD_WINDOW, **channels)
+    args = prepare_batch(*batch(n, dtype, seed=9))
+    got, recs = check_record_build(emulated, args, cfg, dtype)
     steps = got["n_steps"].to(torch.int64)
-    assert bool((steps % 3 != 0).any())
+    if n > 1:
+        assert bool((steps % 3 != 0).any())
     assert torch.equal(recs["valid"].sum(0), -(-steps // 3) + 1)
-    assert len(recs["derived"]) == len(fs.DERIVED_KEYS)
+    assert tuple(recs["derived"]) == fs.record_names(cfg)
 
 
 def test_emulated_record_build_tiered_to_landing(emulated):
