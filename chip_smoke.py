@@ -4,8 +4,11 @@
 Run from the repository root: ``python3 chip_smoke.py``. It needs a CUDA
 device and ``nvcc``; without them it exits non-zero before printing any
 result. ``python3 chip_smoke.py --landing-ties [lanes]`` instead prints the
-landing-tie count that phase 7's cap rests on (``count_landing_ties``). Phases, each printing one line of its own numbers; any failure
-raises and the run exits non-zero:
+landing-tie count that phase 7's cap rests on (``count_landing_ties``), and
+``python3 chip_smoke.py --capstones`` runs the six capstones at their
+scripts' sizes, each in a process of its own (``capstone_runs``). Phases,
+each printing one line of its own numbers; any failure raises and the run
+exits non-zero:
 
   0. environment: card name and power limit, torch / CUDA versions, nvcc;
   1. build ``erpl_monte_carlo_sim_tpu_torch/csrc/flight_summary.cu`` and,
@@ -62,8 +65,8 @@ raises and the run exits non-zero:
      1e-3 sigma in value (``flight_time``, which takes one or two values in
      the window, within 1e-6 of ``np.percentile``), intervals bracketing the
      exact percentiles, sketch exceedances within 1e-3, and the same run
-     timed at 1,048,576 lanes a slab, then both split stage by stage as in
-     (a) (sums, median and largest host share); (c) run (a) killed after
+     timed at 1,048,576 lanes a slab (phase 18c splits a longer streaming
+     run stage by stage); (c) run (a) killed after
      slab 2 with a checkpoint after every slab, then resumed: run (a)'s
      analysis bit for bit, the checkpoint gone; (d) ``run_to_precision`` on the apogee's mean
      stderr, met after 2 or 3 slabs: ``run_monte_carlo(n_samples=n_used)``'s
@@ -230,15 +233,35 @@ raises and the run exits non-zero:
      (the 6 s window) against the committed JAX analysis of that seed
      (``data/analysis_seed0_golden.npz``): valid mask exact, summaries and
      statistics within rtol 1e-6.
+ 18. the capstones (``erpl_monte_carlo_sim_tpu_torch/capstones``) through
+     their ``run``, K1's launches counted from 0 before each: (a)
+     ``million_flights``, parity and ``--fast``, at full size (a warm call
+     and 2 x 524,288 lanes), the window's step count the one
+     ``hundred_million_flights`` reports; the fast build (the one the
+     mode-compressed tables fly, built in phase 1) on the first call's
+     lanes gives the run's bits, and on its first 1,024 lanes holds to its
+     plain version at the float32 bars, timed beside its bound; (b)
+     ``full_flights --rk2`` at full size (4 x 262,144 lanes to landing and
+     the two-level block of 4,096): at most 1% outliers, 90% of the block
+     coupled; (c) ``hundred_million_flights``, parity and ``--fast``, at
+     10,000,000 lanes (its width, 262,144 a slab; 39 slabs, the last of
+     38,528), each run's streamed mean and std held to a float64 NumPy pass
+     over the lanes its streams took, its checkpoint writes clocked and the
+     file gone at the end, the parity run split stage by stage
+     (``slab_stages``); the fast run killed at the draw after its first
+     checkpoint (slab 16) and resumed, equal to the uninterrupted run bit
+     for bit (the two-level block's walls aside).
 
 The kernels JSON gives each flight_summary and recording row the launches
 of phase 11's example runs (``example_launches``), and the summary rows
 (and the parity recording row) those of phase 12's runs
 (``variant_launches``); the summary rows also those of phase 13's runs
 (``estimator_launches``), and those of phases 14 and 15
-(``modes_launches``, ``diff_launches``), and phase 16's per rank
-(``parallel_launches``). A recording row's ``ms`` is ``flight_record``'s
-time (the build's launches and the frames' gather), its ``build_ms`` the
+(``modes_launches``, ``diff_launches``), phase 16's per rank
+(``parallel_launches``) and phase 18's (``capstone_launches``). After the
+flag sets' rows comes the fast capstones' build's row (phase 18a). A
+recording row's ``ms`` is ``flight_record``'s time (the build's launches
+and the frames' gather), its ``build_ms`` the
 build's launches alone (``measure.record_case``), and its
 ``latency_floor_ms`` the least time of the flight's serial chain, whose
 ``share_of_floor`` is of ``build_ms``. After the recording rows comes the
@@ -258,6 +281,7 @@ device record (JSON).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -1170,12 +1194,12 @@ def slab_reference(mc, ic, n, slab, seed):
             np.concatenate(reasons))
 
 
-def staged_run(mc, ic, n, **kw):
-    """``run_monte_carlo(n_samples=n, **kw)`` with the card synchronized at each
-    stage boundary of every slab: ``(sampling ms, kernel ms, host ms)`` per
-    slab, the host's share being the readback and the accumulators from the
-    kernel's end to the next slab's draw (the last slab's runs into the
-    run's end, so its share includes the final statistics), and the wall."""
+@contextlib.contextmanager
+def slab_stages():
+    """The slab loop's draw and flight, each slab, with the card
+    synchronized before and after: yields the list it fills with ``(stage,
+    start, end)`` marks (``time.perf_counter``), and before each draw
+    ``("rss", rss_mb(), 0)``."""
     from erpl_monte_carlo_sim_tpu_torch.mc import analyzer as analyzer_mod
 
     marks = []
@@ -1184,6 +1208,8 @@ def staged_run(mc, ic, n, **kw):
     def timed(stage, fn):
         def call(*a, **kw):
             torch.cuda.synchronize()
+            if stage == "sampling":
+                marks.append(("rss", rss_mb(), 0.0))
             t0 = time.perf_counter()
             out = fn(*a, **kw)
             torch.cuda.synchronize()
@@ -1194,17 +1220,32 @@ def staged_run(mc, ic, n, **kw):
     analyzer_mod._draw_slab = timed("sampling", draw)
     analyzer_mod.simulate_summary_batch = timed("kernel", fly)
     try:
-        t0 = time.perf_counter()
-        mc.run_monte_carlo(ic, n_samples=n, seed=0, **kw)
-        end = time.perf_counter()
+        yield marks
     finally:
         analyzer_mod._draw_slab, analyzer_mod.simulate_summary_batch = draw, fly
+
+
+def stage_split(marks, end: float) -> tuple:
+    """``slab_stages``' marks as ``(sampling ms, kernel ms, host ms)`` per
+    slab, the host's share being the readback and the accumulators from the
+    kernel's end to the next slab's draw (the last slab's runs to ``end``,
+    the run's end, so it includes the final statistics)."""
     spans = {stage: [(a, b) for s, a, b in marks if s == stage]
              for stage in ("sampling", "kernel")}
     next_start = [a for a, _ in spans["sampling"][1:]] + [end]
     return ([1e3 * (b - a) for a, b in spans["sampling"]],
             [1e3 * (b - a) for a, b in spans["kernel"]],
-            [1e3 * (nxt - b) for (_, b), nxt in zip(spans["kernel"], next_start)], end - t0)
+            [1e3 * (nxt - b) for (_, b), nxt in zip(spans["kernel"], next_start)])
+
+
+def staged_run(mc, ic, n, **kw):
+    """``run_monte_carlo(n_samples=n, **kw)`` split by ``slab_stages``:
+    ``(sampling ms, kernel ms, host ms)`` per slab and the wall."""
+    with slab_stages() as marks:
+        t0 = time.perf_counter()
+        mc.run_monte_carlo(ic, n_samples=n, seed=0, **kw)
+        end = time.perf_counter()
+    return (*stage_split(marks, end), end - t0)
 
 
 def large_runs(dev, ic) -> tuple:
@@ -1311,13 +1352,6 @@ def large_runs(dev, ic) -> tuple:
     if not ok:
         raise AssertionError(f"9b: {worst}")
     del b
-    for slab in (BENCH_LANES, big_slab):
-        sampling, kernel, host, staged_wall = staged_run(mc_s, ic, STREAM_LANES, lane_slab=slab)
-        phase("9b per-slab split", lane_slab=slab, wall_s=f"{staged_wall:.3f}",
-              sampling_ms_sum=f"{sum(sampling):.1f}", kernel_ms_sum=f"{sum(kernel):.1f}",
-              host_ms_sum=f"{sum(host):.1f}", host_ms_median=f"{np.median(host):.1f}",
-              host_ms_max=f"{max(host):.1f}", host_ms_first=f"{host[0]:.1f}",
-              host_ms_last=f"{host[-1]:.1f}")
 
     # ---- 9c: run (a) killed after slab 2, resumed from its checkpoint
     with tempfile.TemporaryDirectory() as tmp:
@@ -1809,7 +1843,6 @@ def check_exports(out: str, analysis: dict, tag: str) -> list:
 def run_clis(sims: str) -> dict:
     """find_max_apogee and analyze_outlier on the exports, their prints kept
     out of this script's output."""
-    import contextlib
     import io
 
     from erpl_monte_carlo_sim_tpu_torch.cli.analyze_outlier import main as analyze
@@ -2022,7 +2055,6 @@ def sweep_cli(argv):
     """The launch_window CLI's ``main(argv)`` on the card (its default
     device), its printed JSON kept out of this script's output and checked
     against the returned sweep; ``(sweep, wall s, launches)``."""
-    import contextlib
     import io
 
     from erpl_monte_carlo_sim_tpu_torch.cli.launch_window import main as launch_window
@@ -2420,7 +2452,6 @@ def kill_and_resume(mc, ic, n, slab, want_launches, tag):
 
 def estimators(dev, ic, mc4, run4) -> dict:
     """Phase 13; returns each run's K1 launches."""
-    import contextlib
     import importlib
     import io
     import tempfile
@@ -3247,7 +3278,6 @@ def parallel_rank(mesh, lanes: int, large_lanes: int) -> dict:
     call, the single call, the 4-slab run), ``pod_scale``, then the
     collectives on its block of the single call's lanes; launches counted
     from 0 before each run, walls between synchronized ranks."""
-    import contextlib
     import io
 
     import torch.distributed as dist
@@ -3639,6 +3669,351 @@ def threefry_phase(dev, ic, mc4, main_launches: dict, ptxas: dict) -> list:
     return [draw_row, ar1_row]
 
 
+# ---------------------------------------------------------------- phase 18
+CAPSTONE_LANES = 10_000_000  # 18c: the 100M run's width (262,144 a slab), 39 slabs deep
+# the capstones run by ``--capstones``, each at its script's size: (module, flag)
+CAPSTONE_RUNS = (("million_flights", None), ("million_flights", "--fast"),
+                 ("full_flights", None), ("full_flights", "--rk2"),
+                 ("hundred_million_flights", None), ("hundred_million_flights", "--fast"))
+
+
+def capstone_builds() -> dict:
+    """The K1 builds the capstones fly, by what flies them. The fast
+    configuration flies mode-compressed tables, where ``wind_table_bf16``
+    rounds the scores and is cleared before the launch
+    (``kernels.flight_summary.expanded``): its build is rk2 and per-step
+    wind. The two-level blocks' parity legs fly the twins' builds."""
+    from erpl_monte_carlo_sim_tpu_torch.capstones import full_flights as ff
+    from erpl_monte_carlo_sim_tpu_torch.capstones import million_flights as mf
+    from erpl_monte_carlo_sim_tpu_torch.kernels import flight_summary as fs
+    from erpl_monte_carlo_sim_tpu_torch.mc.two_level import parity_twin
+
+    fast = dataclasses.replace(mf.config(True), wind_table_bf16=False)
+    return {"parity": fs.PARITY, "fast": fs.kernel_flags(fast),
+            "full_flights": fs.kernel_flags(ff.config(False)),
+            "full_flights+rk2": fs.kernel_flags(ff.config(True)),
+            "full_flights twin": fs.kernel_flags(parity_twin(ff.config(True)))}
+
+
+@contextlib.contextmanager
+def streamed_lanes():
+    """Every lane the slab loop's streams take, as they take it: yields a
+    dict of each headline metric's per-slab host arrays of valid lanes."""
+    from erpl_monte_carlo_sim_tpu_torch.mc import slab_accumulators as sa
+
+    seen = {k: [] for k in METRICS}
+    update = sa.StreamAccumulator.update
+
+    def collecting(self, ctx):
+        for k in seen:
+            seen[k].append(ctx.slab_metrics[k][ctx.valid_np])
+        return update(self, ctx)
+
+    sa.StreamAccumulator.update = collecting
+    try:
+        yield seen
+    finally:
+        sa.StreamAccumulator.update = update
+
+
+@contextlib.contextmanager
+def checkpoint_writes():
+    """Each slab checkpoint written meanwhile, clocked: yields the list it
+    fills with ``(seconds, bytes)``."""
+    from erpl_monte_carlo_sim_tpu_torch.mc import slab_checkpoint
+
+    writes = []
+    save = slab_checkpoint.save_slab_state
+
+    def timed(path, *a, **kw):
+        t0 = time.perf_counter()
+        save(path, *a, **kw)
+        writes.append((time.perf_counter() - t0, os.path.getsize(path)))
+
+    slab_checkpoint.save_slab_state = timed
+    try:
+        yield writes
+    finally:
+        slab_checkpoint.save_slab_state = save
+
+
+@contextlib.contextmanager
+def accumulator_ms():
+    """The host's per-slab work by accumulator (``mc/slab_accumulators.py``):
+    yields a dict it fills with each accumulator class's total ``update``
+    ms (a lazy readback of the slab's lanes counts to the first that asks)."""
+    from erpl_monte_carlo_sim_tpu_torch.mc import slab_accumulators as sa
+
+    spent, saved = {}, {}
+    for cls in sa.SlabAccumulator.__subclasses__():
+        saved[cls] = cls.update
+
+        def timed(self, ctx, _update=cls.update, _name=cls.__name__):
+            t0 = time.perf_counter()
+            _update(self, ctx)
+            spent[_name] = spent.get(_name, 0.0) + 1e3 * (time.perf_counter() - t0)
+
+        cls.update = timed
+    try:
+        yield spent
+    finally:
+        for cls, update in saved.items():
+            cls.update = update
+
+
+def rss_mb() -> float:
+    """This process's resident memory now, MB (``/proc/self/statm``)."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 2**20
+
+
+def streams_against_numpy(a: dict, seen: dict, tag: str) -> dict:
+    """A streaming analysis' stats blocks against a float64 NumPy pass over
+    the lanes its streams took (9b's bars: mean within 1e-12, std within
+    1e-9, min and max exact, the count exact). Returns the largest errors."""
+    worst = {"mean_rel": 0.0, "std_rel": 0.0}
+    for k in METRICS:
+        vals = np.concatenate(seen[k]).astype(np.float64)
+        blk, stream = a[k], a["streams"][k]
+        if stream.is_exact or stream.n != vals.size or vals.size != a["n_samples"]:
+            raise AssertionError(f"{tag} {k}: the stream took {stream.n} lanes, NumPy has "
+                                 f"{vals.size}, the run {a['n_samples']} valid "
+                                 f"(exact={stream.is_exact})")
+        sigma = vals.std()
+        worst["mean_rel"] = max(worst["mean_rel"], abs(blk["mean"] / vals.mean() - 1))
+        worst["std_rel"] = max(worst["std_rel"], abs(blk["std"] / sigma - 1) if sigma else 0.0)
+        if blk["min"] != vals.min() or blk["max"] != vals.max():
+            raise AssertionError(f"{tag} {k}: min/max differ from NumPy's")
+    if worst["mean_rel"] > 1e-12 or worst["std_rel"] > 1e-9:
+        raise AssertionError(f"{tag}: streamed moments off NumPy's: {worst}")
+    return worst
+
+
+def capstones(dev, builds: dict, usage: dict) -> tuple:
+    """Phase 18: the capstones (``erpl_monte_carlo_sim_tpu_torch/capstones``)
+    through their ``run`` at full width, each with K1's launches counted
+    from 0 just before it. Returns those launches and the kernels-JSON row
+    of the fast build."""
+    import tempfile
+
+    from erpl_monte_carlo_sim_tpu_torch.capstones import full_flights as ff
+    from erpl_monte_carlo_sim_tpu_torch.capstones import hundred_million_flights as hm
+    from erpl_monte_carlo_sim_tpu_torch.capstones import million_flights as mf
+    from erpl_monte_carlo_sim_tpu_torch.engine import InitialConditions
+    from erpl_monte_carlo_sim_tpu_torch.engine.batch import prepare_batch
+    from erpl_monte_carlo_sim_tpu_torch.kernels import flight_summary as fs
+    from erpl_monte_carlo_sim_tpu_torch.mc import analyzer as analyzer_mod
+    from erpl_monte_carlo_sim_tpu_torch.models import liquid_motor, nominal_scene, wind_mode_basis
+
+    launches, first_calls = {}, {}
+    mb = 2.0 ** -20
+    # ---- 18a: million_flights, parity and --fast, full size
+    for fast in (False, True):
+        tag = f"18a {'fast' if fast else 'parity'}"
+        torch.cuda.reset_peak_memory_stats(dev)
+        (result, summaries), run_s, launches[tag] = counted(mf.run, fast, dev)
+        want = 1 + len(mf.SEEDS)  # the warm call and the timed ones
+        if (launches[tag] != want or result["total_flights"] != 2 * mf.HALF
+                or not result["finite_frac"] > 0.99 or result["steps"] != hm.STEPS):
+            raise AssertionError(f"{tag}: {launches[tag]} launches (want {want}), {result}")
+        first_calls[fast] = summaries[0]
+        phase(f"{tag} million_flights", launches=launches[tag], run_s=f"{run_s:.3f}",
+              device_peak_mb=f"{torch.cuda.max_memory_allocated(dev) * mb:.1f}",
+              **{k: result[k] for k in ("total_flights", "steps", "wall_s_incl_sampling",
+                                        "traj_per_s", "finite_frac", "apogee_mean_m", "mode")})
+        del summaries
+    # the fast build on the first call's lanes: the run's bits, and its plain
+    # version on the first SLICE_LANES at K1's float32 bars
+    cfg = mf.config(True)
+    scene = nominal_scene(liquid_motor(dev))
+    ic = InitialConditions.vertical_launch(dev)
+    basis = wind_mode_basis(scene.wind_model, np.linspace(*mf.MODE_GRID), mf.MODES)
+    args = prepare_batch(*mf.batch(mf.SEEDS[0], scene, ic, mf.HALF, basis))
+    got = fs.flight_summary(*args, cfg)
+    run_out = first_calls[True]
+    for k in ("apogee_altitude", "flight_time", "n_steps"):
+        if not torch.equal(got[k].nan_to_num(-1.0), getattr(run_out, k).nan_to_num(-1.0)):
+            raise AssertionError(f"18a: {k} of the kernel on the call's lanes is not the run's")
+    # the kernel alone, on the expanded tables, timed apart from the expansion
+    expand_ms, (table, flown) = cuda_ms(lambda: fs.expanded(args[2], cfg), reps=2)
+    if fs.kernel_flags(flown) != builds["fast"]:
+        raise AssertionError(f"18a: the fast call flies {fs.flags_name(fs.kernel_flags(flown))}")
+    kernel_args = (args[0], args[1], table, args[3])
+    kernel_ms, _ = cuda_ms(lambda: fs.flight_summary(*kernel_args, flown), reps=2)
+    plain_ms, ref = cuda_ms(lambda: fs.flight_summary_reference(
+        *head(args, mf.HALF, SLICE_LANES), cfg))
+    err = compare(ref, head(got, mf.HALF, SLICE_LANES), torch.float32)
+    bound = fs.bound_ms(got, flown, torch.float32, fs.input_bytes(*kernel_args, flown))
+    use = usage["fast"]["f32"]
+    fast_row = {
+        "name": f"flight_summary [capstone fast: {fs.flags_name(builds['fast'])}]",
+        "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES[0][1],
+        "launches": launches["18a fast"], "max_abs_err": err, "max_abs_err_lanes": SLICE_LANES,
+        "ms": kernel_ms, "lanes": mf.HALF, "plain_ms": plain_ms, "plain_lanes": SLICE_LANES,
+        "bound_ms": bound.ms, "bound_by": bound.by, "share_of_bound": bound.ms / kernel_ms,
+        "library_ms": None, "expansion_ms": expand_ms, "regs": use["regs"],
+        "spill_bytes": use["spill_stores"] + use["spill_loads"],
+        "build": fs.flags_name(builds["fast"])}
+    phase("18a fast build=plain", build=fast_row["build"], lanes=SLICE_LANES, max_abs_err=err,
+          rtol=RTOL[torch.float32], run_bits="the run's", kernel_ms=f"{kernel_ms:.3f}",
+          kernel_lanes=mf.HALF, expansion_ms=f"{expand_ms:.3f}", plain_ms=f"{plain_ms:.1f}",
+          bound_ms=bound.ms, bound_by=bound.by, share_of_bound=bound.ms / kernel_ms)
+    del args, kernel_args, table, got, ref, first_calls
+    torch.cuda.empty_cache()
+
+    # ---- 18b: full_flights --rk2, full size
+    torch.cuda.reset_peak_memory_stats(dev)
+    (result, lanes), run_s, launches["18b"] = counted(ff.run, True, dev)
+    tl, want = lanes["two_level"], 1 + ff.N_SLABS + 2
+    if (launches["18b"] != want or result["total_flights"] != ff.N_SLABS * ff.SLAB
+            or result["valid_frac"] < 0.99 or tl["n_coupled"] < 0.9 * ff.TWO_LEVEL_LANES
+            or not all(math.isfinite(tl[k]["bias"]) for k in METRICS)):
+        raise AssertionError(f"18b: {launches['18b']} launches (want {want}), {result}")
+    phase("18b full_flights --rk2", launches=launches["18b"], run_s=f"{run_s:.3f}",
+          device_peak_mb=f"{torch.cuda.max_memory_allocated(dev) * mb:.1f}",
+          two_level_legs_s=json.dumps(tl["wall_s_legs"]),
+          **{k: result[k] for k in ("total_flights", "wall_s_incl_sampling", "full_traj_per_s",
+                                    "max_lane_steps", "valid_frac", "apogee_mean_m",
+                                    "apogee_std_m", "range_mean_m", "flight_time_mean_s")},
+          two_level=json.dumps(result["two_level"]))
+    del lanes
+
+    # ---- 18c: hundred_million_flights, parity and --fast, at 10M lanes
+    n_slabs = -(-CAPSTONE_LANES // hm.SLAB)
+    kw = dict(n_samples=CAPSTONE_LANES)
+    # the process's resident memory at these slabs' draws: flat past the
+    # prefix's cap (slab 4) and the streams' crossing (slab 16)
+    rss_at = (1, 4, 8, 16, 17, 24, 32, n_slabs)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "hundred_million.ckpt.npz")
+        runs = {}
+        for fast in (False, True):
+            tag = f"18c {'fast' if fast else 'parity'}"
+            torch.cuda.reset_peak_memory_stats(dev)
+            with streamed_lanes() as seen, checkpoint_writes() as writes, \
+                    slab_stages() as marks, accumulator_ms() as spent:
+                t0 = time.perf_counter()
+                (result, a), run_s, launches[tag] = counted(hm.run, fast, dev,
+                                                            checkpoint_path=path, **kw)
+                end = time.perf_counter()
+            want = n_slabs + (2 if fast else 0)  # and the two-level legs
+            if launches[tag] != want or result["total_flights"] != CAPSTONE_LANES:
+                raise AssertionError(f"{tag}: {launches[tag]} launches (want {want}), {result}")
+            if os.path.exists(path) or len(writes) != (n_slabs - 1) // hm.CHECKPOINT_EVERY:
+                raise AssertionError(f"{tag}: {len(writes)} checkpoints, left after the run "
+                                     f"{os.path.exists(path)}")
+            worst = streams_against_numpy(a, seen, tag)
+            del seen
+            sampling, kernel, host = stage_split(marks, end)
+            if fast and (a["two_level"]["n_coupled"] < 0.9 * hm.TWO_LEVEL_LANES or not
+                         math.isfinite(a["two_level"]["apogee_altitude"]["corrected_mean"])):
+                raise AssertionError(f"{tag}: two-level block {a['two_level']}")
+            runs[fast] = a
+            phase(f"{tag} hundred_million_flights", lanes=CAPSTONE_LANES, slabs=n_slabs,
+                  last_slab=CAPSTONE_LANES - (n_slabs - 1) * hm.SLAB, launches=launches[tag],
+                  run_s=f"{run_s:.3f}", staged_wall_s=f"{end - t0:.3f}",
+                  device_peak_mb=f"{torch.cuda.max_memory_allocated(dev) * mb:.1f}",
+                  **{k: result[k] for k in ("wall_s", "traj_per_s", "valid", "outliers",
+                                            "apogee_mean_m", "apogee_std_m", "apogee_p50_m",
+                                            "metrics_is_sample")},
+                  **worst, checkpoint_s=json.dumps([round(s, 4) for s, _ in writes]),
+                  checkpoint_mb=json.dumps([round(b * mb, 2) for _, b in writes]),
+                  sampling_ms_sum=f"{sum(sampling):.1f}", kernel_ms_sum=f"{sum(kernel):.1f}",
+                  host_ms_sum=f"{sum(host):.1f}", host_ms_median=f"{np.median(host):.2f}",
+                  host_ms_max=f"{max(host):.1f}", host_ms_max_slab=int(np.argmax(host)) + 1,
+                  host_ms_slabs=json.dumps({k: round(host[k - 1], 1) for k in rss_at}),
+                  kernel_ms_median=f"{np.median(kernel):.2f}",
+                  sampling_ms_median=f"{np.median(sampling):.2f}",
+                  accumulator_ms=json.dumps({k: round(v, 1) for k, v in spent.items()}),
+                  rss_mb_slabs=json.dumps({i + 1: round(r) for i, r in enumerate(
+                      m for st, m, _ in marks if st == "rss") if i + 1 in rss_at}),
+                  two_level=json.dumps(result["two_level"]))
+        # the fast run killed at the draw after its first checkpoint, resumed
+        draw, calls = analyzer_mod._draw_slab, []
+
+        def dying(*args, **kwargs):
+            if len(calls) == hm.CHECKPOINT_EVERY:
+                raise RuntimeError("simulated crash")
+            calls.append(1)
+            return draw(*args, **kwargs)
+
+        analyzer_mod._draw_slab = dying
+        try:
+            hm.run(True, dev, checkpoint_path=path, **kw)
+            raise AssertionError("18c: the run did not stop after its first checkpoint")
+        except RuntimeError as e:
+            if "simulated crash" not in str(e):
+                raise
+        finally:
+            analyzer_mod._draw_slab = draw
+        kept = os.path.exists(path)
+        (result, c), run_s, launches["18c resumed"] = counted(hm.run, True, dev,
+                                                              checkpoint_path=path, **kw)
+        want = n_slabs - hm.CHECKPOINT_EVERY + 2
+        if not kept or os.path.exists(path) or launches["18c resumed"] != want:
+            raise AssertionError(f"18c resume: checkpoint kept {kept}, left after the run "
+                                 f"{os.path.exists(path)}, {launches['18c resumed']} launches "
+                                 f"(want {want})")
+    same_analysis(c, runs[True], skip=("performance", "two_level"))
+    walls = ("wall_s", "wall_s_legs")
+    np.testing.assert_equal({k: v for k, v in c["two_level"].items() if k not in walls},
+                            {k: v for k, v in runs[True]["two_level"].items() if k not in walls})
+    phase("18c resumed", lanes=CAPSTONE_LANES, resumed_at_slab=hm.CHECKPOINT_EVERY,
+          launches=launches["18c resumed"], run_s=f"{run_s:.3f}", wall_s=result["wall_s"],
+          equal_to_uninterrupted="bit for bit")
+    return launches, fast_row
+
+
+def capstone_child(argv) -> int:
+    """``--capstone MODULE [FLAG]``: one capstone at its script's size, its
+    checkpoint writes clocked; prints the module's lines, then the writes
+    and whether the checkpoint outlived the run."""
+    import importlib
+
+    name, flags = argv[0], argv[1:]
+    module = importlib.import_module(f"erpl_monte_carlo_sim_tpu_torch.capstones.{name}")
+    with checkpoint_writes() as writes:
+        module.main(flags)
+    left = None
+    if name == "hundred_million_flights":
+        left = os.path.exists(module.checkpoint_path_of("--fast" in flags))
+    phase(f"capstone {' '.join(argv)}", checkpoint_writes=len(writes),
+          checkpoint_s=json.dumps([round(s, 4) for s, _ in writes]),
+          checkpoint_mb=json.dumps([round(b / 2**20, 2) for _, b in writes]),
+          checkpoint_left=left)
+    return 0
+
+
+def capstone_runs() -> int:
+    """``--capstones``: every capstone at its script's size, each in a
+    process of its own (``--capstone``), after one build of their kernels;
+    the card's line before and after."""
+    import subprocess
+
+    from erpl_monte_carlo_sim_tpu_torch.kernels import flight_summary as fs
+    from erpl_monte_carlo_sim_tpu_torch.kernels import threefry as tf
+
+    card = card_line()
+    print(card, flush=True)
+    t0 = time.time()
+    threefry_build = tf.build(start_only=True)
+    fs.build_many(sorted(set(capstone_builds().values())))
+    threefry_build()
+    phase("capstones build", seconds=f"{time.time() - t0:.1f}")
+    failed = []
+    for name, flag in CAPSTONE_RUNS:
+        cmd = [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--capstone", name,
+               *([flag] if flag else [])]
+        t0 = time.time()
+        rc = subprocess.run(cmd, cwd=ROOT, timeout=1800).returncode
+        phase(f"capstone done {name} {flag or ''}".strip(), rc=rc,
+              process_s=f"{time.time() - t0:.1f}")
+        if rc:
+            failed.append((name, flag))
+    print(card, flush=True)
+    return 1 if failed else 0
+
+
 def count_landing_ties(lanes: int) -> dict:
     """``--landing-ties [lanes]``: the rate behind ``LANDING_TIE_RATE``. The
     first ``lanes`` lanes (default 8,192) that the analyzer draws for seed 0
@@ -3688,6 +4063,10 @@ def main(argv=None) -> int:
         print(json.dumps(count_landing_ties(int(argv[1]) if len(argv) > 1 else 8192)),
               flush=True)
         return 0
+    if argv[:1] == ["--capstones"]:
+        return capstone_runs()
+    if argv[:1] == ["--capstone"]:
+        return capstone_child(argv[1:])
     from erpl_monte_carlo_sim_tpu_torch.engine import SimConfig
     from erpl_monte_carlo_sim_tpu_torch.kernels import flight_summary as fs
     from erpl_monte_carlo_sim_tpu_torch.kernels import threefry as tf
@@ -3715,10 +4094,12 @@ def main(argv=None) -> int:
     # phase 11's: the stabilized example's single flight and exports record
     # through the energy_consistent_aero build
     example_builds = [builds["energy_consistent_aero"]._replace(record=True)]
+    # phase 18's: the fast capstones' build (the others are among the above)
+    fast_build = capstone_builds()["fast"]
     t0 = time.time()
     threefry_build = tf.build(verbose=True, start_only=True)  # beside K1's compilers
     logs = fs.build_many([fs.PARITY, *builds.values(), *record_builds.values(),
-                          *example_builds], verbose=True)
+                          *example_builds, fast_build], verbose=True)
     _, threefry_log = threefry_build()
     build_s = time.time() - t0
     usage = ptxas_usage(logs[0][1])
@@ -3735,9 +4116,12 @@ def main(argv=None) -> int:
         phase(f"1 build {name}", build=fs.flags_name(builds[name]), ptxas=json.dumps(use))
     for (name, use), flags in zip(record_usage.items(), record_builds.values()):
         phase(f"1 build record {name}", build=fs.flags_name(flags), ptxas=json.dumps(use))
-    for flags, (_, log) in zip(example_builds, logs[1 + len(builds) + len(record_builds):]):
+    for flags, (_, log) in zip(example_builds, logs[1 + len(builds) + len(record_builds):-1]):
         phase("1 build record example", build=fs.flags_name(flags),
               ptxas=json.dumps(record_ptxas(log)))
+    capstone_usage = {"fast": ptxas_usage(logs[-1][1])}
+    phase("1 build capstone fast", build=fs.flags_name(fast_build),
+          ptxas=json.dumps(capstone_usage["fast"]))
 
     # ---------------------------------------------------------------- 2
     cfg = SimConfig(max_time=WINDOW)
@@ -4067,6 +4451,13 @@ def main(argv=None) -> int:
     threefry_rows = threefry_phase(dev, ic, mc, threefry_launches, threefry_ptxas)
     phase("17 done", phase_17_s=f"{time.time() - t0:.1f}", script_s=f"{time.time() - start:.1f}")
 
+    # ---------------------------------------------------------------- 18
+    t0 = time.time()
+    drawn()
+    capstone_launches, capstone_row = capstones(dev, capstone_builds(), capstone_usage)
+    phase("18 done", phase_18_s=f"{time.time() - t0:.1f}", script_s=f"{time.time() - start:.1f}",
+          **drawn())
+
     report = {"kernels": [
         {"name": f"flight_summary ({name})", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": where, "launches": launches, "max_abs_err": main_err,
@@ -4075,7 +4466,8 @@ def main(argv=None) -> int:
          "example_launches": {k: v["k1"] for k, v in example_launches.items()},
          "variant_launches": {k: v for k, v in variant_launches.items() if "record" not in k},
          "estimator_launches": estimator_launches, "modes_launches": modes_launches,
-         "diff_launches": diff_launches, "parallel_launches": parallel_launches, **costs}
+         "diff_launches": diff_launches, "parallel_launches": parallel_launches,
+         "capstone_launches": capstone_launches, **costs}
         for name, where in REPLACES
     ] + [
         {"name": f"flight_summary [{name}]", "route": "cuda", "source": KERNEL_SOURCE,
@@ -4084,7 +4476,7 @@ def main(argv=None) -> int:
          "plain_ms": row["plain_ms"], "bound_ms": row["f32"]["bound_ms"],
          "bound_by": row["f32"]["bound_by"], "library_ms": None, **row}
         for name, row in rows.items()
-    ] + [
+    ] + [capstone_row] + [
         {"name": f"flight_summary [record {name}]", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": REPLACES[0][1], "library_ms": None,
          "example_launches": {k: v["k1_rec"] for k, v in example_launches.items()},

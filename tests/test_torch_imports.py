@@ -26,6 +26,8 @@ def test_every_module_imports_with_jax_and_flax_blocked():
         "mesh", "sharded", "pod_scale", "spawn")} <= set(MODULES)
     assert {f"erpl_monte_carlo_sim_tpu_torch.{m}" for m in (
         "ops.sobol", "ops.prng", "kernels.threefry", "random")} <= set(MODULES)
+    assert {f"erpl_monte_carlo_sim_tpu_torch.capstones{m}" for m in (
+        "", ".million_flights", ".full_flights", ".hundred_million_flights")} <= set(MODULES)
     assert {f"erpl_monte_carlo_sim_tpu_torch.{m}" for m in (
         "example", "reporting", "reporting.plots", "reporting.report", "reporting.results",
         "cli", "cli.find_max_apogee", "cli.analyze_outlier", "cli.launch_window",
@@ -62,6 +64,10 @@ def test_every_module_imports_with_jax_and_flax_blocked():
         "    init_distributed, run_ranks)\n"
         "from erpl_monte_carlo_sim_tpu_torch.parallel.pod_scale import main as pod\n"
         "from erpl_monte_carlo_sim_tpu_torch import parallel\n"
+        "from erpl_monte_carlo_sim_tpu_torch.capstones import (full_flights,\n"
+        "    hundred_million_flights, million_flights)\n"
+        "assert callable(million_flights.run) and callable(hundred_million_flights.main)\n"
+        "assert full_flights.TWO_LEVEL_SEED == 99\n"
         "assert sobol.sobol_points(8, 640, torch.zeros(1, 640, dtype=torch.int64)).shape[1] == 640\n"
         "assert 'jax' not in [k for k, v in sys.modules.items() if v is not None]\n"
         "print('ok')\n"
