@@ -251,6 +251,26 @@ exits non-zero:
      (``slab_stages``); the fast run killed at the draw after its first
      checkpoint (slab 16) and resumed, equal to the uninterrupted run bit
      for bit (the two-level block's walls aside).
+ 19. the stacked-vector single-flight engine, ``engine.simulate_summary`` and
+     ``simulate_flight`` (the JAX package's single-flight entry points),
+     which on CUDA tensors launch K1 and K1-Rec, each call's launches
+     counted from 0: (a) the README's Quick start, the nominal liquid
+     scene to landing as one unbatched flight, in float64 (held to
+     tests/golden/flight_liquid_nowind.json at phase 3's bars) and float32,
+     one K1 launch each, the warm wall printed; (b) K2's counterpart: 4,096
+     dispersed lanes of a 2 s window through ``simulate_summary`` (one K1
+     launch, the summary K1's bit for bit) against the stacked plain
+     version on the card on the same lanes (its eager step captured once
+     and replayed as a CUDA graph, bit for bit the eager loop), float64 at rtol
+     5e-7 / atol 1e-6 with every step count exact and float32 at rtol 2e-5
+     (lanes that leave the rail or stop a step apart counted, at most
+     0.1%), the plain version's ms a main-loop step printed; (c)
+     ``simulate_flight`` of one lane over a 6 s window through K1-Rec and
+     its derived pass, every valid frame and the summary held to the
+     stacked plain recorder on the card in float64; (d) ``descent_dt_scale``
+     refused with no launch, and ``integrator="rk2"`` with
+     ``wind_table_bf16`` (which the stacked path does not read) flying the
+     parity flight bit for bit.
 
 The kernels JSON gives each flight_summary and recording row the launches
 of phase 11's example runs (``example_launches``), and the summary rows
@@ -258,7 +278,9 @@ of phase 11's example runs (``example_launches``), and the summary rows
 (``variant_launches``); the summary rows also those of phase 13's runs
 (``estimator_launches``), and those of phases 14 and 15
 (``modes_launches``, ``diff_launches``), phase 16's per rank
-(``parallel_launches``) and phase 18's (``capstone_launches``). After the
+(``parallel_launches``), phase 18's (``capstone_launches``) and phase 19's
+(``stacked_launches``, also on the parity recording row and the derived
+pass's row). After the
 flag sets' rows comes the fast capstones' build's row (phase 18a). A
 recording row's ``ms`` is ``flight_record``'s time (the build's launches
 and the frames' gather), its ``build_ms`` the
@@ -657,6 +679,39 @@ def records_of(traj, n: int) -> dict:
                         for i, k in enumerate(EULER_KEYS)})
     recs["derived"] = derived
     return recs
+
+
+def golden_checks(s, golden: dict, dtype, apogee_rel: float, what: str,
+                  n_steps: bool = False) -> None:
+    """A single flight's ``FlightSummary`` (0-d leaves) against a golden
+    flight of tests/golden at tests/test_flight.py's bars: the apogee within
+    ``apogee_rel``, the rail exit speed within 1e-4 and its time within one
+    rail step, not diverged; in float64 also the apogee time, range and
+    flight time, the rail exit's angle of attack and position, and with
+    ``n_steps`` the step count within 20. Raises naming the checks that
+    fail."""
+    apogee = float(s.apogee_altitude)
+    checks = {
+        "apogee": abs(apogee / golden["apogee_altitude"] - 1) <= apogee_rel,
+        "rail_exit_speed": abs(float(s.rail.rail_exit_speed)
+                               / golden["rail_exit_speed"] - 1) <= 1e-4,
+        "rail_exit_time": abs(float(s.rail.rail_exit_time) - golden["rail_exit_time"]) <= 0.011,
+        "not_diverged": not bool(s.diverged),
+    }
+    if dtype == torch.float64:
+        rel = {"apogee_time": 1e-2, "range": 5e-3, "flight_time": 1e-2}
+        for k, r in rel.items():
+            checks[k] = abs(float(getattr(s, k)) / golden[k] - 1) <= r
+        checks["rail_exit_aoa"] = abs(float(s.rail.rail_exit_angle_of_attack)
+                                      - golden["rail_exit_aoa"]) <= 1e-6
+        pos = s.rail.rail_exit_position.cpu().numpy()
+        checks["rail_exit_position"] = bool(np.all(
+            np.abs(pos - golden["rail_exit_position"])
+            <= 1e-6 + 1e-3 * np.abs(golden["rail_exit_position"])))
+        if n_steps:
+            checks["n_steps"] = abs(int(s.n_steps) - (golden["n_steps"] - 1)) <= 20
+    if not all(checks.values()):
+        raise AssertionError(f"{what}: {checks}, apogee {apogee}")
 
 
 def plain_data(obj):
@@ -4051,6 +4106,200 @@ def count_landing_ties(lanes: int) -> dict:
             "ties": sum(counts), "landing_digests": landing}
 
 
+# phase 19: the stacked-vector single-flight engine (engine.simulate): the
+# Quick start to landing, K1 against the stacked plain version on dispersed
+# lanes of a window, and one recorded flight
+STACKED_LANES = 4096
+STACKED_WINDOW = 2.0
+STACKED_FLIGHT_WINDOW = 6.0
+# lanes of a float32 window whose rail exit or step count differs between
+# K1 and the stacked engine (a tie of the last bits on the rail), at most
+STACKED_TIE_SHARE = 1e-3
+
+
+def stacked_out(s, ic_b) -> dict:
+    """A stacked-engine ``FlightSummary`` of ``[B]`` lanes as a
+    ``flight_summary`` dict (``compare``'s input): its leaves split by
+    component, the launch quaternion the engine's ``initial_state``'s."""
+    from erpl_monte_carlo_sim_tpu_torch.engine.state import initial_state
+
+    out = {k: getattr(s, k) for k in ("apogee_altitude", "apogee_time", "range",
+                                       "flight_time", "max_speed", "n_steps")}
+    out.update({k: getattr(s.rail, k) for k in ("rail_exit_time", "rail_exit_speed",
+                                                  "rail_exit_angle_of_attack",
+                                                  "rail_exit_sideslip")})
+    for prefix, v in (("final_p", s.landing_position), ("final_v", s.final_velocity),
+                      ("rail_p", s.rail.rail_exit_position),
+                      ("rail_v", s.rail.rail_exit_velocity)):
+        out.update({prefix + c: v[..., i] for i, c in enumerate("xyz")})
+    out.update({"rail_w" + c: s.rail.wind_at_exit[..., i] for i, c in enumerate("uvw")})
+    q = initial_state(ic_b).quaternion
+    out.update({k: q[..., i] for i, k in enumerate(QUAT_KEYS)})
+    out.update(parachute_deployed=s.parachute_deployed.to(torch.int32),
+               diverged=s.diverged.to(torch.int32))
+    return out
+
+
+def same_summaries(a, b) -> bool:
+    """Two ``FlightSummary`` results bit for bit (NaN equal to NaN)."""
+    return all(torch.equal(x, y) if not x.is_floating_point()
+               else bool(((x == y) | (torch.isnan(x) & torch.isnan(y))).all())
+               for (_, x), (_, y) in zip(leaves(a), leaves(b)))
+
+
+def compare_summaries64(ref, got) -> float:
+    """Two float64 ``FlightSummary`` results leaf by leaf at ``RTOL`` /
+    ``ATOL``, integers and flags exact; the largest absolute difference.
+    Raises naming every leaf that differs."""
+    worst, bad = 0.0, []
+    for (path, a), (_, b) in zip(leaves(ref), leaves(got)):
+        if not a.is_floating_point():
+            if not torch.equal(a, b):
+                bad.append(path)
+            continue
+        diff = (a - b).abs()
+        same_nan = torch.isnan(a) & torch.isnan(b)
+        if not bool((same_nan | (diff <= ATOL + RTOL[torch.float64] * a.abs())).all()):
+            bad.append(path)
+        if bool((~same_nan).any()):
+            worst = max(worst, float(diff[~same_nan].max()))
+    if bad:
+        raise AssertionError(f"summaries differ at {bad}")
+    return worst
+
+
+def stacked_engine(dev, goldens: dict) -> dict:
+    """Phase 19: ``engine.simulate_summary`` / ``simulate_flight``, the
+    JAX package's single-flight entry points, on the card, where they
+    launch K1 (K2's counterpart) and K1-Rec. Each sub-phase counts its
+    launches from 0 around the entry point's call alone; the comparisons'
+    own launches are not counted. Returns those counts."""
+    from erpl_monte_carlo_sim_tpu_torch.engine import (InitialConditions, SimConfig,
+                                                       simulate_flight, simulate_summary)
+    from erpl_monte_carlo_sim_tpu_torch.engine.batch import _summary_pytree, prepare_batch
+    from erpl_monte_carlo_sim_tpu_torch.engine.rail import simulate_rail
+    from erpl_monte_carlo_sim_tpu_torch.engine.simulate import (simulate_flight_reference,
+                                                                simulate_summary_reference)
+    from erpl_monte_carlo_sim_tpu_torch.engine.state import initial_state
+    from erpl_monte_carlo_sim_tpu_torch.kernels import flight_summary as fs
+    from erpl_monte_carlo_sim_tpu_torch.models import liquid_motor, nominal_scene
+    from erpl_monte_carlo_sim_tpu_torch.utils.tree import tree_map
+
+    counts = {}
+
+    def counted_call(tag, fn, *args):
+        torch.cuda.synchronize()
+        fs.launches = fs.record_launches = fs.derived_launches = 0
+        t0 = time.time()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts[tag] = {"k1": fs.launches, "k1_rec": fs.record_launches,
+                       "derived": fs.derived_launches}
+        return out, wall
+
+    # (a) the Quick start to landing, a single flight (0-d leaves)
+    for dtype, apogee_rel in ((torch.float64, 1e-5), (torch.float32, 1e-3)):
+        dt = str(dtype).split(".")[-1]
+        scene = nominal_scene(liquid_motor(dev, dtype))
+        ic = InitialConditions.vertical_launch(dev, dtype)
+        simulate_summary(scene, ic, SimConfig())  # warm
+        s, wall = counted_call(f"19a {dt}", simulate_summary, scene, ic, SimConfig())
+        if counts[f"19a {dt}"]["k1"] != 1 or s.apogee_altitude.ndim != 0:
+            raise AssertionError(f"19a {dt}: {counts[f'19a {dt}']} K1 launches (1 wanted), "
+                                 f"apogee shape {tuple(s.apogee_altitude.shape)}")
+        golden_checks(s, goldens["liquid"], dtype, apogee_rel, f"19a quick start {dt}",
+                      n_steps=True)
+        phase(f"19a quick start {dt}", apogee_m=float(s.apogee_altitude),
+              golden_m=goldens["liquid"]["apogee_altitude"], range_m=float(s.range),
+              flight_time_s=float(s.flight_time), n_steps=int(s.n_steps),
+              launches=counts[f"19a {dt}"]["k1"], warm_wall_s=f"{wall:.4f}")
+
+    # (b) K2's counterpart: K1 through simulate_summary on dispersed lanes of
+    # a window, against the stacked plain version on the card
+    cfg = SimConfig(max_time=STACKED_WINDOW)
+    for dtype in (torch.float64, torch.float32):
+        dt = str(dtype).split(".")[-1]
+        scene_b, ic_b = sample_batch(STACKED_LANES, dtype)
+        got, _ = counted_call(f"19b {dt}", simulate_summary, scene_b, ic_b, cfg)
+        if counts[f"19b {dt}"]["k1"] != 1:
+            raise AssertionError(f"19b {dt}: {counts[f'19b {dt}']} K1 launches (1 wanted)")
+        args = prepare_batch(scene_b, ic_b)
+        k1_ms, kernel = cuda_ms(lambda: fs.flight_summary(*args, cfg), reps=3)
+        if not same_summaries(_summary_pytree(kernel), got):
+            raise AssertionError(f"19b {dt}: simulate_summary is not K1's summary")
+        plain_ms, ref = cuda_ms(lambda: simulate_summary_reference(scene_b, ic_b, cfg))
+        rail_ms, _ = cuda_ms(lambda: simulate_rail(scene_b, cfg, initial_state(ic_b)))
+        ref_out = stacked_out(ref, ic_b)
+        ties = torch.zeros_like(ref.diverged)
+        if dtype == torch.float32:
+            ties = ((ref_out["rail_exit_time"] != kernel["rail_exit_time"])
+                    | (ref_out["n_steps"] != kernel["n_steps"]))
+            if int(ties.sum()) > STACKED_TIE_SHARE * STACKED_LANES:
+                raise AssertionError(f"19b {dt}: {int(ties.sum())} lanes leave the rail or "
+                                     "stop a step apart")
+        kept = ~ties
+        err = compare({k: v[kept] for k, v in ref_out.items()},
+                      {k: v[kept] for k, v in kernel.items()}, dtype)
+        steps = int(ref.n_steps.max())
+        # the plain ms a main-loop step: the run less its eager rail phase,
+        # the step's capture (a warm-up call and the capture) included
+        phase(f"19b K1=stacked {dt}", lanes=STACKED_LANES, max_time=STACKED_WINDOW,
+              launches=counts[f"19b {dt}"]["k1"], compared_lanes=int(kept.sum()),
+              rail_ties=int(ties.sum()), max_abs_err=err, rtol=RTOL[dtype], atol=ATOL,
+              n_steps_max=steps, k1_ms=f"{k1_ms:.3f}", plain_ms=f"{plain_ms:.1f}",
+              plain_rail_ms=f"{rail_ms:.1f}",
+              plain_ms_per_step=f"{(plain_ms - rail_ms) / steps:.3f}")
+        del scene_b, ic_b, args, got, kernel, ref, ref_out
+
+    # (c) one recorded flight through K1-Rec and its derived pass, against
+    # the stacked plain recorder on the card
+    cfg = SimConfig(max_time=STACKED_FLIGHT_WINDOW)
+    scene = nominal_scene(liquid_motor(dev, torch.float64))
+    ic = InitialConditions.vertical_launch(dev, torch.float64)
+    (got_s, got_t), _ = counted_call("19c f64", simulate_flight, scene, ic, cfg)
+    if counts["19c f64"] != {"k1": 1, "k1_rec": 1, "derived": 1}:
+        raise AssertionError(f"19c: launches {counts['19c f64']} (one flight and one "
+                             "derived pass wanted)")
+    t0 = time.time()
+    ref_s, ref_t = simulate_flight_reference(scene, ic, cfg)
+    torch.cuda.synchronize()
+    plain_s = time.time() - t0
+    lane = lambda t: records_of(tree_map(lambda x: x[None], t), 1)  # noqa: E731
+    ref_r, got_r = lane(ref_t), lane(got_t)
+    if set(ref_r["derived"]) != set(got_r["derived"]) or not torch.equal(ref_r["valid"],
+                                                                         got_r["valid"]):
+        raise AssertionError("19c: the recordings' derived channels or valid frames differ")
+    frame_err = compare_records(ref_r, got_r, torch.float64, keep=ref_r["valid"])
+    summary_err = compare_summaries64(ref_s, got_s)
+    phase("19c simulate_flight f64", max_time=STACKED_FLIGHT_WINDOW,
+          frames=int(got_t.time.shape[0]), valid_frames=int(got_t.valid.sum()),
+          launches=json.dumps(counts["19c f64"]), frames_max_abs_err=frame_err,
+          summary_max_abs_err=summary_err, plain_recorder_s=f"{plain_s:.2f}")
+
+    # (d) the tiered timestep is refused, on the card too, before any launch;
+    # rk2 and the bfloat16 table, which the stacked path does not read, fly
+    # the parity build, bit for bit
+    fs.launches = 0
+    try:
+        simulate_summary(scene, ic, SimConfig(descent_dt_scale=4))
+    except ValueError as e:
+        if "simulate_summary_batch" not in str(e) or fs.launches:
+            raise
+    else:
+        raise AssertionError("19d: descent_dt_scale=4 was not refused")
+    refused_launches = fs.launches
+    cfg_d = SimConfig(max_time=STACKED_WINDOW)
+    parity = simulate_summary(scene, ic, cfg_d)
+    ignored = simulate_summary(scene, ic, dataclasses.replace(cfg_d, integrator="rk2",
+                                                              wind_table_bf16=True))
+    if not all(torch.equal(a, b) for (_, a), (_, b) in zip(leaves(parity), leaves(ignored))):
+        raise AssertionError("19d: rk2 / wind_table_bf16 changed the stacked flight")
+    phase("19d refusal", descent_dt_scale=4, launches=refused_launches,
+          rk2_bf16_ignored=True)
+    return counts
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     start = time.time()
@@ -4147,6 +4396,7 @@ def main(argv=None) -> int:
     from erpl_monte_carlo_sim_tpu_torch.models import nominal_scene
 
     from erpl_monte_carlo_sim_tpu_torch.models import solid_motor
+    from erpl_monte_carlo_sim_tpu_torch.utils.tree import tree_map
 
     goldens = {}
     for motor in ("liquid", "solid"):
@@ -4169,28 +4419,8 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         secs = time.time() - t0
         apogee = float(s.apogee_altitude[0])
-        checks = {
-            "apogee": abs(apogee / golden["apogee_altitude"] - 1) <= apogee_rel,
-            "rail_exit_speed": abs(float(s.rail.rail_exit_speed[0])
-                                   / golden["rail_exit_speed"] - 1) <= 1e-4,
-            "rail_exit_time": abs(float(s.rail.rail_exit_time[0])
-                                  - golden["rail_exit_time"]) <= 0.011,
-            "not_diverged": not bool(s.diverged[0]),
-        }
-        if dtype == torch.float64:
-            rel = {"apogee_time": 1e-2, "range": 5e-3, "flight_time": 1e-2}
-            for k, r in rel.items():
-                checks[k] = abs(float(getattr(s, k)[0]) / golden[k] - 1) <= r
-            checks["rail_exit_aoa"] = abs(float(s.rail.rail_exit_angle_of_attack[0])
-                                          - golden["rail_exit_aoa"]) <= 1e-6
-            pos = s.rail.rail_exit_position[0].cpu().numpy()
-            checks["rail_exit_position"] = bool(np.all(
-                np.abs(pos - golden["rail_exit_position"])
-                <= 1e-6 + 1e-3 * np.abs(golden["rail_exit_position"])))
-        if motor == "liquid" and dtype == torch.float64:
-            checks["n_steps"] = abs(int(s.n_steps[0]) - (golden["n_steps"] - 1)) <= 20
-        if not all(checks.values()):
-            raise AssertionError(f"golden flight ({motor}, {dtype}): {checks}, apogee {apogee}")
+        golden_checks(tree_map(lambda x: x[0], s), golden, dtype, apogee_rel,
+                      f"golden flight ({motor}, {dtype})", n_steps=motor == "liquid")
         tag = "" if motor == "liquid" else f" {motor}"
         extra = {} if dtype == torch.float32 else {
             "range_m": float(s.range[0]), "golden_range_m": golden["range"],
@@ -4458,6 +4688,12 @@ def main(argv=None) -> int:
     phase("18 done", phase_18_s=f"{time.time() - t0:.1f}", script_s=f"{time.time() - start:.1f}",
           **drawn())
 
+    # ---------------------------------------------------------------- 19
+    t0 = time.time()
+    stacked_launches = stacked_engine(dev, goldens)
+    phase("19 done", phase_19_s=f"{time.time() - t0:.1f}", script_s=f"{time.time() - start:.1f}",
+          **drawn())
+
     report = {"kernels": [
         {"name": f"flight_summary ({name})", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": where, "launches": launches, "max_abs_err": main_err,
@@ -4467,7 +4703,8 @@ def main(argv=None) -> int:
          "variant_launches": {k: v for k, v in variant_launches.items() if "record" not in k},
          "estimator_launches": estimator_launches, "modes_launches": modes_launches,
          "diff_launches": diff_launches, "parallel_launches": parallel_launches,
-         "capstone_launches": capstone_launches, **costs}
+         "capstone_launches": capstone_launches,
+         "stacked_launches": {k: v["k1"] for k, v in stacked_launches.items()}, **costs}
         for name, where in REPLACES
     ] + [
         {"name": f"flight_summary [{name}]", "route": "cuda", "source": KERNEL_SOURCE,
@@ -4480,12 +4717,14 @@ def main(argv=None) -> int:
         {"name": f"flight_summary [record {name}]", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": REPLACES[0][1], "library_ms": None,
          "example_launches": {k: v["k1_rec"] for k, v in example_launches.items()},
-         **({"variant_launches": {"12d": variant_launches["12d record"]}}
+         **({"variant_launches": {"12d": variant_launches["12d record"]},
+             "stacked_launches": {"19c": stacked_launches["19c f64"]["k1_rec"]}}
             if name == "parity" else {}), **row}
         for name, row in record_rows.items()
     ] + [
         {"name": "flight_summary [record derived pass]", "route": "cuda",
          "source": KERNEL_SOURCE, "replaces": DERIVED_REPLACES, "library_ms": None,
+         "stacked_launches": {"19c": stacked_launches["19c f64"]["derived"]},
          **derived_row}
     ] + threefry_rows}
     print(card, flush=True)

@@ -24,7 +24,7 @@ import torch
 from ..kernels.flight_summary import flight_record, flight_summary, wind_fn_of
 from ..models.wind import WindModes
 from ..ops.quaternion import quaternion_to_euler
-from ..utils.tree import tree_map
+from ..utils.tree import floats_as
 from .component import flight_components_envelope
 from .config import SimConfig
 from .rail import RailInfo
@@ -54,10 +54,7 @@ def prepare_batch(scene_b, ic_b):
 def _prepared(scene_b, ic_b):
     """``prepare_batch`` with every float leaf cast to the dtype of the
     initial conditions first, so both execution paths see one dtype."""
-    dtype = ic_b.position.dtype
-    scene_b = tree_map(
-        lambda x: x.to(dtype) if x.is_floating_point() else x, scene_b)
-    return prepare_batch(scene_b, ic_b)
+    return prepare_batch(floats_as(scene_b, ic_b.position.dtype), ic_b)
 
 
 def simulate_summary_batch(scene_b, ic_b, cfg: SimConfig = SimConfig()) -> FlightSummary:

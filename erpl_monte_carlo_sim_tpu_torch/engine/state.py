@@ -1,4 +1,5 @@
-"""Launch initial conditions (``erpl_monte_carlo_sim_tpu/engine/state.py``)."""
+"""Flight state and launch initial conditions
+(``erpl_monte_carlo_sim_tpu/engine/state.py``)."""
 
 from __future__ import annotations
 
@@ -7,9 +8,37 @@ import math
 
 import torch
 
+from ..ops.quaternion import euler_to_quaternion
 from ..utils.tree import default_dtype
 
-__all__ = ["InitialConditions"]
+__all__ = ["FlightState", "InitialConditions", "initial_state"]
+
+
+@dataclasses.dataclass(frozen=True)
+class FlightState:
+    """The integrated state of the stacked-vector engine: ``[..., 3]``
+    position (inertial, z up), velocity and body angular velocity, the
+    ``[..., 4]`` ``[w, x, y, z]`` body->inertial quaternion and the
+    propellant fraction ``[...]``. A leading lane axis batches it. Scaling
+    and adding states leaf by leaf forms the RK4 stage sums."""
+
+    position: torch.Tensor
+    velocity: torch.Tensor
+    quaternion: torch.Tensor
+    angular_velocity: torch.Tensor
+    propellant_fraction: torch.Tensor
+
+    def __mul__(self, k):
+        return FlightState(*(getattr(self, f.name) * k for f in dataclasses.fields(self)))
+
+    __rmul__ = __mul__
+
+    def __add__(self, other: "FlightState"):
+        return FlightState(*(getattr(self, f.name) + getattr(other, f.name)
+                             for f in dataclasses.fields(self)))
+
+    def replace(self, **changes) -> "FlightState":
+        return dataclasses.replace(self, **changes)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,3 +69,12 @@ class InitialConditions:
         """The canonical example launch: 10 m up, pitched 0.02 rad off vertical."""
         return cls.create(device, dtype, position=(0.0, 0.0, altitude),
                           attitude=(0.0, -math.pi / 2 + pitch_offset, 0.0))
+
+
+def initial_state(ic: InitialConditions) -> FlightState:
+    """The state at t=0: full propellant, the quaternion of the Euler
+    attitude."""
+    quat = euler_to_quaternion(ic.attitude[..., 0], ic.attitude[..., 1], ic.attitude[..., 2])
+    return FlightState(position=ic.position, velocity=ic.velocity, quaternion=quat,
+                       angular_velocity=ic.angular_velocity,
+                       propellant_fraction=torch.ones_like(ic.position[..., 0]))

@@ -14,7 +14,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..engine.state import InitialConditions
+from ..engine.integrator import EventState, StepCarry
+from ..engine.state import FlightState, InitialConditions
 from ..models.atmosphere import AtmosphereParams
 from ..models.motor import MotorParams
 from ..models.rocket import RocketParams
@@ -22,7 +23,8 @@ from ..models.scene import Scene
 from ..models.wind import WindField, WindModelParams, WindModes
 from .tree import is_static, tree_map
 
-__all__ = ["scene_from_numpy", "ic_from_numpy", "sample_from_numpy",
+__all__ = ["scene_from_numpy", "ic_from_numpy", "state_from_numpy", "carry_from_numpy",
+           "sample_from_numpy",
            "trajectory_from_numpy", "to_numpy", "summary_to_numpy"]
 
 _SCENE_PARTS = {"rocket": RocketParams, "motor": MotorParams,
@@ -77,6 +79,21 @@ def scene_from_numpy(obj, device, dtype=None) -> Scene:
 
 def ic_from_numpy(obj, device, dtype=None) -> InitialConditions:
     return _convert(InitialConditions, obj, device, dtype)
+
+
+def state_from_numpy(obj, device, dtype=None) -> FlightState:
+    """A port ``FlightState`` from a JAX one (or a dict)."""
+    return _convert(FlightState, obj, device, dtype)
+
+
+def carry_from_numpy(obj, device, dtype=None) -> StepCarry:
+    """A port ``StepCarry`` from a JAX one (or nested dicts): its state, the
+    int32 step counter, the rail time and the ``EventState`` (flags stay
+    bool)."""
+    return StepCarry(state=state_from_numpy(_get(obj, "state"), device, dtype),
+                     step=_leaf(_get(obj, "step"), device, dtype),
+                     rail_time=_leaf(_get(obj, "rail_time"), device, dtype),
+                     events=_convert(EventState, _get(obj, "events"), device, dtype))
 
 
 def sample_from_numpy(obj, device, dtype=None):

@@ -13,7 +13,8 @@ import dataclasses
 
 import torch
 
-__all__ = ["static_field", "is_static", "tree_map", "materialize", "default_dtype"]
+__all__ = ["static_field", "is_static", "tree_map", "materialize", "default_dtype",
+           "floats_as"]
 
 
 def default_dtype(device, dtype=None):
@@ -53,6 +54,12 @@ def tree_map(fn, obj):
         v = getattr(obj, f.name)
         kwargs[f.name] = v if is_static(f) else tree_map(fn, v)
     return type(obj)(**kwargs)
+
+
+def floats_as(obj, dtype):
+    """``obj`` with every floating-point tensor leaf cast to ``dtype``;
+    integer and bool leaves unchanged."""
+    return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x, obj)
 
 
 def materialize(obj, device, dtype=None):

@@ -21,7 +21,8 @@ def test_every_module_imports_with_jax_and_flax_blocked():
         "slab_accumulators", "slab_checkpoint", "sequential", "checkpoint", "tail",
         "envelope", "resimulate", "ensemble", "importance", "cv", "two_level", "subset",
         "subset_driver", "sobol_indices", "robust")} <= set(MODULES)
-    assert "erpl_monte_carlo_sim_tpu_torch.engine.diff" in MODULES
+    assert {f"erpl_monte_carlo_sim_tpu_torch.engine.{m}" for m in (
+        "diff", "dynamics", "integrator", "rail", "simulate", "state")} <= set(MODULES)
     assert {f"erpl_monte_carlo_sim_tpu_torch.parallel.{m}" for m in (
         "mesh", "sharded", "pod_scale", "spawn")} <= set(MODULES)
     assert {f"erpl_monte_carlo_sim_tpu_torch.{m}" for m in (
@@ -57,6 +58,13 @@ def test_every_module_imports_with_jax_and_flax_blocked():
         "from erpl_monte_carlo_sim_tpu_torch.cli.tail_probability import main as tp\n"
         "from erpl_monte_carlo_sim_tpu_torch.models import WindModes, compress_wind\n"
         "from erpl_monte_carlo_sim_tpu_torch.engine.diff import simulate_metrics_diff\n"
+        "from erpl_monte_carlo_sim_tpu_torch.engine import (simulate_summary, simulate_flight,\n"
+        "    simulate_rail, rocket_dynamics, rk4_step, advance, init_carry, EventState,\n"
+        "    StepCarry, FlightState, initial_state)\n"
+        "from erpl_monte_carlo_sim_tpu_torch.ops import (safe_norm, quaternion_multiply,\n"
+        "    quaternion_to_rotation_matrix, rotate_by_matrix, rotate_by_matrix_t,\n"
+        "    angular_velocity_to_quaternion_rate, mach_number, angle_of_attack,\n"
+        "    sideslip_angle, wind_to_body_matrix)\n"
         "from erpl_monte_carlo_sim_tpu_torch.mc import optimize_robust, auto_shift\n"
         "from erpl_monte_carlo_sim_tpu_torch.cli.sensitivity import variance_budget\n"
         "from erpl_monte_carlo_sim_tpu_torch.cli.optimize_apogee import optimize\n"
@@ -91,12 +99,18 @@ def test_cpu_flight_runs_with_jax_blocked():
         "mc = MonteCarloAnalyzer(motor=liquid_motor('cpu'), sim_config=SimConfig(max_time=1.5))\n"
         "a = mc.run_monte_carlo(InitialConditions.vertical_launch('cpu'), n_samples=4)\n"
         "print(a['summary'].n_steps.tolist())\n"
+        "from erpl_monte_carlo_sim_tpu_torch.engine import simulate_summary\n"
+        "from erpl_monte_carlo_sim_tpu_torch.models import nominal_scene\n"
+        "s = simulate_summary(nominal_scene(liquid_motor('cpu')),\n"
+        "                     InitialConditions.vertical_launch('cpu'), SimConfig(max_time=1.0))\n"
+        "print([int(s.n_steps)])\n"
     )
     env = {**os.environ, "PYTHONPATH": str(ROOT)}
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          cwd=ROOT, env=env, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert all(n > 0 for n in eval(out.stdout.strip()))
+    lines = out.stdout.strip().splitlines()
+    assert len(lines) == 2 and all(n > 0 for line in lines for n in eval(line))
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [

@@ -629,3 +629,68 @@ def test_ar1_kernel_is_plain_on_cuda(mode):
             got = tf.ar1(*consts, **kw)
             assert tf.ar1_launches == before + 1
             assert torch.equal(got, tf.ar1_reference(*consts, **kw)), (dtype, sub)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_single_flight_entry_points_launch_the_kernel_on_cuda(dtype):
+    """``engine.simulate_summary`` on CUDA tensors is one K1 launch, equal to
+    the stacked plain version on the card at the kernel's bars (the launch
+    quaternion the engine's own), and a single flight comes back without a
+    lane axis; ``simulate_flight`` launches the recording build and its
+    derived pass once each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc; the CPU runs the plain version only")
+    from chip_smoke import stacked_out
+    from erpl_monte_carlo_sim_tpu_torch.engine import simulate_flight, simulate_summary
+    from erpl_monte_carlo_sim_tpu_torch.engine.simulate import simulate_summary_reference
+
+    scene_b, ic_b = sample_batch(64, dtype)
+    cfg = SimConfig(max_time=2.0)
+    before = fs.launches
+    got = simulate_summary(scene_b, ic_b, cfg)
+    assert fs.launches == before + 1
+    kernel = fs.flight_summary(*prepare_batch(scene_b, ic_b), cfg)
+    assert torch.equal(got.n_steps, kernel["n_steps"])
+    compare(stacked_out(simulate_summary_reference(scene_b, ic_b, cfg), ic_b), kernel, dtype)
+
+    dev = torch.device("cuda")
+    scene, ic = nominal_scene(liquid_motor(dev, dtype)), InitialConditions.vertical_launch(dev, dtype)
+    launched = (fs.launches, fs.record_launches, fs.derived_launches)
+    s, traj = simulate_flight(scene, ic, cfg)
+    assert (fs.launches, fs.record_launches, fs.derived_launches) == tuple(
+        n + 1 for n in launched)
+    assert s.apogee_altitude.ndim == 0 and traj.position.shape == (cfg.max_steps + 1, 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_stacked_graph_replay_is_the_eager_loop_on_cuda(dtype, monkeypatch):
+    """On the card the stacked plain versions replay a captured step and a
+    captured record block (``component._blocks``): every summary leaf and
+    every frame as the eager loops', on 64 dispersed lanes for 1.5 s,
+    recorded every 4 steps."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the CPU runs the eager loop only")
+    from chip_smoke import leaves
+    from erpl_monte_carlo_sim_tpu_torch.engine import simulate as stacked
+
+    scene_b, ic_b = sample_batch(64, dtype)
+    cfg = SimConfig(max_time=1.5, record_stride=4)
+    graphed = (stacked.simulate_summary_reference(scene_b, ic_b, cfg),
+               *stacked.simulate_flight_reference(scene_b, ic_b, cfg))
+    monkeypatch.setattr(component, "_replay_blocks",
+                        lambda block, carry, n, running, stride:
+                        component._run_blocks(block, carry, n, running))
+    eager = (stacked.simulate_summary_reference(scene_b, ic_b, cfg),
+             *stacked.simulate_flight_reference(scene_b, ic_b, cfg))
+    assert int(eager[0].n_steps.max()) > 100
+    for a, b in zip(graphed, eager):
+        for (path, x), (_, y) in zip(leaves(a), leaves(b)):
+            if isinstance(x, dict):
+                assert x.keys() == y.keys(), path
+                pairs = [(x[k], y[k]) for k in x]
+            else:
+                pairs = [(x, y)]
+            for u, v in pairs:
+                assert torch.equal(u, v) or bool(((u == v) | (u.isnan() & v.isnan())).all()), path
