@@ -258,10 +258,12 @@ exits non-zero:
      scene to landing as one unbatched flight, in float64 (held to
      tests/golden/flight_liquid_nowind.json at phase 3's bars) and float32,
      one K1 launch each, the warm wall printed; (b) K2's counterpart: 4,096
-     dispersed lanes of a 2 s window through ``simulate_summary`` (one K1
-     launch, the summary K1's bit for bit) against the stacked plain
-     version on the card on the same lanes (its eager step captured once
-     and replayed as a CUDA graph, bit for bit the eager loop), float64 at rtol
+     dispersed lanes of a 2 s window, one with a NaN wind table above 2 km,
+     through ``simulate_summary`` (one launch of K1's build with the stacked
+     engine's speed, the fold build, whose summary it is bit for bit)
+     against the stacked plain version on the card on the same lanes (its
+     eager step captured once and replayed as a CUDA graph, bit for bit the
+     eager loop), the NaN lane's ``max_speed`` 0 in both, float64 at rtol
      5e-7 / atol 1e-6 with every step count exact and float32 at rtol 2e-5
      (lanes that leave the rail or stop a step apart counted, at most
      0.1%), the plain version's ms a main-loop step printed; (c)
@@ -271,6 +273,21 @@ exits non-zero:
      refused with no launch, and ``integrator="rk2"`` with
      ``wind_table_bf16`` (which the stacked path does not read) flying the
      parity flight bit for bit.
+ 20. chunked flights (``engine.simulate_batch_chunked``, the analyzer's
+     ``chunk_steps``) through K1's carry build, one launch a chunk, each
+     run's launches counted from 0: (a) phase 4's run at 262,144 lanes with
+     ``chunk_steps=256``, its summaries a one-shot ``simulate_summary`` of
+     the same drawn lanes bit for bit (digest lines for both), the carry
+     build's outputs on those lanes held to K1's plain version with the
+     stacked engine's speed at phase 4's bars, the chunks, the kernel's ms
+     a chunk beside the one-shot kernel's, the bound and the wall beside
+     phase 4's; (b) phase 5's parity full flights (16,384
+     lanes, lane 0 the Quick start's nominal flight, which alone runs past
+     8,192 steps) at the default ``chunk_steps=8192``, several chunks, equal
+     to one-shot bit for bit, the progress calls printed; (c) phase 19b's
+     4,096 lanes and NaN-wind lane in chunks of 64, held to the carry
+     build's plain version (the stacked engine's chunk loop) on the card at
+     19b's bars, the NaN lane's ``max_speed`` 0 in both.
 
 The kernels JSON gives each flight_summary and recording row the launches
 of phase 11's example runs (``example_launches``), and the summary rows
@@ -281,7 +298,12 @@ of phase 11's example runs (``example_launches``), and the summary rows
 (``parallel_launches``), phase 18's (``capstone_launches``) and phase 19's
 (``stacked_launches``, also on the parity recording row and the derived
 pass's row). After the
-flag sets' rows comes the fast capstones' build's row (phase 18a). A
+flag sets' rows come the fold build's row (phase 19b: its launches, times,
+error against the stacked plain version) and the carry build's (phase 20a's
+launches, ms a run and a chunk, bound, error against K1's plain version
+and that version's ms at the main path's shape; phase 20c's error and the
+stacked plain version's ms at its shape), then the fast
+capstones' build's row (phase 18a). A
 recording row's ``ms`` is ``flight_record``'s time (the build's launches
 and the frames' gather), its ``build_ms`` the
 build's launches alone (``measure.record_case``), and its
@@ -4112,32 +4134,11 @@ def count_landing_ties(lanes: int) -> dict:
 STACKED_LANES = 4096
 STACKED_WINDOW = 2.0
 STACKED_FLIGHT_WINDOW = 6.0
+# the lane whose wind table is NaN above 2 km (19b, 20c)
+STACKED_NAN_LANE = 7
 # lanes of a float32 window whose rail exit or step count differs between
 # K1 and the stacked engine (a tie of the last bits on the rail), at most
 STACKED_TIE_SHARE = 1e-3
-
-
-def stacked_out(s, ic_b) -> dict:
-    """A stacked-engine ``FlightSummary`` of ``[B]`` lanes as a
-    ``flight_summary`` dict (``compare``'s input): its leaves split by
-    component, the launch quaternion the engine's ``initial_state``'s."""
-    from erpl_monte_carlo_sim_tpu_torch.engine.state import initial_state
-
-    out = {k: getattr(s, k) for k in ("apogee_altitude", "apogee_time", "range",
-                                       "flight_time", "max_speed", "n_steps")}
-    out.update({k: getattr(s.rail, k) for k in ("rail_exit_time", "rail_exit_speed",
-                                                  "rail_exit_angle_of_attack",
-                                                  "rail_exit_sideslip")})
-    for prefix, v in (("final_p", s.landing_position), ("final_v", s.final_velocity),
-                      ("rail_p", s.rail.rail_exit_position),
-                      ("rail_v", s.rail.rail_exit_velocity)):
-        out.update({prefix + c: v[..., i] for i, c in enumerate("xyz")})
-    out.update({"rail_w" + c: s.rail.wind_at_exit[..., i] for i, c in enumerate("uvw")})
-    q = initial_state(ic_b).quaternion
-    out.update({k: q[..., i] for i, k in enumerate(QUAT_KEYS)})
-    out.update(parachute_deployed=s.parachute_deployed.to(torch.int32),
-               diverged=s.diverged.to(torch.int32))
-    return out
 
 
 def same_summaries(a, b) -> bool:
@@ -4168,12 +4169,47 @@ def compare_summaries64(ref, got) -> float:
     return worst
 
 
-def stacked_engine(dev, goldens: dict) -> dict:
+def stacked_lanes(dtype):
+    """19b's and 20c's lanes: ``STACKED_LANES`` dispersed lanes, lane
+    ``STACKED_NAN_LANE`` with a wind table NaN above 2 km."""
+    return sample_batch(STACKED_LANES, dtype, nan_lane=STACKED_NAN_LANE)
+
+
+def held_to_stacked(tag, ref_out, kernel, dtype) -> tuple:
+    """A K1 result against the stacked plain version's on the same lanes at
+    19b's bars: in float32 the lanes that leave the rail or stop a step
+    apart (a tie of the last bits on the rail) are counted, at most
+    ``STACKED_TIE_SHARE``, and left out; the NaN-wind lane's ``max_speed``
+    is 0 in both. Returns ``(max_abs_err, lanes compared, ties)``."""
+    for name, out in (("plain", ref_out), ("kernel", kernel)):
+        lane = STACKED_NAN_LANE
+        if not (bool(out["diverged"][lane]) and float(out["max_speed"][lane]) == 0.0):
+            raise AssertionError(f"{tag}: the NaN-wind lane's {name} max_speed is "
+                                 f"{float(out['max_speed'][lane])}, diverged "
+                                 f"{int(out['diverged'][lane])} (0 and 1 wanted)")
+    ties = torch.zeros_like(kernel["diverged"], dtype=torch.bool)
+    if dtype == torch.float32:
+        ties = ((ref_out["rail_exit_time"] != kernel["rail_exit_time"])
+                | (ref_out["n_steps"] != kernel["n_steps"]))
+        if int(ties.sum()) > STACKED_TIE_SHARE * STACKED_LANES:
+            raise AssertionError(f"{tag}: {int(ties.sum())} lanes leave the rail or stop a "
+                                 "step apart")
+    kept = ~ties
+    err = compare({k: v[kept] for k, v in ref_out.items()},
+                  {k: v[kept] for k, v in kernel.items()}, dtype)
+    return err, int(kept.sum()), int(ties.sum())
+
+
+def stacked_engine(dev, goldens: dict, usage: dict, record_usage: dict) -> tuple:
     """Phase 19: ``engine.simulate_summary`` / ``simulate_flight``, the
     JAX package's single-flight entry points, on the card, where they
-    launch K1 (K2's counterpart) and K1-Rec. Each sub-phase counts its
-    launches from 0 around the entry point's call alone; the comparisons'
-    own launches are not counted. Returns those counts."""
+    launch K1's fold build (K2's counterpart: K1 with the stacked engine's
+    speed) and K1-Rec. Each sub-phase counts its launches from 0 around the
+    entry point's call alone; the comparisons' own launches are not
+    counted. ``usage``: the fold build's ptxas lines, ``record_usage`` its
+    recording build's (``record_ptxas``). Returns those counts and the fold
+    builds' rows of the kernels JSON (``f32``, ``f64``: the summary build;
+    ``record``: the recording build)."""
     from erpl_monte_carlo_sim_tpu_torch.engine import (InitialConditions, SimConfig,
                                                        simulate_flight, simulate_summary)
     from erpl_monte_carlo_sim_tpu_torch.engine.batch import _summary_pytree, prepare_batch
@@ -4183,19 +4219,22 @@ def stacked_engine(dev, goldens: dict) -> dict:
     from erpl_monte_carlo_sim_tpu_torch.engine.state import initial_state
     from erpl_monte_carlo_sim_tpu_torch.kernels import flight_summary as fs
     from erpl_monte_carlo_sim_tpu_torch.models import liquid_motor, nominal_scene
-    from erpl_monte_carlo_sim_tpu_torch.utils.tree import tree_map
+    from erpl_monte_carlo_sim_tpu_torch.utils.tree import floats_as, tree_map
 
     counts = {}
+    fold_row = {}
 
     def counted_call(tag, fn, *args):
         torch.cuda.synchronize()
         fs.launches = fs.record_launches = fs.derived_launches = 0
+        fs.fold_launches = fs.chunk_launches = 0
         t0 = time.time()
         out = fn(*args)
         torch.cuda.synchronize()
         wall = time.time() - t0
         counts[tag] = {"k1": fs.launches, "k1_rec": fs.record_launches,
-                       "derived": fs.derived_launches}
+                       "derived": fs.derived_launches, "fold": fs.fold_launches,
+                       "chunk": fs.chunk_launches}
         return out, wall
 
     # (a) the Quick start to landing, a single flight (0-d leaves)
@@ -4205,9 +4244,10 @@ def stacked_engine(dev, goldens: dict) -> dict:
         ic = InitialConditions.vertical_launch(dev, dtype)
         simulate_summary(scene, ic, SimConfig())  # warm
         s, wall = counted_call(f"19a {dt}", simulate_summary, scene, ic, SimConfig())
-        if counts[f"19a {dt}"]["k1"] != 1 or s.apogee_altitude.ndim != 0:
-            raise AssertionError(f"19a {dt}: {counts[f'19a {dt}']} K1 launches (1 wanted), "
-                                 f"apogee shape {tuple(s.apogee_altitude.shape)}")
+        if (counts[f"19a {dt}"]["k1"] != 1 or counts[f"19a {dt}"]["fold"] != 1
+                or s.apogee_altitude.ndim != 0):
+            raise AssertionError(f"19a {dt}: launches {counts[f'19a {dt}']} (one of the fold "
+                                 f"build wanted), apogee shape {tuple(s.apogee_altitude.shape)}")
         golden_checks(s, goldens["liquid"], dtype, apogee_rel, f"19a quick start {dt}",
                       n_steps=True)
         phase(f"19a quick start {dt}", apogee_m=float(s.apogee_altitude),
@@ -4215,50 +4255,54 @@ def stacked_engine(dev, goldens: dict) -> dict:
               flight_time_s=float(s.flight_time), n_steps=int(s.n_steps),
               launches=counts[f"19a {dt}"]["k1"], warm_wall_s=f"{wall:.4f}")
 
-    # (b) K2's counterpart: K1 through simulate_summary on dispersed lanes of
-    # a window, against the stacked plain version on the card
+    # (b) K2's counterpart: K1's fold build through simulate_summary on
+    # dispersed lanes of a window, one with a NaN wind table, against the
+    # stacked plain version on the card
     cfg = SimConfig(max_time=STACKED_WINDOW)
+    fold = fs.PARITY._replace(stacked_speed=True)
     for dtype in (torch.float64, torch.float32):
         dt = str(dtype).split(".")[-1]
-        scene_b, ic_b = sample_batch(STACKED_LANES, dtype)
+        scene_b, ic_b = stacked_lanes(dtype)
         got, _ = counted_call(f"19b {dt}", simulate_summary, scene_b, ic_b, cfg)
-        if counts[f"19b {dt}"]["k1"] != 1:
-            raise AssertionError(f"19b {dt}: {counts[f'19b {dt}']} K1 launches (1 wanted)")
+        if counts[f"19b {dt}"]["k1"] != 1 or counts[f"19b {dt}"]["fold"] != 1:
+            raise AssertionError(f"19b {dt}: launches {counts[f'19b {dt}']} (one of the fold "
+                                 "build wanted)")
         args = prepare_batch(scene_b, ic_b)
-        k1_ms, kernel = cuda_ms(lambda: fs.flight_summary(*args, cfg), reps=3)
+        k1_ms, kernel = cuda_ms(lambda: fs.flight_summary(*args, cfg, stacked_speed=True),
+                                reps=3)
         if not same_summaries(_summary_pytree(kernel), got):
-            raise AssertionError(f"19b {dt}: simulate_summary is not K1's summary")
+            raise AssertionError(f"19b {dt}: simulate_summary is not the fold build's summary")
         plain_ms, ref = cuda_ms(lambda: simulate_summary_reference(scene_b, ic_b, cfg))
         rail_ms, _ = cuda_ms(lambda: simulate_rail(scene_b, cfg, initial_state(ic_b)))
-        ref_out = stacked_out(ref, ic_b)
-        ties = torch.zeros_like(ref.diverged)
-        if dtype == torch.float32:
-            ties = ((ref_out["rail_exit_time"] != kernel["rail_exit_time"])
-                    | (ref_out["n_steps"] != kernel["n_steps"]))
-            if int(ties.sum()) > STACKED_TIE_SHARE * STACKED_LANES:
-                raise AssertionError(f"19b {dt}: {int(ties.sum())} lanes leave the rail or "
-                                     "stop a step apart")
-        kept = ~ties
-        err = compare({k: v[kept] for k, v in ref_out.items()},
-                      {k: v[kept] for k, v in kernel.items()}, dtype)
+        err, compared, ties = held_to_stacked(f"19b {dt}", fs.summary_out(ref, ic_b), kernel, dtype)
         steps = int(ref.n_steps.max())
+        bound = fs.bound_ms(kernel, cfg, dtype, fs.input_bytes(*args))
+        key = "f32" if dtype == torch.float32 else "f64"
+        threads, blocks = occupancy(fs, key, args[0], args[1], fold)
+        fold_row[key] = {"lanes": STACKED_LANES, "max_abs_err": err, "compared_lanes": compared,
+                        "ms": k1_ms, "plain_ms": plain_ms, "bound_ms": bound.ms,
+                        "bound_by": bound.by, "share_of_bound": bound.ms / k1_ms,
+                        "regs": usage[key]["regs"],
+                        "spill_bytes": usage[key]["spill_stores"] + usage[key]["spill_loads"],
+                        "warps_per_sm": blocks * threads // 32}
         # the plain ms a main-loop step: the run less its eager rail phase,
         # the step's capture (a warm-up call and the capture) included
         phase(f"19b K1=stacked {dt}", lanes=STACKED_LANES, max_time=STACKED_WINDOW,
-              launches=counts[f"19b {dt}"]["k1"], compared_lanes=int(kept.sum()),
-              rail_ties=int(ties.sum()), max_abs_err=err, rtol=RTOL[dtype], atol=ATOL,
+              launches=counts[f"19b {dt}"]["k1"], compared_lanes=compared,
+              rail_ties=ties, nan_lane_max_speed=float(kernel["max_speed"][STACKED_NAN_LANE]),
+              max_abs_err=err, rtol=RTOL[dtype], atol=ATOL,
               n_steps_max=steps, k1_ms=f"{k1_ms:.3f}", plain_ms=f"{plain_ms:.1f}",
               plain_rail_ms=f"{rail_ms:.1f}",
               plain_ms_per_step=f"{(plain_ms - rail_ms) / steps:.3f}")
-        del scene_b, ic_b, args, got, kernel, ref, ref_out
+        del scene_b, ic_b, args, got, kernel, ref
 
-    # (c) one recorded flight through K1-Rec and its derived pass, against
-    # the stacked plain recorder on the card
+    # (c) one recorded flight through K1-Rec's fold build and its derived
+    # pass, against the stacked plain recorder on the card
     cfg = SimConfig(max_time=STACKED_FLIGHT_WINDOW)
     scene = nominal_scene(liquid_motor(dev, torch.float64))
     ic = InitialConditions.vertical_launch(dev, torch.float64)
     (got_s, got_t), _ = counted_call("19c f64", simulate_flight, scene, ic, cfg)
-    if counts["19c f64"] != {"k1": 1, "k1_rec": 1, "derived": 1}:
+    if counts["19c f64"] != {"k1": 1, "k1_rec": 1, "derived": 1, "fold": 1, "chunk": 0}:
         raise AssertionError(f"19c: launches {counts['19c f64']} (one flight and one "
                              "derived pass wanted)")
     t0 = time.time()
@@ -4272,10 +4316,23 @@ def stacked_engine(dev, goldens: dict) -> dict:
         raise AssertionError("19c: the recordings' derived channels or valid frames differ")
     frame_err = compare_records(ref_r, got_r, torch.float64, keep=ref_r["valid"])
     summary_err = compare_summaries64(ref_s, got_s)
+    # the recording fold build on that flight, timed beside its bound
+    args = prepare_batch(floats_as(scene, torch.float64), tree_map(lambda x: x[None], ic))
+    rec_ms, (res, recs) = cuda_ms(lambda: fs.flight_record(*args, cfg, stacked_speed=True))
+    bound = fs.bound_ms(res, cfg, torch.float64, fs.input_bytes(*args), recs)
+    threads, blocks = occupancy(fs, "f64", args[0], args[1], fold._replace(record=True))
+    rec_use = record_usage["f64"]["flight"]
+    fold_row["record"] = {"launches": counts["19c f64"]["k1_rec"], "lanes": 1,
+                          "max_abs_err": frame_err, "ms": rec_ms, "plain_ms": 1e3 * plain_s,
+                          "bound_ms": bound.ms, "bound_by": bound.by,
+                          "share_of_bound": bound.ms / rec_ms, "regs": rec_use["regs"],
+                          "spill_bytes": rec_use["spill_stores"] + rec_use["spill_loads"],
+                          "warps_per_sm": blocks * threads // 32}
     phase("19c simulate_flight f64", max_time=STACKED_FLIGHT_WINDOW,
           frames=int(got_t.time.shape[0]), valid_frames=int(got_t.valid.sum()),
           launches=json.dumps(counts["19c f64"]), frames_max_abs_err=frame_err,
-          summary_max_abs_err=summary_err, plain_recorder_s=f"{plain_s:.2f}")
+          summary_max_abs_err=summary_err, plain_recorder_s=f"{plain_s:.2f}",
+          record_ms=f"{rec_ms:.3f}")
 
     # (d) the tiered timestep is refused, on the card too, before any launch;
     # rk2 and the bfloat16 table, which the stacked path does not read, fly
@@ -4297,7 +4354,165 @@ def stacked_engine(dev, goldens: dict) -> dict:
         raise AssertionError("19d: rk2 / wind_table_bf16 changed the stacked flight")
     phase("19d refusal", descent_dt_scale=4, launches=refused_launches,
           rk2_bf16_ignored=True)
-    return counts
+    return counts, fold_row
+
+
+# phase 20: chunked flights through K1's carry build
+CHUNK_STEPS = 256          # 20a: five chunks of the 6 s window
+FULL_CHUNK_STEPS = 8192    # 20b: the JAX package's default
+HELD_CHUNK_STEPS = 64      # 20c
+
+
+def with_nominal_lane(batched, nominal):
+    """A drawn scene or initial conditions with lane 0 set to the nominal
+    ``nominal``'s (every leaf that gained a lane axis; the wind table as the
+    nominal wind at the drawn grid's knots): the Quick start's flight, which
+    to landing runs past 8,192 steps."""
+    from erpl_monte_carlo_sim_tpu_torch.models.wind import WindField, wind_at_altitude
+    from erpl_monte_carlo_sim_tpu_torch.utils.tree import is_static
+
+    if isinstance(batched, WindField):
+        table = batched.wind.clone()
+        table[0] = wind_at_altitude(nominal, batched.altitudes).to(table.dtype)
+        return dataclasses.replace(batched, wind=table)
+    if dataclasses.is_dataclass(batched):
+        return dataclasses.replace(batched, **{
+            f.name: with_nominal_lane(getattr(batched, f.name), getattr(nominal, f.name))
+            for f in dataclasses.fields(batched) if not is_static(f)})
+    if isinstance(batched, torch.Tensor) and batched.ndim > nominal.ndim:
+        lanes = batched.clone()
+        lanes[0] = nominal
+        return lanes
+    return batched
+
+
+def chunked_flights(dev, ic, mc, wall4: float, usage: dict) -> tuple:
+    """Phase 20: ``engine.simulate_batch_chunked`` and the analyzer's
+    ``chunk_steps``, one launch of K1's carry build (with the stacked
+    engine's speed) a chunk, each run's launches counted from 0 around it
+    alone. ``mc`` is phase 4's analyzer, ``wall4`` its run's wall,
+    ``usage`` the carry build's ptxas lines. Returns the runs' launch
+    counts and the carry build's row of the kernels JSON."""
+    from erpl_monte_carlo_sim_tpu_torch.engine import (InitialConditions, SimConfig,
+                                                       simulate_batch_chunked, simulate_summary)
+    from erpl_monte_carlo_sim_tpu_torch.engine.batch import prepare_batch
+    from erpl_monte_carlo_sim_tpu_torch.kernels import flight_summary as fs
+    from erpl_monte_carlo_sim_tpu_torch.kernels import threefry as tf
+    from erpl_monte_carlo_sim_tpu_torch.mc import sample_dispersions
+    from erpl_monte_carlo_sim_tpu_torch.models import liquid_motor, nominal_scene
+    from erpl_monte_carlo_sim_tpu_torch.ops import prng
+
+    carry = fs.PARITY._replace(stacked_speed=True, carry=True)
+    counts = {}
+
+    def counted_run(tag, fn, *args, **kw):
+        torch.cuda.synchronize()
+        fs.launches = fs.chunk_launches = fs.fold_launches = 0
+        tf.launches = tf.ar1_launches = 0
+        t0 = time.time()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts[tag] = {"k1": fs.launches, "chunk": fs.chunk_launches,
+                       "fold": fs.fold_launches, "threefry": tf.launches, "ar1": tf.ar1_launches}
+        if not counts[tag]["k1"] == counts[tag]["chunk"] == counts[tag]["fold"] > 1:
+            raise AssertionError(f"{tag}: launches {counts[tag]} (chunks of the carry build, "
+                                 "more than one, wanted)")
+        return out, wall
+
+    def same(a, b, tag):
+        """Two ``FlightSummary`` (or its NumPy copy) results bit for bit."""
+        for (path, x), (_, y) in zip(leaves(a), leaves(b)):
+            x, y = np.asarray(torch.as_tensor(x).cpu()), np.asarray(torch.as_tensor(y).cpu())
+            if not np.array_equal(x, y, equal_nan=x.dtype.kind == "f"):
+                raise AssertionError(f"{tag}: {path} is not the one-shot run's")
+
+    # (a) the main path's run, chunked, against one-shot on its own lanes
+    cfg = mc.sim_config
+    mc.run_monte_carlo(ic, n_samples=BENCH_LANES, seed=0, chunk_steps=CHUNK_STEPS)  # warm-up
+    a, wall = counted_run("20a", mc.run_monte_carlo, ic, n_samples=BENCH_LANES, seed=0,
+                          chunk_steps=CHUNK_STEPS)
+    if counts["20a"]["threefry"] < 1 or counts["20a"]["ar1"] < 1:
+        raise AssertionError(f"20a: the run's lanes were not drawn by the threefry kernels "
+                             f"({counts['20a']})")
+    scene_b, ic_b = sample_dispersions(
+        prng.prng_key(0, dev), mc.scene, ic, mc.uncertainty_params, BENCH_LANES,
+        wind_grid_points=mc.wind_grid_points, wind_grid_top=mc.wind_grid_top)[:2]
+    same(simulate_summary(scene_b, ic_b, cfg), a["summary"], "20a")
+    args = prepare_batch(scene_b, ic_b)
+    one_ms, one = cuda_ms(lambda: fs.flight_summary(*args, cfg, stacked_speed=True), reps=2)
+    chunk_ms, got = cuda_ms(lambda: fs.flight_summary_chunked(*args, cfg, CHUNK_STEPS), reps=2)
+    if digest(got) != digest(one):
+        raise AssertionError("20a: the carry build's outputs are not the one-shot build's")
+    # and against K1's plain version with the stacked engine's speed, on the
+    # same lanes at phase 4's bars (phase 4 holds the parity build so)
+    main_plain_ms, ref = cuda_ms(lambda: fs.flight_summary_reference(*args, cfg,
+                                                                     stacked_speed=True))
+    main_err = compare(ref, got, torch.float32)
+    del ref
+    chunks = counts["20a"]["chunk"]
+    bound = fs.bound_ms(got, cfg, torch.float32, fs.input_bytes(*args), chunk_steps=CHUNK_STEPS)
+    threads, blocks = occupancy(fs, "f32", args[0], args[1], carry)
+    row = {"launches": chunks, "lanes": BENCH_LANES, "chunk_steps": CHUNK_STEPS,
+           "ms": chunk_ms, "ms_per_chunk": chunk_ms / chunks, "one_shot_ms": one_ms,
+           "main_shape_max_abs_err": main_err, "main_shape_plain_ms": main_plain_ms,
+           "bound_ms": bound.ms, "bound_by": bound.by, "share_of_bound": bound.ms / chunk_ms,
+           "regs": usage["f32"]["regs"],
+           "spill_bytes": usage["f32"]["spill_stores"] + usage["f32"]["spill_loads"],
+           "warps_per_sm": blocks * threads // 32,
+           "f64_regs": usage["f64"]["regs"],
+           "f64_spill_bytes": usage["f64"]["spill_stores"] + usage["f64"]["spill_loads"]}
+    phase("20a chunked main path", lanes=BENCH_LANES, chunk_steps=CHUNK_STEPS, chunks=chunks,
+          launches=json.dumps(counts["20a"]), wall_s=f"{wall:.3f}", one_shot_wall_s=f"{wall4:.3f}",
+          kernel_ms=f"{chunk_ms:.3f}", ms_per_chunk=f"{chunk_ms / chunks:.3f}",
+          one_shot_kernel_ms=f"{one_ms:.3f}", bound_ms=bound.ms, bound_by=bound.by,
+          max_abs_err=main_err, rtol=RTOL[torch.float32], atol=ATOL,
+          plain_ms=f"{main_plain_ms:.1f}",
+          n_valid=a["n_samples"], max_steps=int(got["n_steps"].max()))
+    phase("20a digest chunked", lanes=BENCH_LANES, sha256=digest(got))
+    phase("20a digest one-shot", lanes=BENCH_LANES, sha256=digest(one))
+    del a, scene_b, ic_b, args, one, got
+
+    # (b) parity full flights to landing at the default chunk: phase 5's
+    # lanes, which diverge or land within 5,100 steps (F5), with the Quick
+    # start's nominal flight in lane 0
+    cfg_full = SimConfig()
+    scene_b, ic_b = sample_batch(FULL_FLIGHT_LANES, torch.float32)
+    scene_b = with_nominal_lane(scene_b, nominal_scene(liquid_motor(dev, torch.float32)))
+    ic_b = with_nominal_lane(ic_b, InitialConditions.vertical_launch(dev, torch.float32))
+    calls = []
+    got, wall_full = counted_run("20b", simulate_batch_chunked, scene_b, ic_b, cfg_full,
+                                 progress=lambda k, n: calls.append((k, n)))
+    same(simulate_summary(scene_b, ic_b, cfg_full), got, "20b")
+    steps = int(got.n_steps.max())
+    if calls != [(k, fs.max_chunks(cfg_full, FULL_CHUNK_STEPS))
+                 for k in range(1, -(-steps // FULL_CHUNK_STEPS) + 1)] or len(calls) < 3:
+        raise AssertionError(f"20b: progress calls {calls} for {steps} steps")
+    phase("20b chunked full flights", lanes=FULL_FLIGHT_LANES, chunk_steps=FULL_CHUNK_STEPS,
+          chunks=len(calls), launches=json.dumps(counts["20b"]), progress=json.dumps(calls),
+          wall_s=f"{wall_full:.3f}", max_steps=steps, lane0_steps=int(got.n_steps[0]),
+          lane0_apogee_m=float(got.apogee_altitude[0]), diverged=int(got.diverged.sum()))
+    del scene_b, ic_b, got
+
+    # (c) the chunked route against its plain version on the card
+    cfg = SimConfig(max_time=STACKED_WINDOW)
+    for dtype in (torch.float64, torch.float32):
+        dt = str(dtype).split(".")[-1]
+        args = prepare_batch(*stacked_lanes(dtype))
+        k_ms, got = cuda_ms(lambda: fs.flight_summary_chunked(*args, cfg, HELD_CHUNK_STEPS))
+        p_ms, ref = cuda_ms(lambda: fs.flight_summary_chunked_reference(*args, cfg,
+                                                                        HELD_CHUNK_STEPS))
+        err, compared, ties = held_to_stacked(f"20c {dt}", ref, got, dtype)
+        phase(f"20c carry=plain {dt}", lanes=STACKED_LANES, chunk_steps=HELD_CHUNK_STEPS,
+              compared_lanes=compared, rail_ties=ties, max_abs_err=err, rtol=RTOL[dtype],
+              atol=ATOL, nan_lane_max_speed=float(got["max_speed"][STACKED_NAN_LANE]),
+              kernel_ms=f"{k_ms:.3f}", plain_ms=f"{p_ms:.1f}")
+        if dtype == torch.float32:
+            row.update(max_abs_err=err, max_abs_err_lanes=compared, plain_ms=p_ms,
+                       plain_lanes=STACKED_LANES, plain_chunk_steps=HELD_CHUNK_STEPS,
+                       ms_at_plain_shape=k_ms)
+        del args, got, ref
+    return counts, row
 
 
 def main(argv=None) -> int:
@@ -4345,10 +4560,16 @@ def main(argv=None) -> int:
     example_builds = [builds["energy_consistent_aero"]._replace(record=True)]
     # phase 18's: the fast capstones' build (the others are among the above)
     fast_build = capstone_builds()["fast"]
+    # phases 19 and 20: the stacked engine's builds, one-shot (fold), chunked
+    # and recording
+    stacked_builds = {"fold": fs.PARITY._replace(stacked_speed=True),
+                      "carry": fs.PARITY._replace(stacked_speed=True, carry=True),
+                      "record fold": fs.PARITY._replace(stacked_speed=True, record=True)}
     t0 = time.time()
     threefry_build = tf.build(verbose=True, start_only=True)  # beside K1's compilers
     logs = fs.build_many([fs.PARITY, *builds.values(), *record_builds.values(),
-                          *example_builds, fast_build], verbose=True)
+                          *example_builds, fast_build, *stacked_builds.values()],
+                         verbose=True)
     _, threefry_log = threefry_build()
     build_s = time.time() - t0
     usage = ptxas_usage(logs[0][1])
@@ -4365,12 +4586,19 @@ def main(argv=None) -> int:
         phase(f"1 build {name}", build=fs.flags_name(builds[name]), ptxas=json.dumps(use))
     for (name, use), flags in zip(record_usage.items(), record_builds.values()):
         phase(f"1 build record {name}", build=fs.flags_name(flags), ptxas=json.dumps(use))
-    for flags, (_, log) in zip(example_builds, logs[1 + len(builds) + len(record_builds):-1]):
+    for flags, (_, log) in zip(example_builds, logs[1 + len(builds) + len(record_builds):
+                                                    1 + len(builds) + len(record_builds)
+                                                    + len(example_builds)]):
         phase("1 build record example", build=fs.flags_name(flags),
               ptxas=json.dumps(record_ptxas(log)))
-    capstone_usage = {"fast": ptxas_usage(logs[-1][1])}
+    capstone_usage = {"fast": ptxas_usage(logs[-1 - len(stacked_builds)][1])}
     phase("1 build capstone fast", build=fs.flags_name(fast_build),
           ptxas=json.dumps(capstone_usage["fast"]))
+    stacked_usage = {name: (record_ptxas if "record" in name else ptxas_usage)(log)
+                     for name, (_, log) in zip(stacked_builds, logs[-len(stacked_builds):])}
+    for name, use in stacked_usage.items():
+        phase(f"1 build {name}", build=fs.flags_name(stacked_builds[name]),
+              ptxas=json.dumps(use))
 
     # ---------------------------------------------------------------- 2
     cfg = SimConfig(max_time=WINDOW)
@@ -4690,8 +4918,15 @@ def main(argv=None) -> int:
 
     # ---------------------------------------------------------------- 19
     t0 = time.time()
-    stacked_launches = stacked_engine(dev, goldens)
+    stacked_launches, fold_row = stacked_engine(dev, goldens, stacked_usage["fold"],
+                                                stacked_usage["record fold"])
     phase("19 done", phase_19_s=f"{time.time() - t0:.1f}", script_s=f"{time.time() - start:.1f}",
+          **drawn())
+
+    # ---------------------------------------------------------------- 20
+    t0 = time.time()
+    chunked_launches, carry_row = chunked_flights(dev, ic, mc, wall, stacked_usage["carry"])
+    phase("20 done", phase_20_s=f"{time.time() - t0:.1f}", script_s=f"{time.time() - start:.1f}",
           **drawn())
 
     report = {"kernels": [
@@ -4713,12 +4948,30 @@ def main(argv=None) -> int:
          "plain_ms": row["plain_ms"], "bound_ms": row["f32"]["bound_ms"],
          "bound_by": row["f32"]["bound_by"], "library_ms": None, **row}
         for name, row in rows.items()
+    ] + [
+        {"name": "flight_summary [fold parity+stacked_speed]", "route": "cuda",
+         "source": KERNEL_SOURCE, "replaces": REPLACES[1][1], "build":
+         fs.flags_name(stacked_builds["fold"]),
+         "launches": stacked_launches["19b float32"]["fold"],
+         "max_abs_err": fold_row["f32"]["max_abs_err"], "ms": fold_row["f32"]["ms"],
+         "plain_ms": fold_row["f32"]["plain_ms"], "bound_ms": fold_row["f32"]["bound_ms"],
+         "bound_by": fold_row["f32"]["bound_by"], "library_ms": None,
+         "stacked_launches": {k: v["fold"] for k, v in stacked_launches.items()},
+         "f32": fold_row["f32"], "f64": fold_row["f64"]},
+        {"name": "flight_summary [record fold parity+stacked_speed]", "route": "cuda",
+         "source": KERNEL_SOURCE, "replaces": REPLACES[1][1], "build":
+         fs.flags_name(stacked_builds["record fold"]), "library_ms": None,
+         "stacked_launches": {"19c": stacked_launches["19c f64"]["k1_rec"]},
+         **fold_row["record"]},
+        {"name": "flight_summary [carry parity+stacked_speed]", "route": "cuda",
+         "source": KERNEL_SOURCE, "replaces": REPLACES[1][1], "build":
+         fs.flags_name(stacked_builds["carry"]), "library_ms": None,
+         "chunked_launches": chunked_launches, **carry_row},
     ] + [capstone_row] + [
         {"name": f"flight_summary [record {name}]", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": REPLACES[0][1], "library_ms": None,
          "example_launches": {k: v["k1_rec"] for k, v in example_launches.items()},
-         **({"variant_launches": {"12d": variant_launches["12d record"]},
-             "stacked_launches": {"19c": stacked_launches["19c f64"]["k1_rec"]}}
+         **({"variant_launches": {"12d": variant_launches["12d record"]}}
             if name == "parity" else {}), **row}
         for name, row in record_rows.items()
     ] + [

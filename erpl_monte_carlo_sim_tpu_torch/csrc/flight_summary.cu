@@ -93,6 +93,27 @@
 // block an SM, chosen by a sweep on the card, PERF.md) and holds the lane
 // constants in registers, not in the block's shared memory: a read of one
 // is then no shared-memory load on the chain.
+//
+// The carry build (-DFS_CARRY=1, kernels/flight_summary.py
+// flight_summary_chunked) flies the same flight in chunks, one launch each:
+// the first chunk runs the rail phase and writes the rail-exit outputs;
+// every chunk then runs at most `steps` main-loop steps from the carry (the
+// loop's variables, lane-minor in global memory), stores it back, sets a
+// flag if the lane runs on, and writes the loop's outputs. A lane that
+// stopped in an earlier chunk returns before its set-up. The carry is
+// loaded before the loop and stored after it, each value at its own
+// precision, and the arithmetic is the one-shot build's, so a chunked run
+// is that build's run, bit for bit. Its additions are preprocessor
+// branches: the other builds compile the text they compiled before. It is
+// the JAX package's engine/simulate.py simulate_batch_chunked, whose chunks
+// bound a device call's time and give the host a progress call. Summaries
+// only: FS_CARRY excludes FS_RECORD.
+//
+// FS_SAFE_NORM_SPEED=1 forms every speed of the main loop (its running
+// maximum, the non-finite stop and the speed guard) as the JAX package's
+// stacked engine does (ops/math.py safe_norm: a NaN sum of squares gives 0),
+// not as its component core does (safe_sqrt: NaN kept); engine.simulate
+// sets it on every build it launches.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -131,6 +152,15 @@
 #endif
 #ifndef FS_RECORD
 #define FS_RECORD 0
+#endif
+#ifndef FS_SAFE_NORM_SPEED
+#define FS_SAFE_NORM_SPEED 0
+#endif
+#ifndef FS_CARRY
+#define FS_CARRY 0
+#endif
+#if FS_RECORD && FS_CARRY
+#error "the carry build chunks summaries only: FS_CARRY excludes FS_RECORD"
 #endif
 #if FS_WIND_BF16
 #include <cuda_bf16.h>
@@ -930,8 +960,28 @@ __device__ __forceinline__ void setup_lane(const Leaves& lv, const Tables& tb, l
   }
 }
 
-// the record build's kernel takes the Rec; the other builds' signature is
-// the one without recording
+// The carry build's chunk (-DFS_CARRY=1, kernels/flight_summary.py
+// flight_summary_chunked): the main loop's variables between two launches,
+// lane-minor like the outputs, [N_CARRY_F][B] of T and [N_CARRY_I][B] of
+// int32; `first` for the first chunk, which runs the rail phase; `steps`,
+// the chunk's steps at most; `active`, set to 1 by every lane that takes
+// another chunk.
+#if FS_CARRY
+enum CarryF {
+  C_S, C_APO_T = C_S + N_STATE, C_MAX_COAST, C_MAX_ALT, C_T_MAX, C_MAX_SPD, C_END_T, C_T_LANE,
+  C_DEP_T, C_RAIL_TIME, N_CARRY_F
+};
+enum CarryI { C_STEP, C_PARA, C_APOD, C_DONE, C_DIV, N_CARRY_I };
+struct Chunk {
+  T* f;
+  int32_t* i;
+  int32_t* active;
+  int first, steps;
+};
+#endif
+
+// the record build's kernel takes the Rec, the carry build's the Chunk; the
+// other builds' signature is the one without either
 #if FS_RECORD
 #define FS_REC_KPARAM , Rec rec
 #define FS_REC_PARAM , const Rec& rec
@@ -941,13 +991,43 @@ __device__ __forceinline__ void setup_lane(const Leaves& lv, const Tables& tb, l
 #define FS_REC_PARAM
 #define FS_REC_ARG
 #endif
+#if FS_CARRY
+#define FS_CHUNK_KPARAM , Chunk ck
+#define FS_CHUNK_PARAM , const Chunk& ck
+#define FS_CHUNK_ARG , ck
+#else
+#define FS_CHUNK_KPARAM
+#define FS_CHUNK_PARAM
+#define FS_CHUNK_ARG
+#endif
 
-// one lane's whole flight
+#if FS_SAFE_NORM_SPEED
+// ops.math.safe_norm of a sum of squares: the sqrt where it is > 0, else 0,
+// a NaN sum too (safe_sqrt keeps that NaN): the stacked engine's speed
+__device__ __forceinline__ T safe_norm_sq(T x) { return x > T(0) ? m_sqrt(x) : T(0); }
+#endif
+
+// one lane's whole flight; in the carry build, one chunk of it. The carry
+// build's additions are preprocessor branches, so that the text the other
+// builds compile is the flight's alone.
 __device__ __forceinline__ void fly(const Leaves& lv, const Tables& tb, const Cfg& cfg,
                                     T* __restrict__ out_f, int32_t* __restrict__ out_i,
-                                    int n_lanes, long long lane FS_REC_PARAM) {
+                                    int n_lanes, long long lane FS_REC_PARAM FS_CHUNK_PARAM) {
 #if !FS_RECORD
   constexpr Rec rec{};  // read by no statement: the record code is discarded
+#endif
+#if FS_CARRY
+  // a chunk after the first: a lane that stopped in an earlier chunk has
+  // nothing to do (its outputs are written) and returns before its set-up;
+  // a running lane skips the rail phase and loads the loop's variables
+  const int32_t* ci = ck.i + lane;
+  const T* cf = ck.f + lane;
+  const long long BC = n_lanes;
+  if (ck.first == 0) {
+    const int step0 = ci[C_STEP * BC];
+    const T t0 = kTiered ? cf[C_T_LANE * BC] : step_time(cf[C_RAIL_TIME * BC], step0, cfg.dt);
+    if (!(ci[C_DONE * BC] == 0 && t0 < cfg.max_time && step0 < cfg.max_steps)) return;
+  }
 #endif
 
   Lane ln;
@@ -976,7 +1056,11 @@ __device__ __forceinline__ void fly(const Leaves& lv, const Tables& tb, const Cf
   T dist = T(0), frac = T(1);
   int stp = 0;
   const T rdt = cfg.rail_dt;
-  while ((dist < cfg.rail_length) && (T(stp) * rdt < ln[LF_BURN_TIME]) &&
+  while (
+#if FS_CARRY
+         ck.first != 0 &&
+#endif
+         (dist < cfg.rail_length) && (T(stp) * rdt < ln[LF_BURN_TIME]) &&
          (stp < cfg.max_rail_steps)) {
     T t = T(stp) * rdt;
     Mass mp = mass_props(ln, frac);
@@ -1003,7 +1087,11 @@ __device__ __forceinline__ void fly(const Leaves& lv, const Tables& tb, const Cf
     spd = nspd;
     stp = nstp;
   }
+#if FS_CARRY
+  const T rail_time = ck.first != 0 ? T(stp) * rdt : cf[C_RAIL_TIME * BC];
+#else
   const T rail_time = T(stp) * rdt;
+#endif
   const T rvx0 = dxr * spd, rvy0 = dyr * spd, rvz0 = dzr * spd;
 
   // rail-exit diagnostics
@@ -1018,15 +1106,68 @@ __device__ __forceinline__ void fly(const Leaves& lv, const Tables& tb, const Cf
     aero_angles(ub, vb, wb, rail_aoa, rail_slip);
   }
   const T rail_speed = safe_sqrt(rvx0 * rvx0 + rvy0 * rvy0 + rvz0 * rvz0);
+#if FS_CARRY
+  if (ck.first != 0) {
+    // the rail-exit outputs, once, in the first chunk, and not kept in
+    // registers through the loop
+    T* o = out_f + lane;
+    o[O_RAIL_TIME * BC] = rail_time;
+    o[O_RAIL_SPEED * BC] = rail_speed;
+    o[O_RAIL_AOA * BC] = rail_aoa;
+    o[O_RAIL_SLIP * BC] = rail_slip;
+    o[O_RPX * BC] = rpx;
+    o[O_RPY * BC] = rpy;
+    o[O_RPZ * BC] = rpz;
+    o[O_RVX * BC] = rvx0;
+    o[O_RVY * BC] = rvy0;
+    o[O_RVZ * BC] = rvz0;
+    o[O_RWU * BC] = wexit[0];
+    o[O_RWV * BC] = wexit[1];
+    o[O_RWW * BC] = wexit[2];
+    o[O_QW * BC] = qw;
+    o[O_QX * BC] = qx;
+    o[O_QY * BC] = qy;
+    o[O_QZ * BC] = qz;
+  }
+#endif
 
   // ---------------- main loop: RK4 (or rk2) with masked events
   T s[N_STATE] = {rpx, rpy, rpz, rvx0, rvy0, rvz0, qw, qx, qy, qz,
                   leaf(lv, L_OX, lane), leaf(lv, L_OY, lane), leaf(lv, L_OZ, lane), frac};
   int step = 0, para = 0, apod = 0, done = 0, div = 0;
   T apo_t = T(0), max_coast = T(0), max_alt = rpz, t_max = rail_time,
-    max_spd = rail_speed, end_t = rail_time;
+#if FS_SAFE_NORM_SPEED
+    // the stacked engine's running maximum starts from safe_norm; the
+    // rail-exit speed leaf keeps its NaN (jnp.linalg.norm) there too
+    max_spd = safe_norm_sq(rvx0 * rvx0 + rvy0 * rvy0 + rvz0 * rvz0),
+#else
+    max_spd = rail_speed,
+#endif
+    end_t = rail_time;
   // the tiered loop's own time and the time the chute latched
   T t_lane = rail_time, dep_t = T(INFINITY);
+#if FS_CARRY
+  if (ck.first == 0) {
+#pragma unroll
+    for (int i = 0; i < N_STATE; ++i) s[i] = cf[(C_S + i) * BC];
+    step = ci[C_STEP * BC];
+    para = ci[C_PARA * BC];
+    apod = ci[C_APOD * BC];
+    done = ci[C_DONE * BC];
+    div = ci[C_DIV * BC];
+    apo_t = cf[C_APO_T * BC];
+    max_coast = cf[C_MAX_COAST * BC];
+    max_alt = cf[C_MAX_ALT * BC];
+    t_max = cf[C_T_MAX * BC];
+    max_spd = cf[C_MAX_SPD * BC];
+    end_t = cf[C_END_T * BC];
+    t_lane = cf[C_T_LANE * BC];
+    dep_t = cf[C_DEP_T * BC];
+  }
+  // the chunk ends after ck.steps steps
+  const long long chunk_end = static_cast<long long>(step) + ck.steps;
+  const int last_step = chunk_end < cfg.max_steps ? static_cast<int>(chunk_end) : cfg.max_steps;
+#endif
   T wstep[3];  // wind_eval_per_step: the wind at the step's starting altitude
   constexpr int kStages = kRk2 ? 2 : 4;
   // the recording build: the frame last written, and the steps since
@@ -1037,7 +1178,12 @@ __device__ __forceinline__ void fly(const Leaves& lv, const Tables& tb, const Cf
   }
 
   while (done == 0 && ((kTiered ? t_lane : step_time(rail_time, step, cfg.dt)) < cfg.max_time) &&
-         step < cfg.max_steps) {
+#if FS_CARRY
+         step < last_step
+#else
+         step < cfg.max_steps
+#endif
+         ) {
     T t, dt = cfg.dt, half = cfg.half_dt, dt6 = cfg.dt6;
     if constexpr (kTiered) {
       t = t_lane;
@@ -1091,7 +1237,12 @@ __device__ __forceinline__ void fly(const Leaves& lv, const Tables& tb, const Cf
       t_new = step_time(rail_time, step_new, cfg.dt);
     }
     const T alt = s[S_PZ], vzn = s[S_VZ];
+    // the speed feeds the running maximum, the non-finite stop and the guard
+#if FS_SAFE_NORM_SPEED
+    const T speed = safe_norm_sq(s[S_VX] * s[S_VX] + s[S_VY] * s[S_VY] + s[S_VZ] * s[S_VZ]);
+#else
     const T speed = safe_sqrt(s[S_VX] * s[S_VX] + s[S_VY] * s[S_VY] + s[S_VZ] * s[S_VZ]);
+#endif
 
     if (alt > max_alt) { max_alt = alt; t_max = t_new; }
     max_spd = nmax(max_spd, speed);
@@ -1134,6 +1285,32 @@ __device__ __forceinline__ void fly(const Leaves& lv, const Tables& tb, const Cf
     }
     rec.stop[lane] = frame;
   }
+#if FS_CARRY
+  {
+    // the carry for the next chunk, and whether this lane takes one
+    int32_t* co = ck.i + lane;
+    T* fo = ck.f + lane;
+#pragma unroll
+    for (int i = 0; i < N_STATE; ++i) fo[(C_S + i) * BC] = s[i];
+    co[C_STEP * BC] = step;
+    co[C_PARA * BC] = para;
+    co[C_APOD * BC] = apod;
+    co[C_DONE * BC] = done;
+    co[C_DIV * BC] = div;
+    fo[C_APO_T * BC] = apo_t;
+    fo[C_MAX_COAST * BC] = max_coast;
+    fo[C_MAX_ALT * BC] = max_alt;
+    fo[C_T_MAX * BC] = t_max;
+    fo[C_MAX_SPD * BC] = max_spd;
+    fo[C_END_T * BC] = end_t;
+    fo[C_T_LANE * BC] = t_lane;
+    fo[C_DEP_T * BC] = dep_t;
+    fo[C_RAIL_TIME * BC] = rail_time;
+    if (done == 0 && ((kTiered ? t_lane : step_time(rail_time, step, cfg.dt)) < cfg.max_time) &&
+        step < cfg.max_steps)
+      *ck.active = 1;
+  }
+#endif
 
   const long long B = n_lanes;
   T* o = out_f + lane;
@@ -1148,6 +1325,7 @@ __device__ __forceinline__ void fly(const Leaves& lv, const Tables& tb, const Cf
   o[O_FVY * B] = s[S_VY];
   o[O_FVZ * B] = s[S_VZ];
   o[O_MAX_SPEED * B] = max_spd;
+#if !FS_CARRY
   o[O_RAIL_TIME * B] = rail_time;
   o[O_RAIL_SPEED * B] = rail_speed;
   o[O_RAIL_AOA * B] = rail_aoa;
@@ -1165,6 +1343,7 @@ __device__ __forceinline__ void fly(const Leaves& lv, const Tables& tb, const Cf
   o[O_QX * B] = qx;
   o[O_QY * B] = qy;
   o[O_QZ * B] = qz;
+#endif
   int32_t* oi = out_i + lane;
   oi[O_PARA * B] = para;
   oi[O_DIV * B] = div;
@@ -1184,13 +1363,13 @@ __device__ __forceinline__ void stage_tables(const Tables& tb) {
 
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 flight_summary_kernel(Leaves lv, Tables tb, Cfg cfg, T* __restrict__ out_f,
-                      int32_t* __restrict__ out_i, int n_lanes FS_REC_KPARAM) {
+                      int32_t* __restrict__ out_i, int n_lanes FS_REC_KPARAM FS_CHUNK_KPARAM) {
   stage_tables(tb);
   // every thread of the block reaches this barrier: the ragged last block's
   // idle threads skip only the flight
   __syncthreads();
   const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane < n_lanes) fly(lv, tb, cfg, out_f, out_i, n_lanes, lane FS_REC_ARG);
+  if (lane < n_lanes) fly(lv, tb, cfg, out_f, out_i, n_lanes, lane FS_REC_ARG FS_CHUNK_ARG);
 }
 
 #if FS_RECORD
@@ -1313,6 +1492,10 @@ __host__ int allow_smem(K kernel, int smem) {
 // The recording build's entry is flight_record_f32 / _f64, with five more
 // arguments: the frames [n_frames][n_channels][B] and stop [B] (device
 // pointers), record_stride, n_channels and the derived-channel mask (Rec).
+// The carry build's entry is flight_chunk_f32 / _f64, with five more: the
+// carry [N_CARRY_F][B] of T and [N_CARRY_I][B] of int32 and the int32 flag
+// the lanes that take another chunk set (device pointers), whether this is
+// the first chunk, and the chunk's steps at most (Chunk).
 #if FS_RECORD
 extern "C" int FS_CAT(flight_record_, FS_SUFFIX)(
     const void* const* leaf_ptrs, const int* leaf_strides, int n_leaves,
@@ -1329,6 +1512,20 @@ extern "C" int FS_CAT(flight_record_, FS_SUFFIX)(
   rec.stride = record_stride;
   rec.n_channels = n_channels;
   rec.mask = channel_mask;
+#elif FS_CARRY
+extern "C" int FS_CAT(flight_chunk_, FS_SUFFIX)(
+    const void* const* leaf_ptrs, const int* leaf_strides, int n_leaves,
+    const void* const* table_ptrs, const int* table_sizes,
+    long long wind_lane_stride, const double* cfg_in, int n_cfg, int max_steps,
+    int max_rail_steps, void* out_f, void* out_i, int n_lanes, void* stream, void* carry_f,
+    void* carry_i, void* active, int first, int chunk_steps) {
+  if (chunk_steps < 1) return -1;
+  Chunk ck;
+  ck.f = static_cast<T*>(carry_f);
+  ck.i = static_cast<int32_t*>(carry_i);
+  ck.active = static_cast<int32_t*>(active);
+  ck.first = first;
+  ck.steps = chunk_steps;
 #else
 extern "C" int FS_CAT(flight_summary_, FS_SUFFIX)(
     const void* const* leaf_ptrs, const int* leaf_strides, int n_leaves,
@@ -1370,7 +1567,8 @@ extern "C" int FS_CAT(flight_summary_, FS_SUFFIX)(
   cfg.max_rail_steps = max_rail_steps;
   const int blocks = (n_lanes + kThreads - 1) / kThreads;
   flight_summary_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      lv, tb, cfg, static_cast<T*>(out_f), static_cast<int32_t*>(out_i), n_lanes FS_REC_ARG);
+      lv, tb, cfg, static_cast<T*>(out_f), static_cast<int32_t*>(out_i), n_lanes FS_REC_ARG
+      FS_CHUNK_ARG);
   return static_cast<int>(cudaGetLastError());
 }
 

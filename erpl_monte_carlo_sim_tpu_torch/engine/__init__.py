@@ -1,7 +1,7 @@
 """Flight engine of the PyTorch port: the rail phase, 6DOF RK4 integration
 and masked events, as the stacked-vector single-flight engine
-(``simulate_summary``, ``simulate_flight``) and the batched component core
-(``simulate_summary_batch`` and its kin)."""
+(``simulate_summary``, ``simulate_flight``, ``simulate_batch_chunked``) and
+the batched component core (``simulate_summary_batch`` and its kin)."""
 
 from .batch import (prepare_batch, simulate_envelope_batch, simulate_flight_batch,
                     simulate_summary_batch)
@@ -12,7 +12,8 @@ from .diff import apogee_and_grad, metric_and_grad, simulate_apogee_diff, simula
 from .dynamics import rocket_dynamics
 from .integrator import EventState, StepCarry, advance, init_carry, rk4_step
 from .rail import RailInfo, simulate_rail
-from .simulate import FlightSummary, Trajectory, simulate_flight, simulate_summary
+from .simulate import (FlightSummary, Trajectory, simulate_batch_chunked, simulate_flight,
+                       simulate_summary)
 from .state import FlightState, InitialConditions, initial_state
 
 __all__ = ["prepare_batch", "simulate_summary_batch", "simulate_flight_batch",
@@ -21,5 +22,5 @@ __all__ = ["prepare_batch", "simulate_summary_batch", "simulate_flight_batch",
            "FlightSummary", "Trajectory", "InitialConditions", "apogee_and_grad",
            "metric_and_grad", "simulate_apogee_diff", "simulate_metrics_diff",
            "rocket_dynamics", "EventState", "StepCarry", "advance", "init_carry", "rk4_step",
-           "simulate_rail", "simulate_summary", "simulate_flight", "FlightState",
-           "initial_state"]
+           "simulate_rail", "simulate_summary", "simulate_flight", "simulate_batch_chunked",
+           "FlightState", "initial_state"]

@@ -57,12 +57,17 @@ def _prepared(scene_b, ic_b):
     return prepare_batch(floats_as(scene_b, ic_b.position.dtype), ic_b)
 
 
-def simulate_summary_batch(scene_b, ic_b, cfg: SimConfig = SimConfig()) -> FlightSummary:
-    """Batched flight summaries."""
-    return _summary_pytree(flight_summary(*_prepared(scene_b, ic_b), cfg))
+def simulate_summary_batch(scene_b, ic_b, cfg: SimConfig = SimConfig(), *,
+                           _stacked_speed: bool = False) -> FlightSummary:
+    """Batched flight summaries. ``_stacked_speed`` (internal, the stacked
+    engine's route ``engine.simulate``) forms the main loop's speeds as
+    that engine does."""
+    return _summary_pytree(flight_summary(*_prepared(scene_b, ic_b), cfg,
+                                          stacked_speed=_stacked_speed))
 
 
-def simulate_flight_batch(scene_b, ic_b, cfg: SimConfig = SimConfig()):
+def simulate_flight_batch(scene_b, ic_b, cfg: SimConfig = SimConfig(), *,
+                          _stacked_speed: bool = False):
     """Batched flights with their recorded trajectories (JAX
     ``simulate_flight_batch``): ``(FlightSummary, Trajectory)``, the
     trajectory's leaves ``[B, T, ...]`` with ``T = n_frames(cfg)``, every
@@ -70,8 +75,9 @@ def simulate_flight_batch(scene_b, ic_b, cfg: SimConfig = SimConfig()):
     and masked steps as ``simulate_summary_batch``, so the summary is its
     summary bit for bit: on a card the recording build of the kernel, on
     the CPU the plain recorder. The ``[T, ...]`` records become the
-    ``[B, T, ...]`` trajectory once, outside the loop."""
-    res, recs = flight_record(*_prepared(scene_b, ic_b), cfg)
+    ``[B, T, ...]`` trajectory once, outside the loop. ``_stacked_speed``:
+    ``simulate_summary_batch``'s."""
+    res, recs = flight_record(*_prepared(scene_b, ic_b), cfg, stacked_speed=_stacked_speed)
     return _summary_pytree(res), trajectory_of(recs)
 
 

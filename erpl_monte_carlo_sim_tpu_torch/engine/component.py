@@ -381,12 +381,27 @@ class FlightCore(NamedTuple):
     summarize: Callable    # (st, ev) -> the SUMMARY_KEYS dict
 
 
-def main_loop(scene, cfg, wind_fn, rail_time):
+def loop_speed(vx, vy, vz, stacked_speed: bool = False):
+    """A speed the main loop forms: ``safe_sqrt`` of the sum of squares (a
+    NaN sum kept), or with ``stacked_speed`` as the stacked engine's
+    ``safe_norm`` forms it (a NaN sum gives 0), the same bits for any other
+    sum."""
+    sq = vx * vx + vy * vy + vz * vz
+    if stacked_speed:
+        ok = sq > 0.0
+        return torch.where(ok, torch.sqrt(torch.where(ok, sq, torch.ones_like(sq))),
+                           torch.zeros_like(sq))
+    return safe_sqrt(sq)
+
+
+def main_loop(scene, cfg, wind_fn, rail_time, stacked_speed: bool = False):
     """The main loop's closures over the scene, the wind lookup and each
     lane's rail-exit time ``rail_time [B]``: ``(time_of, lane_active,
     step)`` of ``FlightCore``. ``flight_setup`` builds them once; the
     differentiable path (``engine.diff``) builds them again over its own
-    copies of the scene's tensors."""
+    copies of the scene's tensors. ``stacked_speed``: the step's speed (its
+    running maximum, the non-finite stop, the guard) is ``loop_speed``'s
+    stacked one."""
     i0 = torch.zeros_like(rail_time, dtype=torch.int32)
     f0 = torch.zeros_like(rail_time)
     tiered = cfg.descent_dt_scale > 1
@@ -415,8 +430,7 @@ def main_loop(scene, cfg, wind_fn, rail_time):
             new_st, para = rk4_c(scene, cfg, wind_fn, t, st, ev["para"])
             t_new = step_time(rail_time, step_new, cfg.dt)
         alt, vzn = new_st[2], new_st[5]
-        speed = safe_sqrt(new_st[3] * new_st[3] + new_st[4] * new_st[4]
-                          + new_st[5] * new_st[5])
+        speed = loop_speed(new_st[3], new_st[4], new_st[5], stacked_speed)
 
         better = alt > ev["max_alt"]
         detect = (alt > cfg.apogee_min_altitude) & (vzn < 0.0) & (ev["apod"] == 0)
@@ -460,7 +474,7 @@ def main_loop(scene, cfg, wind_fn, rail_time):
     return time_of, lane_active, step
 
 
-def flight_setup(scene, cfg, wind_fn, ics, rail_steps=None):
+def flight_setup(scene, cfg, wind_fn, ics, rail_steps=None, stacked_speed: bool = False):
     """Launch attitude, rail phase and rail-exit diagnostics, then the main
     loop's initial carry and closures (JAX ``_flight_setup``). Returns
     ``(st, ev, core)``: the 14-component state tuple, the event dict and the
@@ -470,7 +484,10 @@ def flight_setup(scene, cfg, wind_fn, ics, rail_steps=None):
     ox, oy, oz). With ``descent_dt_scale > 1`` (tiered) each lane carries
     its own time, advanced by its own step, and the time its chute latched;
     otherwise time is ``step_time`` of the step counter. ``rail_steps``
-    caps the rail phase's steps (``_rail_phase``)."""
+    caps the rail phase's steps (``_rail_phase``). ``stacked_speed``: every
+    speed of the main loop, its starting maximum too, is the stacked
+    engine's (``loop_speed``); the rail-exit speed leaf keeps its NaN, as
+    the stacked engine's ``jnp.linalg.norm`` does."""
     (px, py, pz, vx, vy, vz, roll, pitch, yaw, ox, oy, oz) = ics
 
     qw, qx, qy, qz = euler_to_quaternion(roll, pitch, yaw).unbind(-1)
@@ -497,11 +514,13 @@ def flight_setup(scene, cfg, wind_fn, ics, rail_steps=None):
     i0 = torch.zeros_like(spd, dtype=torch.int32)
     f0 = torch.zeros_like(spd)
     ev = dict(step=i0, para=i0, apod=i0, done=i0, div=i0, apo_t=f0, max_coast=f0,
-              max_alt=rpz, t_max=rail_time, max_spd=rail_speed, end_t=rail_time)
+              max_alt=rpz, t_max=rail_time,
+              max_spd=loop_speed(vx, vy, vz, True) if stacked_speed else rail_speed,
+              end_t=rail_time)
     if cfg.descent_dt_scale > 1:
         ev["t"] = rail_time
         ev["dep_t"] = torch.full_like(f0, math.inf)
-    time_of, lane_active, step = main_loop(scene, cfg, wind_fn, rail_time)
+    time_of, lane_active, step = main_loop(scene, cfg, wind_fn, rail_time, stacked_speed)
 
     def summarize(st, ev):
         fpx, fpy, fpz, fvx, fvy, fvz = st[:6]
@@ -600,15 +619,15 @@ def _replay_steps(step, st, ev, run):
     return st, ev
 
 
-def flight_components(scene, cfg, wind_fn, ics) -> dict:
+def flight_components(scene, cfg, wind_fn, ics, stacked_speed: bool = False) -> dict:
     """Full flight: launch attitude, rail phase, RK4 main loop with masked
     events (apogee, coast timeouts, ground, 100 km cut, non-finite stop).
 
     ``ics``: 12 ``[B]`` tensors (px, py, pz, vx, vy, vz, roll, pitch, yaw,
     ox, oy, oz). Returns a dict of ``[B]`` tensors keyed by ``SUMMARY_KEYS``
     (int32 for ``INT_KEYS``). ``quat_*`` is the rail-exit (= launch)
-    attitude."""
-    st, ev, core = flight_setup(scene, cfg, wind_fn, ics)
+    attitude. ``stacked_speed``: ``flight_setup``'s."""
+    st, ev, core = flight_setup(scene, cfg, wind_fn, ics, stacked_speed=stacked_speed)
     loop = _replay_steps if st[0].is_cuda else _run_steps
     st, ev = loop(core.step, st, ev, core.lane_active(ev))
     return core.summarize(st, ev)
@@ -746,7 +765,7 @@ def _blocks(block, carry, n_blocks, running, stride):
     return _run_blocks(block, carry, n_blocks, running)
 
 
-def flight_components_trajectory(scene, cfg, wind_fn, ics):
+def flight_components_trajectory(scene, cfg, wind_fn, ics, stacked_speed: bool = False):
     """The flight of ``flight_components``, recording a frame every
     ``record_stride`` masked steps (JAX ``flight_components_trajectory``):
     the same steps, so the summary dict is ``flight_components``' bit for
@@ -760,8 +779,8 @@ def flight_components_trajectory(scene, cfg, wind_fn, ics):
     start. Frames after the loop ends are the frozen terminal frame, not
     valid. This is the plain version of the kernel's recording build
     (``kernels/flight_summary.py flight_record``); on a CUDA device a block
-    is replayed as a CUDA graph."""
-    st, ev, core = flight_setup(scene, cfg, wind_fn, ics)
+    is replayed as a CUDA graph. ``stacked_speed``: ``flight_setup``'s."""
+    st, ev, core = flight_setup(scene, cfg, wind_fn, ics, stacked_speed=stacked_speed)
     names = record_names(cfg)
     stride = max(1, cfg.record_stride)
     total = n_frames(cfg)

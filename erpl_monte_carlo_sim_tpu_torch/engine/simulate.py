@@ -1,7 +1,7 @@
 """The single-flight entry points (``erpl_monte_carlo_sim_tpu/engine/simulate.py``):
-``simulate_summary`` and ``simulate_flight`` over the stacked-vector
-engine (``engine.state``, ``engine.rail``, ``engine.dynamics``,
-``engine.integrator``).
+``simulate_summary``, ``simulate_flight`` and ``simulate_batch_chunked``
+over the stacked-vector engine (``engine.state``, ``engine.rail``,
+``engine.dynamics``, ``engine.integrator``).
 
 Each takes a ``Scene`` and ``InitialConditions`` with an optional leading
 lane axis on the initial conditions (``[3]`` or ``[B, 3]``; the scene's
@@ -9,15 +9,18 @@ leaves are shared or ``[B]``, its wind table ``[N, 3]`` or ``[B, N, 3]``)
 and dispatches on where the initial conditions lie:
 
 * CPU tensors run the eager stacked physics, the plain version
-  (``simulate_summary_reference``, ``simulate_flight_reference``, which run
-  on any device; on a CUDA device their loop replays a captured step, or
-  record block, as a CUDA graph, bit for bit the eager loop);
+  (``simulate_summary_reference``, ``simulate_flight_reference``,
+  ``simulate_batch_chunked_reference``, which run on any device; on a CUDA
+  device their loop replays a captured step, or record block, as a CUDA
+  graph, bit for bit the eager loop);
 * CUDA tensors launch the hand-written flight kernel of
   ``kernels/flight_summary.py`` through ``engine.batch``: its summary build
   for ``simulate_summary`` (the counterpart of the JAX package's Pallas
-  kernel ``simulate_summary_pallas``), its recording build and derived
-  pass for ``simulate_flight``. A single flight flies as one lane and is
-  squeezed back.
+  kernel ``simulate_summary_pallas``), its carry build, one launch a chunk,
+  for ``simulate_batch_chunked``, and its recording build and derived pass
+  for ``simulate_flight``, each with the stacked engine's speed
+  (``KernelFlags.stacked_speed``: a NaN speed counts 0, as ``safe_norm``
+  makes it). A single flight flies as one lane and is squeezed back.
 
 There is no fallback from one route to the other: a kernel that does not
 build or launch raises. Both routes refuse ``descent_dt_scale != 1`` and
@@ -32,6 +35,7 @@ import dataclasses
 
 import torch
 
+from ..kernels.flight_summary import check_chunk_steps, flight_summary_chunked, max_chunks
 from ..models.atmosphere import atmosphere_properties
 from ..models.motor import thrust_at
 from ..models.rocket import aero_coefficients, dynamic_cp, mass_properties
@@ -43,11 +47,12 @@ from ..utils.tree import floats_as, tree_map
 from .component import _blocks, record_names, step_time
 from .config import SimConfig
 from .integrator import StepCarry, advance, init_carry
-from .rail import RailInfo, simulate_rail
+from .rail import RailInfo, simulate_rail, simulate_rail_masked
 from .state import FlightState, InitialConditions, initial_state
 
 __all__ = ["FlightSummary", "Trajectory", "simulate_summary", "simulate_flight",
-           "simulate_summary_reference", "simulate_flight_reference"]
+           "simulate_batch_chunked", "simulate_summary_reference", "simulate_flight_reference",
+           "simulate_batch_chunked_reference"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,36 +166,68 @@ def _running(carry: StepCarry, cfg: SimConfig) -> torch.Tensor:
     return ~carry.events.done & (step_time(carry.rail_time, carry.step, cfg.dt) < cfg.max_time)
 
 
+def _chunk_lane_active(carry: StepCarry, cfg: SimConfig) -> torch.Tensor:
+    """Lanes that take another step: not stopped, inside ``max_time`` and
+    ``max_steps``."""
+    return _running(carry, cfg) & (carry.step < cfg.max_steps)
+
+
 def _masked_advance(scene, cfg: SimConfig, carry: StepCarry, bounded: bool):
     """``advance`` on the running lanes, with ``max_steps`` as a bound too
     where ``bounded``. Returns ``(carry', run)``."""
-    run = _running(carry, cfg)
-    if bounded:
-        run = run & (carry.step < cfg.max_steps)
+    run = _chunk_lane_active(carry, cfg) if bounded else _running(carry, cfg)
     return _select(run, advance(scene, cfg, carry), carry), run
+
+
+def _run_chunk(scene, carry: StepCarry, cfg: SimConfig, chunk_steps: int):
+    """At most ``chunk_steps`` masked steps (fewer once no lane runs):
+    ``(carry', whether a lane still runs)``. On a CUDA device the step
+    replays as a CUDA graph (``component._blocks``), bit for bit the eager
+    loop."""
+    def step(flat):
+        return _flatten(_masked_advance(scene, cfg, _unflatten(carry, flat), bounded=True)[0])
+
+    flat, _ = _blocks(step, _flatten(carry), chunk_steps,
+                      lambda f: _chunk_lane_active(_unflatten(carry, f), cfg).any(), 1)
+    carry = _unflatten(carry, flat)
+    return carry, bool(_chunk_lane_active(carry, cfg).any())
 
 
 def simulate_summary_reference(scene, ic: InitialConditions,
                                cfg: SimConfig = SimConfig()) -> FlightSummary:
     """The plain version of ``simulate_summary``, on any device: the rail
     phase, then ``advance`` on the lanes that run until every lane stopped
-    (``max_time``, ``max_steps``). On a CUDA device the step replays as a
-    CUDA graph (``component._blocks``), bit for bit the eager loop.
+    (``max_time``, ``max_steps``): one chunk of ``max_steps`` steps.
     ``cfg.unroll`` is not read: the result is the same for any value."""
     cfg = _stacked_cfg(cfg)
     scene = floats_as(scene, ic.position.dtype)  # the ICs' dtype, as engine.batch
     state_exit, rail_time, rail_info = simulate_rail(scene, cfg, initial_state(ic))
+    carry, _ = _run_chunk(scene, init_carry(state_exit, rail_time), cfg, cfg.max_steps)
+    return _summary_from_carry(carry, rail_info)
+
+
+def simulate_batch_chunked_reference(scene_b, ic_b: InitialConditions,
+                                     cfg: SimConfig = SimConfig(), chunk_steps: int = 8192,
+                                     progress=None) -> FlightSummary:
+    """The plain version of ``simulate_batch_chunked``, on any device: the
+    masked rail phase, then chunks of at most ``chunk_steps`` masked steps
+    (``_run_chunk``) until no lane runs, at most ``ceil(max_steps /
+    chunk_steps) + 1`` chunks, with ``progress(k, that bound)`` after chunk
+    ``k``. The masked steps leave a stopped lane as it is, so the result
+    is ``simulate_summary_reference``'s bit for bit."""
+    cfg = _stacked_cfg(cfg)
+    chunk_steps = check_chunk_steps(chunk_steps)
+    scene_b = floats_as(scene_b, ic_b.position.dtype)
+    state_exit, rail_time, rail_info = simulate_rail_masked(scene_b, cfg, initial_state(ic_b))
     carry = init_carry(state_exit, rail_time)
-
-    def step(flat):
-        return _flatten(_masked_advance(scene, cfg, _unflatten(carry, flat), bounded=True)[0])
-
-    def active(flat):
-        c = _unflatten(carry, flat)
-        return (_running(c, cfg) & (c.step < cfg.max_steps)).any()
-
-    flat, _ = _blocks(step, _flatten(carry), cfg.max_steps, active, 1)
-    return _summary_from_carry(_unflatten(carry, flat), rail_info)
+    n_chunks = max_chunks(cfg, chunk_steps)
+    for k in range(1, n_chunks + 1):
+        carry, any_active = _run_chunk(scene_b, carry, cfg, chunk_steps)
+        if progress is not None:
+            progress(k, n_chunks)
+        if not any_active:
+            break
+    return _summary_from_carry(carry, rail_info)
 
 
 def _derived_quantities(scene, cfg: SimConfig, t_abs, state: FlightState) -> dict:
@@ -331,7 +368,28 @@ def simulate_summary(scene, ic: InitialConditions,
     from .batch import simulate_summary_batch
 
     ic_b, squeeze = _as_lanes(ic)
-    return squeeze(simulate_summary_batch(scene, ic_b, cfg))
+    return squeeze(simulate_summary_batch(scene, ic_b, cfg, _stacked_speed=True))
+
+
+def simulate_batch_chunked(scene_b, ic_b: InitialConditions, cfg: SimConfig = SimConfig(),
+                           chunk_steps: int = 8192, progress=None) -> FlightSummary:
+    """``simulate_summary``'s flights in chunks of at most ``chunk_steps``
+    masked steps, checking on the host between two chunks whether a lane
+    still runs, and calling ``progress(k, n)`` after chunk ``k`` of at most
+    ``n = ceil(max_steps / chunk_steps) + 1``. The chunks bound one device
+    call's time and report progress on a long batch; the result is
+    ``simulate_summary``'s, lane for lane. On CUDA tensors one launch of the
+    flight kernel's carry build a chunk, on CPU tensors the stacked plain
+    version's chunks (``simulate_batch_chunked_reference``)."""
+    cfg = _stacked_cfg(cfg)
+    chunk_steps = check_chunk_steps(chunk_steps)
+    if not _on_card(ic_b):
+        return simulate_batch_chunked_reference(scene_b, ic_b, cfg, chunk_steps, progress)
+    from .batch import _prepared, _summary_pytree
+
+    ic_l, squeeze = _as_lanes(ic_b)
+    return squeeze(_summary_pytree(flight_summary_chunked(*_prepared(scene_b, ic_l), cfg,
+                                                          chunk_steps, progress)))
 
 
 def simulate_flight(scene, ic: InitialConditions, cfg: SimConfig = SimConfig()):
@@ -345,5 +403,5 @@ def simulate_flight(scene, ic: InitialConditions, cfg: SimConfig = SimConfig()):
     from .batch import simulate_flight_batch
 
     ic_b, squeeze = _as_lanes(ic)
-    summary, traj = simulate_flight_batch(scene, ic_b, cfg)
+    summary, traj = simulate_flight_batch(scene, ic_b, cfg, _stacked_speed=True)
     return squeeze(summary), squeeze(traj)

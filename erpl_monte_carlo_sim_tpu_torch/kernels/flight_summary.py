@@ -20,9 +20,11 @@ content hash of the source, the flags and the defines names the library, so
 an edited source rebuilds) and bound with ``ctypes``; ``build_many`` starts
 the compilers of several flag sets at once. The parity flag set
 (``PARITY``) compiles to the same code as before the flags existed.
-``launches`` counts flight kernel launches, of every flag set and both
-builds; ``record_launches`` counts those of the recording build alone, and
-``derived_launches`` those of its derived pass.
+``launches`` counts flight kernel launches, of every flag set and build;
+``record_launches`` counts those of the recording build alone,
+``derived_launches`` those of its derived pass, ``chunk_launches`` those of
+the carry build and ``fold_launches`` those of any build with the stacked
+engine's speed (``KernelFlags.stacked_speed``).
 
 The recording build (``KernelFlags.record``, ``-DFS_RECORD=1``) is the same
 flight with an epilogue that writes the time and state of a frame of
@@ -32,6 +34,13 @@ its time); a second kernel of the build, the derived pass, then computes
 the frames' derived channels in parallel over (frame, lane).
 ``flight_record`` launches both on CUDA tensors (its summary is the summary
 build's, bit for bit), and runs that recorder on CPU tensors.
+
+The carry build (``KernelFlags.carry``, ``-DFS_CARRY=1``) flies the summary
+build's flight in chunks of at most ``chunk_steps`` main-loop steps, one
+launch each, the loop's variables carried in global memory between them:
+``flight_summary_chunked``, the JAX package's ``simulate_batch_chunked`` on
+the card, equal to the one-shot run of the same flags bit for bit. Its plain
+version is the stacked engine's chunk loop (``engine.simulate``).
 
 Besides the inputs, the wrapper hands the kernel a lane-minor ``[N, 3, B]``
 copy of a per-lane wind table (a warp's loads of one knot are then
@@ -60,22 +69,29 @@ from ..engine.component import (DERIVED_KEYS, FRAME_KEYS, INT_KEYS, SUMMARY_KEYS
 from ..engine.config import SimConfig
 from ..models.wind import WindModes, expand_modes
 
-__all__ = ["flight_summary", "flight_summary_reference", "flight_record",
+__all__ = ["flight_summary", "flight_summary_reference", "flight_summary_chunked",
+           "flight_summary_chunked_reference", "flight_record",
            "flight_record_reference", "record_layout", "build", "build_many",
-           "launches", "record_launches", "derived_launches", "SOURCE", "KernelFlags",
+           "launches", "record_launches", "derived_launches", "chunk_launches",
+           "fold_launches", "SOURCE", "KernelFlags",
            "PARITY", "kernel_flags", "flags_name", "stored_wind", "wind_fn_of", "expanded",
-           "cfg_values", "ops_per_step", "bound_ms", "derived_bound_ms", "input_bytes"]
+           "cfg_values", "ops_per_step", "bound_ms", "derived_bound_ms", "input_bytes",
+           "summary_out", "run_chunks", "max_chunks", "check_chunk_steps", "carry_runs",
+           "N_CARRY_F", "N_CARRY_I"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "flight_summary.cu")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
 # flight kernel launches so far (the count a run reads to show the kernel
-# ran), of them the recording build's, and the recording build's derived
-# pass launches
+# ran), of them the recording build's, the recording build's derived pass
+# launches, the carry build's flight launches (one a chunk), and the
+# launches of builds with the stacked engine's speed
 launches = 0
 record_launches = 0
 derived_launches = 0
+chunk_launches = 0
+fold_launches = 0
 
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # -fmad=false: no a*b+c contraction, so the kernel rounds as the eager
@@ -97,18 +113,26 @@ class KernelFlags(NamedTuple):
     speed_guard: bool = False          # terminate_nonfinite and speed_guard != inf
     wind_bf16: bool = False            # wind_table_bf16
     record: bool = False               # the recording build (flight_record)
+    stacked_speed: bool = False        # the stacked engine's speed (engine.simulate)
+    carry: bool = False                # the carry build (flight_summary_chunked)
 
 
 PARITY = KernelFlags()
 _DEFINES = ("FS_RK2", "FS_WIND_PER_STEP", "FS_ENERGY_AERO", "FS_STALL_MOMENTS",
             "FS_TIERED", "FS_ASCENT_GATE", "FS_TERMINATE_NONFINITE", "FS_SPEED_GUARD",
-            "FS_WIND_BF16", "FS_RECORD")
+            "FS_WIND_BF16", "FS_RECORD", "FS_SAFE_NORM_SPEED", "FS_CARRY")
+# the defines a build names only where they are set, so that the builds
+# without them keep their libraries' names
+_OPT_IN_DEFINES = ("FS_SAFE_NORM_SPEED", "FS_CARRY")
 
 
 def kernel_flags(cfg: SimConfig, stall_limited_moments: bool = False,
-                 record: bool = False) -> KernelFlags:
+                 record: bool = False, stacked_speed: bool = False,
+                 carry: bool = False) -> KernelFlags:
     """The build that runs ``cfg`` (and a rocket's ``stall_limited_moments``),
-    its recording build with ``record``. A flag that changes nothing is off:
+    its recording build with ``record``, with the stacked engine's speed
+    with ``stacked_speed``, its carry build with ``carry``. A flag that
+    changes nothing is off:
     the ascent gate acts only in the tiered loop, an infinite speed guard
     never trips where the non-finite stop does not, and neither guard acts
     without ``terminate_nonfinite``."""
@@ -120,7 +144,8 @@ def kernel_flags(cfg: SimConfig, stall_limited_moments: bool = False,
         ascent_gate=tiered and cfg.ascent_q_threshold > 0.0,
         terminate_nonfinite=cfg.terminate_nonfinite,
         speed_guard=cfg.terminate_nonfinite and cfg.speed_guard != math.inf,
-        wind_bf16=cfg.wind_table_bf16, record=bool(record))
+        wind_bf16=cfg.wind_table_bf16, record=bool(record),
+        stacked_speed=bool(stacked_speed), carry=bool(carry))
 
 
 def flags_name(flags: KernelFlags) -> str:
@@ -172,7 +197,8 @@ def _run(cmd):
 
 
 def _library(flags: KernelFlags, src: bytes) -> tuple[str, list]:
-    defines = [f"-D{d}={int(v)}" for d, v in zip(_DEFINES, flags)]
+    defines = [f"-D{d}={int(v)}" for d, v in zip(_DEFINES, flags)
+               if v or d not in _OPT_IN_DEFINES]
     key = hashlib.sha256(src + " ".join(_ARCH + _FLAGS + defines).encode()).hexdigest()[:16]
     return os.path.join(BUILD_DIR, f"flight_summary_{key}.so"), defines
 
@@ -190,6 +216,8 @@ def build_many(flag_sets, verbose: bool = False) -> list:
     os.makedirs(BUILD_DIR, exist_ok=True)
     jobs = {}
     for flags in flag_sets:
+        if flags.record and flags.carry:
+            raise ValueError("the carry build chunks summaries only: carry excludes record")
         lib, defines = _library(flags, src)
         if lib in jobs or (os.path.exists(lib) and not verbose):
             continue
@@ -237,6 +265,8 @@ _ENTRY_ARGS = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
 ]
 _RECORD_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_uint]
+# and the carry build's five more
+_CHUNK_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
 # the derived pass's entry (flight_record_derived_*)
 _DERIVED_ARGS = [
     ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int), ctypes.c_int,
@@ -250,8 +280,9 @@ _OCC_ARGS = [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
 
 def entry_name(flags: KernelFlags, suffix: str) -> str:
     """The C entry of a build: ``flight_record_*`` for a recording build,
-    ``flight_summary_*`` otherwise."""
-    return f"flight_{'record' if flags.record else 'summary'}_{suffix}"
+    ``flight_chunk_*`` for a carry build, ``flight_summary_*`` otherwise."""
+    kind = "record" if flags.record else ("chunk" if flags.carry else "summary")
+    return f"flight_{kind}_{suffix}"
 
 
 def _load(flags: KernelFlags = PARITY):
@@ -260,8 +291,8 @@ def _load(flags: KernelFlags = PARITY):
         path, _ = build(flags)
         lib = ctypes.CDLL(path)
         for _, suffix in _PRECISIONS.values():
-            entries = [(entry_name(flags, suffix),
-                        _ENTRY_ARGS + (_RECORD_ARGS if flags.record else [])),
+            extra = _RECORD_ARGS if flags.record else (_CHUNK_ARGS if flags.carry else [])
+            entries = [(entry_name(flags, suffix), _ENTRY_ARGS + extra),
                        (f"flight_summary_occupancy_{suffix}", _OCC_ARGS)]
             if flags.record:
                 entries += [(f"flight_record_derived_{suffix}", _DERIVED_ARGS),
@@ -401,7 +432,8 @@ def cfg_values(cfg: SimConfig) -> list:
             cfg.ascent_q_threshold]
 
 
-def _kernel_args(scene_nw, grid, wind, ics, cfg: SimConfig, record: bool = False) -> KernelArgs:
+def _kernel_args(scene_nw, grid, wind, ics, cfg: SimConfig, record: bool = False,
+                 stacked_speed: bool = False, carry: bool = False) -> KernelArgs:
     """Check the inputs against what the kernel takes and lay them out as its
     C entry wants them. A scalar leaf's stride is 0 when it is shared and 1
     when it is per lane; the tables are the fixed ``_TABLES`` list, always
@@ -461,13 +493,18 @@ def _kernel_args(scene_nw, grid, wind, ics, cfg: SimConfig, record: bool = False
 
     return KernelArgs(n, ptrs, strides, table_ptrs, sizes, wind, wind_stride, flags,
                       cfg_values(cfg),
-                      kernel_flags(cfg, scene_nw.rocket.stall_limited_moments, record))
+                      kernel_flags(cfg, scene_nw.rocket.stall_limited_moments, record,
+                                   stacked_speed, carry))
 
 
-def entry_args(a: KernelArgs, cfg: SimConfig, out_f, out_i, stream, rec=None) -> list:
+def entry_args(a: KernelArgs, cfg: SimConfig, out_f, out_i, stream, rec=None,
+               chunk=None) -> list:
     """The C entry's arguments for ``a``, the outputs and the stream (host
     pointers where the emulated tests run it), and a recording build's
-    ``rec = (frames, stop, RecordLayout)``."""
+    ``rec = (frames, stop, RecordLayout)`` or a carry build's ``chunk =
+    (carry_f, carry_i, active, first, steps)``: the carry tensors, the flag
+    the chunk's lanes set (a one-element view), whether it is the first
+    chunk, its steps at most."""
     args = [(ctypes.c_void_p * _N_LEAVES)(*a.ptrs), (ctypes.c_int * _N_LEAVES)(*a.strides),
             _N_LEAVES, (ctypes.c_void_p * len(a.table_ptrs))(*a.table_ptrs),
             (ctypes.c_int * len(a.sizes))(*a.sizes), ctypes.c_int64(a.wind_lane_stride),
@@ -478,6 +515,10 @@ def entry_args(a: KernelArgs, cfg: SimConfig, out_f, out_i, stream, rec=None) ->
         frames, stop, lay = rec
         args += [ctypes.c_void_p(frames.data_ptr()), ctypes.c_void_p(stop.data_ptr()),
                  lay.stride, lay.n_channels, ctypes.c_uint(lay.mask)]
+    if chunk is not None:
+        carry_f, carry_i, active, first, steps = chunk
+        args += [ctypes.c_void_p(carry_f.data_ptr()), ctypes.c_void_p(carry_i.data_ptr()),
+                 ctypes.c_void_p(active.data_ptr()), int(first), int(steps)]
     return args
 
 
@@ -509,11 +550,13 @@ def _launch_derived(a: KernelArgs, frames, stop, lay: RecordLayout) -> None:
     derived_launches += 1
 
 
-def _launch(scene_nw, grid, wind, ics, cfg: SimConfig, rec=None) -> dict:
+def _launch(scene_nw, grid, wind, ics, cfg: SimConfig, rec=None,
+            stacked_speed: bool = False) -> dict:
     """Launch the build of ``cfg`` on CUDA tensors: the summary build, or
     with ``rec = (frames, stop, RecordLayout)`` the recording build's flight
     and, where the layout records derived channels, its derived pass."""
-    a = _kernel_args(scene_nw, grid, wind, ics, cfg, record=rec is not None)
+    a = _kernel_args(scene_nw, grid, wind, ics, cfg, record=rec is not None,
+                     stacked_speed=stacked_speed)
     dtype, device = ics[0].dtype, ics[0].device
     out_f = torch.empty((len(_FLOAT_KEYS), a.n), dtype=dtype, device=device)
     out_i = torch.empty((len(INT_KEYS), a.n), dtype=torch.int32, device=device)
@@ -523,8 +566,9 @@ def _launch(scene_nw, grid, wind, ics, cfg: SimConfig, rec=None) -> dict:
     if rc != 0:
         raise RuntimeError(f"flight_summary kernel launch failed ({flags_name(a.build)}, "
                            f"CUDA error {rc})")
-    global launches, record_launches
+    global launches, record_launches, fold_launches
     launches += 1
+    fold_launches += a.build.stacked_speed
     if rec is not None:
         record_launches += 1
         if rec[2].mask:
@@ -539,28 +583,163 @@ def _outputs(out_f, out_i) -> dict:
 
 
 def flight_summary_reference(scene_nw, grid: torch.Tensor, wind: torch.Tensor, ics,
-                             cfg: SimConfig) -> dict:
+                             cfg: SimConfig, stacked_speed: bool = False) -> dict:
     """The kernel's plain version: ``flight_components`` over
     ``wind_fn_of``'s lookup, on any device."""
-    return flight_components(scene_nw, cfg, wind_fn_of(grid, wind, cfg), ics)
+    return flight_components(scene_nw, cfg, wind_fn_of(grid, wind, cfg), ics,
+                             stacked_speed=stacked_speed)
 
 
 def flight_summary(scene_nw, grid: torch.Tensor, wind: torch.Tensor, ics,
-                   cfg: SimConfig) -> dict:
+                   cfg: SimConfig, stacked_speed: bool = False) -> dict:
     """Whole flights of a batch: ``scene_nw`` without its wind, the wind
     ``grid [N]`` and table (``[B, N, 3]`` or shared ``[N, 3]``, or a
     ``WindModes``), 12 ``[B]`` initial-condition tensors. Returns
-    ``flight_components``' dict.
+    ``flight_components``' dict. ``stacked_speed``: every speed of the main
+    loop is the stacked engine's (a NaN speed counts 0, as ``safe_norm``
+    makes it), the build ``KernelFlags.stacked_speed``.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel build
     of ``kernel_flags``, on the ``expanded`` table of a ``WindModes``."""
     device = ics[0].device
     if device.type == "cpu":
-        return flight_summary_reference(scene_nw, grid, wind, ics, cfg)
+        return flight_summary_reference(scene_nw, grid, wind, ics, cfg, stacked_speed)
     if device.type != "cuda":
         raise ValueError(f"flight_summary runs on cpu or cuda, not {device}")
     table, cfg = expanded(wind, cfg)
-    return _launch(scene_nw, grid, table, ics, cfg)
+    return _launch(scene_nw, grid, table, ics, cfg, stacked_speed=stacked_speed)
+
+
+# the carry build's carry a lane: the 14 state values and 9 more of the
+# lane's dtype, 5 int32 (csrc/flight_summary.cu CarryF, CarryI)
+N_CARRY_F = 23
+N_CARRY_I = 5
+
+
+def max_chunks(cfg: SimConfig, chunk_steps: int) -> int:
+    """The most chunks a chunked run launches, as the JAX package bounds
+    them: ``ceil(max_steps / chunk_steps) + 1``."""
+    return -(-cfg.max_steps // chunk_steps) + 1
+
+
+def check_chunk_steps(chunk_steps) -> int:
+    """``chunk_steps`` as an int, or ValueError unless it is a positive
+    integer."""
+    if int(chunk_steps) != chunk_steps or chunk_steps < 1:
+        raise ValueError(f"chunk_steps must be a positive integer, got {chunk_steps!r}")
+    return int(chunk_steps)
+
+
+def summary_out(s, ic) -> dict:
+    """A stacked-engine ``FlightSummary`` of ``[B]`` lanes as
+    ``flight_components``' dict: its leaves split by component, the launch
+    quaternion that of ``engine.state.initial_state(ic)``."""
+    from ..engine.state import initial_state
+
+    out = {k: getattr(s, k) for k in ("apogee_altitude", "apogee_time", "range",
+                                       "flight_time", "max_speed", "n_steps")}
+    out.update({k: getattr(s.rail, k) for k in ("rail_exit_time", "rail_exit_speed",
+                                                  "rail_exit_angle_of_attack",
+                                                  "rail_exit_sideslip")})
+    for prefix, v in (("final_p", s.landing_position), ("final_v", s.final_velocity),
+                      ("rail_p", s.rail.rail_exit_position),
+                      ("rail_v", s.rail.rail_exit_velocity)):
+        out.update({prefix + c: v[..., i] for i, c in enumerate("xyz")})
+    out.update({"rail_w" + c: s.rail.wind_at_exit[..., i] for i, c in enumerate("uvw")})
+    q = initial_state(ic).quaternion
+    out.update({k: q[..., i] for i, k in enumerate(("quat_w", "quat_x", "quat_y", "quat_z"))})
+    out.update(parachute_deployed=s.parachute_deployed.to(torch.int32),
+               diverged=s.diverged.to(torch.int32))
+    return {k: out[k] for k in SUMMARY_KEYS}
+
+
+def run_chunks(launch, active: torch.Tensor, progress=None) -> int:
+    """The host's loop of a chunked run: ``launch(k)`` for chunk ``k`` = 0,
+    1, ..., ``progress(k + 1, n)`` after it, until the chunk leaves
+    ``active[k]`` 0 (no lane takes another step; one read of the device a
+    chunk) or ``n = active.numel()`` chunks ran. Returns the chunks run."""
+    n = active.numel()
+    for k in range(n):
+        launch(k)
+        if progress is not None:
+            progress(k + 1, n)
+        if not bool(active[k]):
+            return k + 1
+    return n
+
+
+def flight_summary_chunked_reference(scene_nw, grid: torch.Tensor, wind, ics,
+                                     cfg: SimConfig, chunk_steps: int, progress=None) -> dict:
+    """The carry build's plain version, on any device: the stacked engine's
+    chunk loop (``engine.simulate.simulate_batch_chunked_reference``) on the
+    same lanes, as ``flight_components``' dict. It flies the stacked
+    engine's physics, so it takes only the flags that engine reads (RK4,
+    the table as given, the fine timestep), with the stacked engine's
+    speed."""
+    from ..engine.simulate import simulate_batch_chunked_reference
+    from ..engine.state import InitialConditions
+    from ..models.wind import WindField
+
+    if isinstance(wind, WindModes):
+        raise ValueError("the stacked engine flies wind tables, not WindModes")
+    scene = dataclasses.replace(scene_nw, wind=WindField(altitudes=grid, wind=wind))
+    ic = InitialConditions(*(torch.stack(ics[i:i + 3], dim=-1) for i in range(0, 12, 3)))
+    return summary_out(simulate_batch_chunked_reference(scene, ic, cfg, chunk_steps, progress),
+                       ic)
+
+
+def flight_summary_chunked(scene_nw, grid: torch.Tensor, wind, ics, cfg: SimConfig,
+                           chunk_steps: int, progress=None,
+                           stacked_speed: bool = True) -> dict:
+    """``flight_summary``'s flights in chunks of at most ``chunk_steps``
+    main-loop steps: ``flight_components``' dict, equal to
+    ``flight_summary(..., stacked_speed)`` of the same inputs bit for bit.
+    After each chunk ``progress(k, max_chunks(cfg, chunk_steps))`` is
+    called (k from 1), and the run stops once no lane takes another step,
+    as the JAX package's ``simulate_batch_chunked`` does.
+
+    CUDA tensors launch the carry build of ``kernel_flags``, one launch a
+    chunk, with the inputs laid out (the wind transposed lane-minor) and the
+    carry allocated once a run, and one read of the device's "a lane is
+    still active" flag between two chunks. CPU tensors run the plain
+    version, the stacked engine's chunk loop, which takes ``stacked_speed``
+    True only (the default: the chunked route is the stacked engine's)."""
+    chunk_steps = check_chunk_steps(chunk_steps)
+    device = ics[0].device
+    if device.type == "cpu":
+        if not stacked_speed:
+            raise ValueError("the chunked plain version is the stacked engine's, whose speed "
+                             "is safe_norm's: stacked_speed must be True on the CPU")
+        return flight_summary_chunked_reference(scene_nw, grid, wind, ics, cfg, chunk_steps,
+                                                progress)
+    if device.type != "cuda":
+        raise ValueError(f"flight_summary_chunked runs on cpu or cuda, not {device}")
+    table, cfg = expanded(wind, cfg)
+    a = _kernel_args(scene_nw, grid, table, ics, cfg, stacked_speed=stacked_speed, carry=True)
+    dtype = ics[0].dtype
+    out_f = torch.empty((len(_FLOAT_KEYS), a.n), dtype=dtype, device=device)
+    out_i = torch.empty((len(INT_KEYS), a.n), dtype=torch.int32, device=device)
+    carry_f = torch.empty((N_CARRY_F, a.n), dtype=dtype, device=device)
+    carry_i = torch.empty((N_CARRY_I, a.n), dtype=torch.int32, device=device)
+    n_chunks = max_chunks(cfg, chunk_steps)
+    active = torch.zeros(n_chunks, dtype=torch.int32, device=device)
+    fn = getattr(_load(a.build), entry_name(a.build, _PRECISIONS[dtype][1]))
+    stream = _stream(device)
+    steps = max(1, min(chunk_steps, cfg.max_steps))
+
+    def launch(k):
+        rc = fn(*entry_args(a, cfg, out_f, out_i, stream,
+                            chunk=(carry_f, carry_i, active[k:k + 1], k == 0, steps)))
+        if rc != 0:
+            raise RuntimeError(f"flight_summary carry build launch failed "
+                               f"({flags_name(a.build)}, chunk {k}, CUDA error {rc})")
+        global launches, chunk_launches, fold_launches
+        launches += 1
+        chunk_launches += 1
+        fold_launches += a.build.stacked_speed
+
+    run_chunks(launch, active, progress)
+    return _outputs(out_f, out_i)
 
 
 class RecordLayout(NamedTuple):
@@ -609,13 +788,15 @@ def unpack_frames(frames: torch.Tensor, stop: torch.Tensor, lay: RecordLayout) -
 
 
 def flight_record_reference(scene_nw, grid: torch.Tensor, wind: torch.Tensor, ics,
-                            cfg: SimConfig):
+                            cfg: SimConfig, stacked_speed: bool = False):
     """The recording build's plain version: ``flight_components_trajectory``
     over ``wind_fn_of``'s lookup, on any device."""
-    return flight_components_trajectory(scene_nw, cfg, wind_fn_of(grid, wind, cfg), ics)
+    return flight_components_trajectory(scene_nw, cfg, wind_fn_of(grid, wind, cfg), ics,
+                                        stacked_speed=stacked_speed)
 
 
-def flight_record(scene_nw, grid: torch.Tensor, wind: torch.Tensor, ics, cfg: SimConfig):
+def flight_record(scene_nw, grid: torch.Tensor, wind: torch.Tensor, ics, cfg: SimConfig,
+                  stacked_speed: bool = False):
     """``flight_summary``'s flights with their trajectories recorded under
     ``cfg`` (``record_stride``, ``record_derived``, ``record_channels``):
     ``(summary dict, records)`` as ``flight_components_trajectory`` returns
@@ -625,10 +806,11 @@ def flight_record(scene_nw, grid: torch.Tensor, wind: torch.Tensor, ics, cfg: Si
     of ``kernel_flags(cfg, ..., record=True)``, whose summary is the summary
     build's bit for bit, and then its derived pass where ``cfg`` records
     derived channels, after checking that the card holds the frames (it
-    raises with the numbers, never truncates)."""
+    raises with the numbers, never truncates). ``stacked_speed``:
+    ``flight_summary``'s."""
     device = ics[0].device
     if device.type == "cpu":
-        return flight_record_reference(scene_nw, grid, wind, ics, cfg)
+        return flight_record_reference(scene_nw, grid, wind, ics, cfg, stacked_speed)
     if device.type != "cuda":
         raise ValueError(f"flight_record runs on cpu or cuda, not {device}")
     lay = record_layout(cfg)
@@ -637,7 +819,8 @@ def flight_record(scene_nw, grid: torch.Tensor, wind: torch.Tensor, ics, cfg: Si
     frames = torch.empty((lay.n_frames, lay.n_channels, n), dtype=dtype, device=device)
     stop = torch.empty(n, dtype=torch.int32, device=device)
     table, cfg = expanded(wind, cfg)
-    res = _launch(scene_nw, grid, table, ics, cfg, rec=(frames, stop, lay))
+    res = _launch(scene_nw, grid, table, ics, cfg, rec=(frames, stop, lay),
+                  stacked_speed=stacked_speed)
     return res, unpack_frames(frames, stop, lay)
 
 
@@ -788,7 +971,15 @@ def input_bytes(scene_nw, grid, wind, ics, cfg: SimConfig = SimConfig()) -> int:
     return wind_bytes + sum(t.numel() * t.element_size() for t in (*leaves, grid, *ics))
 
 
-def bound_ms(out: dict, cfg: SimConfig, dtype, in_bytes: int, recs: dict = None) -> Bound:
+def carry_runs(n_steps: torch.Tensor, chunk_steps: int) -> torch.Tensor:
+    """The chunks of a chunked run each lane runs: its first, then one for
+    every ``chunk_steps`` of its ``n_steps`` main-loop steps after the first
+    chunk's (a lane that stopped is skipped)."""
+    return torch.clamp_min(-(-n_steps.to(torch.int64) // chunk_steps), 1)
+
+
+def bound_ms(out: dict, cfg: SimConfig, dtype, in_bytes: int, recs: dict = None,
+             chunk_steps: int = None) -> Bound:
     """The least time an H100 SXM at 700 W could take for the flights in
     ``out`` (a ``flight_summary`` result of ``cfg``): the larger of their
     operations (``n_steps`` main-loop steps at ``ops_per_step`` of the build
@@ -798,11 +989,17 @@ def bound_ms(out: dict, cfg: SimConfig, dtype, in_bytes: int, recs: dict = None)
     outputs written once over the memory rate. With ``recs``, the records of
     ``flight_record``: each lane's frames up to its stop, each at
     ``OPS_PER_FRAME`` where derived channels are recorded, and every frame
-    of the records written once."""
+    of the records written once. With ``chunk_steps``, a chunked run of the
+    carry build: the same operations, and each lane's carry (``N_CARRY_F``
+    values and ``N_CARRY_I`` int32) written at the end of each chunk it
+    runs (``carry_runs``) and read at the start of each but its first."""
     steps = int(out["n_steps"].to(torch.int64).sum())
     rail = int(torch.round(out["rail_exit_time"].double() / cfg.rail_dt).sum())
     ops = float(steps * ops_per_step(kernel_flags(cfg)) + rail * OPS_PER_RAIL_STEP)
     nbytes = in_bytes + sum(t.numel() * t.element_size() for t in out.values())
+    if chunk_steps is not None:
+        lane_bytes = N_CARRY_F * (torch.finfo(dtype).bits // 8) + N_CARRY_I * 4
+        nbytes += int((2 * carry_runs(out["n_steps"], chunk_steps) - 1).sum()) * lane_bytes
     if recs is not None:
         frames = int(recs["valid"].sum())
         ops += float(frames * OPS_PER_FRAME) if recs["derived"] else 0.0

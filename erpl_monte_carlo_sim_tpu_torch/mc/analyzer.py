@@ -59,6 +59,7 @@ import torch
 
 from ..engine.batch import simulate_summary_batch
 from ..engine.config import SimConfig
+from ..engine.simulate import simulate_batch_chunked
 from ..engine.state import InitialConditions
 from ..models.scene import Scene, nominal_scene
 from .. import random
@@ -76,10 +77,6 @@ __all__ = ["MonteCarloAnalyzer"]
 log = logging.getLogger(__name__)
 
 _METRICS = ("apogee_altitude", "range", "flight_time")
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
 def _draw(analyzer, ic, n: int, key: torch.Tensor, base_wind):
@@ -343,10 +340,16 @@ class MonteCarloAnalyzer(SubsetDriverMixin, ResimulationMixin):
         is added. ``checkpoint_path``: a slabbed run writes its state there
         every ``checkpoint_every`` slabs and the same call resumes from it,
         bit for bit (``mc.slab_checkpoint``); the file goes when the run
-        completes."""
+        completes. ``chunk_steps``: the flights run in chunks of at most
+        that many steps (``engine.simulate_batch_chunked``: the stacked
+        engine's physics, one launch of the kernel's carry build a chunk on
+        a card), not through ``simulate_summary_batch``."""
         del n_processes, optimized
-        if chunk_steps is not None:
-            _not_ported("chunk_steps", "'Left out of the port'")
+        if chunk_steps is not None and self.wind_table_modes:
+            # the chunks fly WindField tables only (the stacked engine):
+            # dropping the compression asked for would misreport what ran
+            raise ValueError("wind_table_modes applies to the component batch path; "
+                             "it does not compose with chunk_steps")
         slab = lane_slab if lane_slab is not None else self.max_lanes_per_call
         if checkpoint_path is not None and checkpoint_every < 1:
             raise ValueError("checkpoint_every must be >= 1")
@@ -356,7 +359,8 @@ class MonteCarloAnalyzer(SubsetDriverMixin, ResimulationMixin):
         self._check_split(min(n_samples, slab))
         if n_samples > slab:
             return self._run_slabbed(ic, n_samples, slab, seed, materialize_results,
-                                     base_wind, checkpoint_path, checkpoint_every)
+                                     base_wind, checkpoint_path, checkpoint_every,
+                                     chunk_steps=chunk_steps)
         if checkpoint_path is not None:
             raise ValueError("checkpoint_path applies to slabbed runs (n_samples > "
                              "lane_slab); this run fits one device call")
@@ -364,7 +368,7 @@ class MonteCarloAnalyzer(SubsetDriverMixin, ResimulationMixin):
         t_start = time.time()
         scene_b, ic_b, sample = _draw_single(self, ic, n_samples, seed, base_wind)
         scene_sim = self._compress_for_sim(scene_b, base_wind)
-        summary = self._fly(scene_b, scene_sim, ic_b, n_samples)
+        summary = self._fly(scene_b, scene_sim, ic_b, n_samples, chunk_steps)
         valid, reasons = outlier_mask(summary, self.bounds)
         stats = {k: masked_stats(getattr(summary, k), valid) for k in _METRICS}
         cv_moments = None
@@ -466,11 +470,12 @@ class MonteCarloAnalyzer(SubsetDriverMixin, ResimulationMixin):
         ``min_samples`` lanes, or until ``max_samples``. Stopping early is
         exact: the analysis is ``run_monte_carlo(n_samples=n_used)``'s with
         the same slab, bit for bit, plus a ``sequential`` block (each
-        criterion's report, ``n_used``, ``stopped_early``, ``satisfied``)."""
+        criterion's report, ``n_used``, ``stopped_early``, ``satisfied``).
+        ``chunk_steps``: ``run_monte_carlo``'s, except that with
+        ``wind_table_modes`` the chunks fly the uncompressed tables, as the
+        JAX package's ``run_to_precision`` does."""
         from .sequential import parse_criterion
 
-        if chunk_steps is not None:
-            _not_ported("chunk_steps", "'Left out of the port'")
         if not criteria:
             raise ValueError("criteria must be a non-empty list")
         crits = [parse_criterion(c) for c in criteria]
@@ -501,7 +506,7 @@ class MonteCarloAnalyzer(SubsetDriverMixin, ResimulationMixin):
         self._check_split(slab)
         analysis = self._run_slabbed(ic, max_samples, slab, seed, materialize_results,
                                      self._base_wind(), stop_rule=stop_rule,
-                                     min_samples=min_samples)
+                                     min_samples=min_samples, chunk_steps=chunk_steps)
         n_used = int(analysis["n_total"])
         analysis["sequential"] = {
             "max_samples": int(max_samples), "min_samples": int(min_samples),
@@ -515,7 +520,7 @@ class MonteCarloAnalyzer(SubsetDriverMixin, ResimulationMixin):
     # ---------------------------------------------------------- slab loop
     def _run_slabbed(self, ic, n_samples, slab, seed, materialize_results, base_wind,
                      checkpoint_path=None, checkpoint_every=16, stop_rule=None,
-                     min_samples=0) -> dict:
+                     min_samples=0, chunk_steps=None) -> dict:
         """The lane axis in slabs of ``slab`` lanes, one device call each;
         slab k draws under ``fold_in(PRNGKey(seed), k)``, and its statistics
         accumulate on the host through the registry of
@@ -547,7 +552,8 @@ class MonteCarloAnalyzer(SubsetDriverMixin, ResimulationMixin):
             from .slab_checkpoint import (load_slab_state, read_slab_state, run_fingerprint,
                                           save_slab_state)
 
-            ckpt_fp = run_fingerprint(self, ic, n_samples, slab, seed, base_wind, limit)
+            ckpt_fp = run_fingerprint(self, ic, n_samples, slab, seed, base_wind, limit,
+                                      chunk_steps)
             # rank 0's file, read there and handed to every rank: the ranks
             # need share no filesystem, and all resume from one slab
             raw = read_slab_state(checkpoint_path) if self._writes_files else None
@@ -564,7 +570,10 @@ class MonteCarloAnalyzer(SubsetDriverMixin, ResimulationMixin):
         while n_done < n_samples:
             n_s = min(slab, n_samples - n_done)
             scene_b, ic_b, sample = _draw_slab(self, ic, slab_idx, slab, seed, base_wind)
-            summary = self._fly(scene_b, self._compress_for_sim(scene_b, base_wind), ic_b, slab)
+            # chunks fly the stacked engine, on the uncompressed tables
+            scene_sim = (scene_b if chunk_steps is not None
+                         else self._compress_for_sim(scene_b, base_wind))
+            summary = self._fly(scene_b, scene_sim, ic_b, slab, chunk_steps)
             # lane ids are global: seed == simulation_id across slabs
             sample = dataclasses.replace(sample, random_seed=sample.random_seed + n_done)
             valid, reasons = outlier_mask(summary, self.bounds)
@@ -642,13 +651,17 @@ class MonteCarloAnalyzer(SubsetDriverMixin, ResimulationMixin):
 
             lane_block(lanes_per_call, self.mesh)
 
-    def _fly(self, scene_b, scene_sim, ic_b, n: int):
+    def _fly(self, scene_b, scene_sim, ic_b, n: int, chunk_steps=None):
         """The summaries of a call's ``n`` lanes: one
-        ``simulate_summary_batch`` without a mesh; with one, this rank's
-        block of lanes (on the tables ``scene_sim`` flies: the compressed
-        ones under ``wind_table_modes``) flown on its device and every
-        rank's gathered in lane order."""
+        ``simulate_summary_batch`` without a mesh, or with ``chunk_steps``
+        ``simulate_batch_chunked``; with a mesh, this rank's block of lanes
+        (on the tables ``scene_sim`` flies: the compressed ones under
+        ``wind_table_modes``) flown on its device and every rank's gathered
+        in lane order."""
         if self.mesh is None:
+            if chunk_steps is not None:
+                return simulate_batch_chunked(scene_b, ic_b, self.sim_config,
+                                              chunk_steps=chunk_steps)
             return simulate_summary_batch(scene_sim, ic_b, self.sim_config)
         from ..parallel.mesh import lane_block
         from ..parallel.sharded import run_sharded_summaries
@@ -658,7 +671,8 @@ class MonteCarloAnalyzer(SubsetDriverMixin, ResimulationMixin):
         ids = torch.arange(block.start, block.stop)
         modes = scene_sim.wind if scene_sim is not scene_b else None
         return run_sharded_summaries(self._as_flown(scene_b, modes, ids), _take(ic_b, None, ids),
-                                     None, self.sim_config, self.mesh, n)
+                                     None, self.sim_config, self.mesh, n,
+                                     chunk_steps=chunk_steps)
 
     def _cv_wind_ctrl(self, scene_b, sample, base_wind):
         """The ``wind_ctrl`` dict of ``mc.cv``'s wind-table controls, None when

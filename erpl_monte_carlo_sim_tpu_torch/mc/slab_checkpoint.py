@@ -68,9 +68,12 @@ def _hash_tree(h, obj, path: str) -> None:
         h.update(np.ascontiguousarray(t.cpu().numpy()).tobytes())
 
 
-def run_fingerprint(analyzer, ic, n_samples, slab, seed, base_wind, limit) -> str:
+def run_fingerprint(analyzer, ic, n_samples, slab, seed, base_wind, limit,
+                    chunk_steps=None) -> str:
     """Digest of every input that shapes the slabs' results and the
-    accumulators. Equal fingerprints run identical slab sequences."""
+    accumulators. Equal fingerprints run identical slab sequences. A
+    chunked run (``chunk_steps``) flies the stacked engine, so its slabs
+    are not an unchunked run's."""
     h = hashlib.sha256()
     _hash_tree(h, analyzer.scene, "scene")
     _hash_tree(h, ic, "ic")
@@ -88,7 +91,7 @@ def run_fingerprint(analyzer, ic, n_samples, slab, seed, base_wind, limit) -> st
         [[c, float(t)] for c, t in analyzer.importance_shift],
         bool(analyzer.control_variates), int(analyzer.cv_wind_modes),
         int(analyzer.cv_wind_speed), int(analyzer.two_level_lanes),
-        analyzer.wind_table_modes,
+        analyzer.wind_table_modes, None if chunk_steps is None else int(chunk_steps),
     ]).encode())
     return h.hexdigest()
 

@@ -6,7 +6,8 @@ dispersion distribution as a push-forward of N(0, I_d)
 per-lane AR(1) turbulence driver) and drive ``mc.subset``'s multilevel
 splitting with batched flights: every chain step is one call of
 ``simulate_summary_batch`` on the analyzer's device (one K1 launch on a
-card), and its values come back to the host for the chains.
+card), or with ``chunk_steps`` of ``engine.simulate_batch_chunked`` (one
+launch a chunk), and its values come back to the host for the chains.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from ..engine.batch import simulate_summary_batch
+from ..engine.simulate import simulate_batch_chunked
 from .dispersions import normal_dims, sample_from_normals
 from .filter import outlier_mask
 
@@ -104,11 +106,8 @@ class SubsetDriverMixin:
         """Checks the options and returns ``(g_fn, d, n_knots, sign)``:
         ``g_fn`` maps a host ``[n, d]`` array of standard normals to the
         host ``[n]`` array of ``sign * metric``, with invalid and non-finite
-        lanes at ``-inf``, flying the lanes on the analyzer's device."""
-        if chunk_steps is not None:
-            from .analyzer import _not_ported
-
-            _not_ported("chunk_steps", "'Left out of the port'")
+        lanes at ``-inf``, flying the lanes on the analyzer's device (with
+        ``chunk_steps``, through ``engine.simulate_batch_chunked``)."""
         scalar_metrics = ("apogee_altitude", "apogee_time", "range", "flight_time",
                           "max_speed")
         if metric not in scalar_metrics:
@@ -137,7 +136,10 @@ class SubsetDriverMixin:
             scene_b, ic_b, _ = sample_from_normals(
                 u_np, scene, ic, params=params, base_wind=base_wind,
                 wind_grid_points=self.wind_grid_points, wind_grid_top=self.wind_grid_top)
-            summary = simulate_summary_batch(scene_b, ic_b, cfg)
+            if chunk_steps is not None:
+                summary = simulate_batch_chunked(scene_b, ic_b, cfg, chunk_steps=chunk_steps)
+            else:
+                summary = simulate_summary_batch(scene_b, ic_b, cfg)
             valid, _ = outlier_mask(summary, bounds)
             vals = getattr(summary, metric)
             out = torch.where(valid & torch.isfinite(vals), sign * vals, -torch.inf)

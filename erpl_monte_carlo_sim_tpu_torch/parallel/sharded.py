@@ -35,6 +35,7 @@ import torch.distributed as dist
 
 from ..engine.batch import simulate_summary_batch
 from ..engine.config import SimConfig
+from ..engine.simulate import simulate_batch_chunked
 from ..mc.stats import PERCENTILES, order_stat_ranks
 from ..utils.tree import tree_map
 from .mesh import LaneMesh, all_gather_lanes, all_reduce
@@ -77,16 +78,22 @@ def gather_lanes(tree, mesh: LaneMesh):
 
 
 def run_sharded_summaries(scene_b, ic_b, axes, cfg: SimConfig, mesh: LaneMesh,
-                          batch_size: int):
+                          batch_size: int, chunk_steps=None):
     """Fly this rank's lanes (``scene_b``/``ic_b``: its shard, leading axis
     ``batch_size // mesh.size`` on batched leaves) and return the global
     ``FlightSummary`` of ``batch_size`` lanes, the same on every rank. The
     flights need no communication; the summaries are gathered once.
-    ``axes`` is unused (the JAX signature's)."""
+    ``axes`` is unused (the JAX signature's). With ``chunk_steps`` the
+    rank's lanes fly ``simulate_batch_chunked``, the rank's chunks ending
+    when its own lanes are done; a masked step leaves a stopped lane as it
+    is, so the gathered summary is the no-mesh run's."""
     del axes
     if batch_size % mesh.size or int(ic_b.position.shape[0]) * mesh.size != batch_size:
         raise ValueError(f"a shard of {int(ic_b.position.shape[0])} lanes on each of "
                          f"{mesh.size} ranks is not a batch of {batch_size}")
+    if chunk_steps is not None:
+        return gather_lanes(simulate_batch_chunked(scene_b, ic_b, cfg, chunk_steps=chunk_steps),
+                            mesh)
     return gather_lanes(simulate_summary_batch(scene_b, ic_b, cfg), mesh)
 
 

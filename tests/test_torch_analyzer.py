@@ -195,15 +195,6 @@ def test_sim_config_flags_reach_the_flights(flags):
     assert (want.n_steps > 0).all()
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    ({"n_samples": 8, "chunk_steps": 100}, "Left out of the port"),
-])
-def test_unported_run_options_raise(kwargs, item):
-    mc = MonteCarloAnalyzer(motor=liquid_motor("cpu"))
-    with pytest.raises(NotImplementedError, match=item):
-        mc.run_monte_carlo(InitialConditions.vertical_launch("cpu"), **kwargs)
-
-
 def _ensemble_run(**kw):
     """A two-member forecast ensemble: a malformed one raises as the JAX
     package does, a well-formed one runs with its ensemble block and each

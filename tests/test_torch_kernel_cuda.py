@@ -641,7 +641,6 @@ def test_single_flight_entry_points_launch_the_kernel_on_cuda(dtype):
     derived pass once each."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc; the CPU runs the plain version only")
-    from chip_smoke import stacked_out
     from erpl_monte_carlo_sim_tpu_torch.engine import simulate_flight, simulate_summary
     from erpl_monte_carlo_sim_tpu_torch.engine.simulate import simulate_summary_reference
 
@@ -652,7 +651,8 @@ def test_single_flight_entry_points_launch_the_kernel_on_cuda(dtype):
     assert fs.launches == before + 1
     kernel = fs.flight_summary(*prepare_batch(scene_b, ic_b), cfg)
     assert torch.equal(got.n_steps, kernel["n_steps"])
-    compare(stacked_out(simulate_summary_reference(scene_b, ic_b, cfg), ic_b), kernel, dtype)
+    compare(fs.summary_out(simulate_summary_reference(scene_b, ic_b, cfg), ic_b), kernel,
+            dtype)
 
     dev = torch.device("cuda")
     scene, ic = nominal_scene(liquid_motor(dev, dtype)), InitialConditions.vertical_launch(dev, dtype)
@@ -694,3 +694,63 @@ def test_stacked_graph_replay_is_the_eager_loop_on_cuda(dtype, monkeypatch):
                 pairs = [(x, y)]
             for u, v in pairs:
                 assert torch.equal(u, v) or bool(((u == v) | (u.isnan() & v.isnan())).all()), path
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_stacked_route_folds_a_nan_speed_on_cuda(dtype):
+    """``engine.simulate_summary`` and ``simulate_batch_chunked`` on CUDA
+    tensors launch builds with the stacked engine's speed: a NaN-wind
+    lane's ``max_speed`` is 0 in both, as in the stacked plain version on
+    the card, whose other leaves they meet at the kernel's bars; the two
+    routes are the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc; the CPU runs the plain version only")
+    from chip_smoke import same_summaries
+    from erpl_monte_carlo_sim_tpu_torch.engine import simulate_batch_chunked, simulate_summary
+    from erpl_monte_carlo_sim_tpu_torch.engine.simulate import simulate_summary_reference
+
+    scene_b, ic_b = sample_batch(64, dtype, nan_lane=7)
+    cfg = SimConfig(max_time=2.0)
+    before = (fs.launches, fs.fold_launches, fs.chunk_launches)
+    got = simulate_summary(scene_b, ic_b, cfg)
+    chunked = simulate_batch_chunked(scene_b, ic_b, cfg, chunk_steps=64)
+    chunks = fs.chunk_launches - before[2]
+    assert chunks >= 3 and fs.launches - before[0] == fs.fold_launches - before[1] == 1 + chunks
+    assert float(got.max_speed[7]) == float(chunked.max_speed[7]) == 0.0
+    assert bool(got.diverged[7]) and not bool(got.diverged[:7].any())
+    assert same_summaries(got, chunked)
+    kernel = fs.flight_summary(*prepare_batch(scene_b, ic_b), cfg, stacked_speed=True)
+    compare(fs.summary_out(simulate_summary_reference(scene_b, ic_b, cfg), ic_b), kernel,
+            dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("case", ["parity", "parity+stacked_speed", "full_flights"])
+def test_carry_build_is_the_one_shot_build_on_cuda(case, dtype):
+    """The carry build chunk by chunk against the one-shot build of the same
+    flags, bit for bit in every output: 4,096 dispersed lanes of a 6 s
+    window (one NaN-wind lane) in chunks of 256 steps, or the low-apogee
+    scenes to landing under the full-flight set in chunks of 500; one
+    launch a chunk, as many chunks as the longest lane needs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc; the CPU runs the plain version only")
+    from erpl_monte_carlo_sim_tpu_torch.kernels.measure import flag_set, low_apogee_batch
+
+    stacked = case.endswith("stacked_speed")
+    if case == "full_flights":
+        cfg, chunk = flag_set("full_flights")[0], 500
+        args = prepare_batch(*low_apogee_batch(torch.device("cuda"), dtype))
+    else:
+        cfg, chunk = WINDOW, 256
+        args = prepare_batch(*sample_batch(4096, dtype, nan_lane=7))
+    want = fs.flight_summary(*args, cfg, stacked_speed=stacked)
+    before = fs.chunk_launches
+    got = fs.flight_summary_chunked(*args, cfg, chunk, stacked_speed=stacked)
+    steps = int(want["n_steps"].max())
+    assert fs.chunk_launches - before == -(-steps // chunk) > 1
+    assert digest(got) == digest(want)
+    for k in want:
+        assert bool(((got[k] == want[k]) | (got[k].isnan() & want[k].isnan())).all()
+                    if got[k].is_floating_point() else torch.equal(got[k], want[k])), k

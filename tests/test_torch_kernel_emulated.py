@@ -39,7 +39,8 @@ from erpl_monte_carlo_sim_tpu_torch.engine.batch import prepare_batch
 from erpl_monte_carlo_sim_tpu_torch.engine.component import INT_KEYS
 from erpl_monte_carlo_sim_tpu_torch.kernels import flight_summary as fs
 from erpl_monte_carlo_sim_tpu_torch.kernels.measure import (COMBINED, FULL_FLIGHTS,
-                                                            LOW_APOGEE_PROPELLANT, combined)
+                                                            LOW_APOGEE_PROPELLANT, combined,
+                                                            low_apogee_batch)
 from erpl_monte_carlo_sim_tpu_torch.mc import sample_dispersions
 from erpl_monte_carlo_sim_tpu_torch.models import (RocketParams, WindField, liquid_motor,
                                                    nominal_scene, solid_motor)
@@ -201,14 +202,31 @@ RECORD_LANDING = SimConfig(**FULL_FLIGHTS, record_stride=4,
                            record_channels=("mach", "euler_angles", "thrust", "drag"))
 
 
+# the carry builds' cases: id: (COMBINED name or "parity", stacked_speed)
+CARRY_CASES = {
+    "parity": ("parity", False),
+    "parity+stacked_speed": ("parity", True),
+    "full_flights": ("full_flights", False),
+}
+
+
+def carry_flags(case: str) -> tuple:
+    """``(SimConfig fields, one-shot build)`` of a ``CARRY_CASES`` case."""
+    name, stacked = CARRY_CASES[case]
+    fields, _, flags = flags_of(name) if name != "parity" else ({}, False, fs.PARITY)
+    return fields, flags._replace(stacked_speed=stacked)
+
+
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
-    """The parity build and each ``COMBINED`` flag set's, and the recording
-    builds, emulated."""
+    """The parity build and each ``COMBINED`` flag set's, the recording
+    builds, and the carry cases' one-shot and carry builds, emulated."""
+    one_shot = {carry_flags(case)[1] for case in CARRY_CASES}
     return build_emulated(tmp_path_factory,
                           {fs.PARITY} | {flags_of(name)[2] for name in COMBINED}
                           | {fs.kernel_flags(c, record=True)
-                             for c in (RECORD_WINDOW, RECORD_LANDING)})
+                             for c in (RECORD_WINDOW, RECORD_LANDING)}
+                          | one_shot | {f._replace(carry=True) for f in one_shot})
 
 
 def run_emulated(libs, scene_nw, grid, wind, ics, cfg) -> dict:
@@ -220,6 +238,30 @@ def run_emulated(libs, scene_nw, grid, wind, ics, cfg) -> dict:
     out_i = torch.empty((len(INT_KEYS), a.n), dtype=torch.int32)
     assert fn(*fs.entry_args(a, cfg, out_f, out_i, None)) == 0
     return fs._outputs(out_f, out_i)
+
+
+def chunked_emulated(libs, args, cfg, chunk_steps, stacked_speed):
+    """``flight_summary_chunked`` through the emulated carry build of
+    ``cfg``'s flags: the wrapper's layout and chunk loop (``run_chunks``),
+    host pointers for device ones. The outputs and the carry start as NaN
+    and -1, so that a value a chunk leaves unwritten shows. Returns
+    ``(summary dict, progress calls)``."""
+    a = fs._kernel_args(*args, cfg, stacked_speed=stacked_speed, carry=True)
+    dtype = args[3][0].dtype
+    out_f = torch.full((len(fs._FLOAT_KEYS), a.n), float("nan"), dtype=dtype)
+    out_i = torch.full((len(INT_KEYS), a.n), -1, dtype=torch.int32)
+    carry_f = torch.full((fs.N_CARRY_F, a.n), float("nan"), dtype=dtype)
+    carry_i = torch.full((fs.N_CARRY_I, a.n), -1, dtype=torch.int32)
+    active = torch.zeros(fs.max_chunks(cfg, chunk_steps), dtype=torch.int32)
+    calls = []
+
+    def launch(k):
+        chunk = (carry_f, carry_i, active[k:k + 1], k == 0, min(chunk_steps, cfg.max_steps))
+        assert libs[a.build][dtype](*fs.entry_args(a, cfg, out_f, out_i, None,
+                                                   chunk=chunk)) == 0
+
+    fs.run_chunks(launch, active, lambda k, n: calls.append((k, n)))
+    return fs._outputs(out_f, out_i), calls
 
 
 def record_emulated(libs, scene_nw, grid, wind, ics, cfg):
@@ -393,3 +435,49 @@ def test_emulated_record_build_tiered_to_landing(emulated):
     t = recs["time"][recs["valid"][:, 0], 0]
     dt = t.diff()
     assert float(dt.max() / dt[dt > 0].min()) > 8  # coarse and fine frames
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("case", list(CARRY_CASES))
+def test_emulated_carry_build_is_the_one_shot_build(emulated, case, dtype):
+    """The carry build, chunk by chunk, against the one-shot build of the
+    same flags, bit for bit in every output (NaN meeting NaN): 40 dispersed
+    lanes of a 2 s window in chunks of 37 steps, two of them with a wind
+    table NaN above 500 m and 2 km; under the full-flight set the two
+    low-apogee scenes to landing in chunks of 500 steps (the tiered loop's
+    own time and chute time carried). With the stacked engine's speed the
+    NaN lanes' ``max_speed`` is 0, as the plain version's with that
+    option."""
+    fields, one_shot = carry_flags(case)
+    if case == "full_flights":
+        cfg, chunk = SimConfig(**fields), 500
+        args = prepare_batch(*low_apogee_batch("cpu", dtype))
+    else:
+        cfg, chunk = SimConfig(max_time=2.0, **fields), 37
+        scene_b, ic_b = batch(40, dtype, seed=3)
+        table = scene_b.wind.wind.clone()
+        table[5, scene_b.wind.altitudes > 2000.0] = float("nan")
+        table[9, scene_b.wind.altitudes > 500.0] = float("nan")
+        args = prepare_batch(dataclasses.replace(
+            scene_b, wind=dataclasses.replace(scene_b.wind, wind=table)), ic_b)
+    a = fs._kernel_args(*args, cfg, stacked_speed=one_shot.stacked_speed)
+    assert a.build == one_shot
+    out_f = torch.empty((len(fs._FLOAT_KEYS), a.n), dtype=dtype)
+    out_i = torch.empty((len(INT_KEYS), a.n), dtype=torch.int32)
+    assert emulated[one_shot][dtype](*fs.entry_args(a, cfg, out_f, out_i, None)) == 0
+    want = fs._outputs(out_f, out_i)
+    got, calls = chunked_emulated(emulated, args, cfg, chunk, one_shot.stacked_speed)
+    steps = int(want["n_steps"].max())
+    assert calls == [(k, fs.max_chunks(cfg, chunk)) for k in range(1, -(-steps // chunk) + 1)]
+    assert len(calls) > 2
+    for k in want:
+        assert torch.equal(got[k], want[k]) or bool(
+            (got[k].isnan() & want[k].isnan() | (got[k] == want[k])).all()), k
+    if case == "full_flights":
+        assert bool(got["parachute_deployed"].all()) and bool((got["final_pz"] <= 0.5).all())
+    else:
+        assert bool(got["diverged"][[5, 9]].all()) and not bool(got["diverged"][:5].any())
+        nan_speed = got["max_speed"][[5, 9]]
+        assert bool((nan_speed == 0).all() if one_shot.stacked_speed else nan_speed.isnan().all())
+        compare(fs.flight_summary_reference(*args, cfg, stacked_speed=one_shot.stacked_speed),
+                got, dtype)

@@ -12,6 +12,7 @@ lane's stop frame and its room check. This file imports no JAX.
 """
 
 import dataclasses
+import re
 
 import numpy as np
 import pytest
@@ -465,6 +466,77 @@ def test_bound_counts_recorded_frames():
     assert b.bytes == base.bytes + 16 * 60 * 2 * 8 + 60 * 2
     bare = fs.bound_ms(out, SimConfig(), torch.float64, 1000, {**recs, "derived": {}})
     assert bare.ops == base.ops
+
+
+# ---------------------------------------------- the carry and fold builds
+def test_carry_and_fold_builds():
+    """The stacked engine's speed (``stacked_speed``) and the carry build
+    (``carry``) are builds of their own, named by defines the other builds
+    do not carry (their libraries keep their names); the carry build's
+    entry is ``flight_chunk_*`` and takes five more arguments; a recording
+    carry build is refused before any compiler starts."""
+    with open(fs.SOURCE, "rb") as f:
+        src = f.read()
+    parity, defines = fs._library(fs.PARITY, src)
+    assert not any("SAFE_NORM" in d or "CARRY" in d for d in defines)
+    carry = fs.kernel_flags(WINDOW, stacked_speed=True, carry=True)
+    assert carry == fs.PARITY._replace(stacked_speed=True, carry=True)
+    path, carry_defines = fs._library(carry, src)
+    assert carry_defines == defines + ["-DFS_SAFE_NORM_SPEED=1", "-DFS_CARRY=1"]
+    assert len({parity, path, fs._library(carry._replace(carry=False), src)[0]}) == 3
+    assert fs.flags_name(carry) == "stacked_speed+carry"
+    text = src.decode()
+    carry_f = re.search(r"enum CarryF \{(.*?)\};", text, re.S).group(1)
+    carry_i = re.search(r"enum CarryI \{(.*?)\};", text, re.S).group(1)
+    assert "C_APO_T = C_S + N_STATE" in carry_f
+    # the state's 14 values from C_S, then one value each after C_S's two names
+    assert fs.N_CARRY_F == 14 + len(re.findall(r"\bC_\w+", carry_f)) - 2
+    assert fs.N_CARRY_I == len(re.findall(r"\bC_\w+", carry_i))
+    assert fs.entry_name(carry, "f32") == "flight_chunk_f32"
+    assert fs.entry_name(carry._replace(carry=False), "f64") == "flight_summary_f64"
+    with pytest.raises(ValueError, match="carry excludes record"):
+        fs.build_many([carry._replace(record=True)])
+    a = fs._kernel_args(*cpu_batch(3), WINDOW, stacked_speed=True, carry=True)
+    assert a.build == carry
+    carry_f = torch.zeros((fs.N_CARRY_F, 3))
+    carry_i = torch.zeros((fs.N_CARRY_I, 3), dtype=torch.int32)
+    active = torch.zeros(4, dtype=torch.int32)
+    out = torch.zeros(1)
+    args = fs.entry_args(a, WINDOW, out, out, None, chunk=(carry_f, carry_i, active[2:3], True,
+                                                           256))
+    assert len(args) == 14 + 5 and args[-2:] == [1, 256]
+    assert args[-3].value == active.data_ptr() + 2 * 4
+    with pytest.raises(ValueError, match="positive integer"):
+        fs.flight_summary_chunked(*cpu_batch(3), WINDOW, 0)
+
+
+def test_run_chunks_stops_when_no_lane_runs():
+    """The host's chunk loop: a launch a chunk, a progress call after each,
+    until a chunk leaves its flag 0 or the bound is reached."""
+    for still_active, want in ((2, 3), (9, 5)):
+        active = torch.zeros(5, dtype=torch.int32)
+        launched, calls = [], []
+
+        def launch(k):
+            launched.append(k)
+            active[k] = int(k < still_active)
+
+        assert fs.run_chunks(launch, active, lambda k, n: calls.append((k, n))) == want
+        assert launched == list(range(want)) and calls == [(k, 5) for k in range(1, want + 1)]
+    assert fs.max_chunks(SimConfig(), 8192) == 9 and fs.max_chunks(WINDOW, 256) == 6
+
+
+def test_bound_counts_the_carry():
+    """A chunked run adds each lane's carry, written once a chunk it runs
+    and read once a chunk but its first: a lane of 100 steps in chunks of
+    30 runs 4 chunks, one of 40 steps 2, one that stops at once 1."""
+    out = {"n_steps": torch.tensor([100, 40, 0], dtype=torch.int32),
+           "rail_exit_time": torch.tensor([0.80, 0.87, 0.5], dtype=torch.float32)}
+    assert fs.carry_runs(out["n_steps"], 30).tolist() == [4, 2, 1]
+    base = fs.bound_ms(out, SimConfig(), torch.float32, in_bytes=1000)
+    b = fs.bound_ms(out, SimConfig(), torch.float32, 1000, chunk_steps=30)
+    assert b.ops == base.ops
+    assert b.bytes == base.bytes + (7 + 3 + 1) * (23 * 4 + 5 * 4)
 
 
 def test_rail_exit_ties_need_float64_evidence():

@@ -6,7 +6,8 @@ Two spawned ranks (``run_ranks``, once for the module) run the analyzer
 with a mesh on the JAX package's lanes (16 calm lanes, tests/test_parallel.py's
 dispersion, on a 1.0 s window with the outlier floor near the median
 apogee), fed through the draw seams (``_draw_single``, ``_draw_slab``): the
-single call, re-simulation, a 2-slab run, the 2-slab run killed and
+single call, re-simulation, a 2-slab run, the single call in chunks
+(``chunk_steps``), the 2-slab run killed and
 resumed (the checkpoint in a directory both ranks see, and in one directory
 a rank, where only rank 0 sees it) and an uneven batch. Held against
 the port's run without a mesh on the same lanes, float leaves at rtol 1e-9
@@ -52,6 +53,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N, SLAB, SEED, WINDOW = 16, 8, 0, 1.0
 MIN_APOGEE = 34.4  # near the window's median apogee: 7 valid lanes, 9 outliers
 SHARDED_WINDOW = 0.3
+CHUNK_STEPS = 7  # the chunked run: chunks of the 1.0 s window's 26 steps
 RESIM = [0, 9, 15]
 CALM = dict(wind_speed_range=(0.0, 0.3), initial_attitude=(0.001, 0.001, 0.001))
 METRICS = ("apogee_altitude", "range", "flight_time")
@@ -112,7 +114,8 @@ def fed(lanes: dict):
 
 def runs(mc, lanes: dict) -> dict:
     """The analyzer's runs on the fed lanes: the single call with three lanes
-    re-simulated, the 2-slab run, and an uneven call."""
+    re-simulated, the 2-slab run, the single call in chunks of
+    ``CHUNK_STEPS`` steps, and an uneven call."""
     ic = InitialConditions.vertical_launch("cpu")
     single, slab = fed(lanes)
     saved = analyzer_mod._draw_single, analyzer_mod._draw_slab
@@ -123,6 +126,7 @@ def runs(mc, lanes: dict) -> dict:
         out["resim"] = {"apogee_altitude": s.apogee_altitude, "n_steps": s.n_steps,
                         "frames": traj.position.shape}
         out["slabbed"] = mc.run_monte_carlo(ic, n_samples=N, lane_slab=SLAB, seed=SEED)
+        out["chunked"] = mc.run_monte_carlo(ic, n_samples=N, seed=SEED, chunk_steps=CHUNK_STEPS)
         try:
             mc.run_monte_carlo(ic, n_samples=N - 1, seed=SEED)
             out["uneven"] = "no error"
@@ -130,7 +134,7 @@ def runs(mc, lanes: dict) -> dict:
             out["uneven"] = str(e)
     finally:
         analyzer_mod._draw_single, analyzer_mod._draw_slab = saved
-    for k in ("single", "slabbed"):
+    for k in ("single", "slabbed", "chunked"):
         out[k] = {key: v for key, v in out[k].items() if key != "initial_conditions"}
     return plain(out)
 
@@ -297,7 +301,7 @@ def test_ranks_form_the_same_analysis(ranks):
     """Every rank forms the same analysis (but for its own timings; where
     each rank has its own directory, only rank 0's holds the checkpoint)."""
     for r in ranks:
-        for run in (r["single"], r["slabbed"], r["resumed"]["analysis"],
+        for run in (r["single"], r["slabbed"], r["chunked"], r["resumed"]["analysis"],
                     r["resumed_apart"]["analysis"]):
             del run["performance"]["total_time"], run["performance"]["simulations_per_second"]
 
@@ -308,10 +312,11 @@ def test_ranks_form_the_same_analysis(ranks):
     np.testing.assert_equal(but_written(ranks[1]), but_written(ranks[0]))
 
 
-@pytest.mark.parametrize("run", ["single", "slabbed"])
+@pytest.mark.parametrize("run", ["single", "slabbed", "chunked"])
 def test_mesh_run_is_the_run_without_a_mesh(ranks, no_mesh, run):
     """Every key but ``performance`` (``close``); ``cores_used`` is the
-    mesh's size."""
+    mesh's size. In the chunked run each rank's chunks end when its own
+    lanes are done."""
     got, ref = ranks[0][run], no_mesh[run]
     assert got.keys() == ref.keys()
     for k in got:

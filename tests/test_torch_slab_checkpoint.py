@@ -174,6 +174,7 @@ CHANGES = {
     "bounds": lambda: {"mc": MonteCarloAnalyzer(motor=liquid_motor("cpu"), sim_config=CFG,
                                                 bounds=OutlierBounds(min_apogee=35.0))},
     "n_samples": lambda: {"n_samples": N + 1},
+    "chunk_steps": lambda: {"chunk_steps": 100},
     "slab": lambda: {"slab": SLAB * 2},
     "seed": lambda: {"seed": 8},
     "limit": lambda: {"limit": 999},

@@ -437,27 +437,32 @@ def test_flight_matches_jax(stride, flights):
 
 @pytest.mark.parametrize("entry,lanes", [("simulate_summary", "single"),
                                          ("simulate_flight", "single"),
-                                         ("simulate_flight", "batched")])
+                                         ("simulate_flight", "batched"),
+                                         ("simulate_summary", "batched")])
 def test_card_route_matches_the_stacked_engine(entry, lanes, dispersed, monkeypatch):
     """The card route's plumbing, run here on CPU tensors: ``engine.batch``
     (whose CPU route is the component core's plain version), a single
     flight lifted to one lane and squeezed back, equal to the stacked plain
     version at tests/test_batch.py's bars; recorded, every frame, ``valid``
     and every derived channel, also for the dispersed lanes' ``[B, T]``
-    layout (the NaN-wind lane left out: its speed is the one leaf the two
-    engines form apart, ``test_stacked_matches_summary_batch``)."""
+    layout. The dispersed lanes hold the NaN-wind lane: the card route
+    forms the speeds as the stacked engine does (the kernel's
+    ``stacked_speed`` builds), so that lane's ``max_speed`` is 0 there
+    too."""
     monkeypatch.setattr(psim, "_on_card", lambda ic: True)
     if lanes == "single":
         scene = port(jax_scene("liquid"))
         ic = pe.InitialConditions.vertical_launch("cpu")
     else:
-        scene, ic = port(dispersed[1]), port(dispersed[3])
+        scene, ic = port(dispersed[2]), port(dispersed[3])
     cfg = pe.SimConfig(max_time=1.0, record_stride=4)
     got = getattr(pe, entry)(scene, ic, cfg)
     want = getattr(psim, f"{entry}_reference")(scene, ic, cfg)
     if entry == "simulate_summary":
         got, want = (got,), (want,)
     compare(to_numpy(want[0]), to_numpy(got[0]), FLIGHT_BARS[jnp.float64])
+    if lanes == "batched":
+        assert got[0].diverged[NAN_LANE] and float(got[0].max_speed[NAN_LANE]) == 0.0
     if entry == "simulate_flight":
         g, w = to_numpy(got[1]), to_numpy(want[1])
         assert set(g.derived) == set(w.derived)
@@ -493,14 +498,16 @@ def test_rk2_and_bf16_table_are_ignored(entry, route, monkeypatch):
     """``integrator`` and ``wind_table_bf16`` are not read by the JAX
     package's stacked path: both routes accept them and fly RK4 on the
     table as given, so the card's kernel, which would honour them, is given
-    ``integrator="rk4"`` and ``wind_table_bf16=False``."""
-    seen = []
+    ``integrator="rk4"`` and ``wind_table_bf16=False`` (and the stacked
+    engine's speed, ``_stacked_speed``)."""
+    seen, options = [], []
 
     class Flown(Exception):
         pass
 
-    def capture(scene, ic, cfg):
+    def capture(scene, ic, cfg, **kw):
         seen.append(cfg)
+        options.append(kw)
         raise Flown
 
     if route == "card":
@@ -514,3 +521,4 @@ def test_rk2_and_bf16_table_are_ignored(entry, route, monkeypatch):
     with pytest.raises(Flown):
         getattr(pe, entry)(scene, ic, cfg)
     assert seen == [dataclasses.replace(cfg, integrator="rk4", wind_table_bf16=False)]
+    assert options == [{"_stacked_speed": True} if route == "card" else {}]
