@@ -1,0 +1,9 @@
+"""``draw_ms_per_analysis``: the device time of the sampler's kernels
+(``threefry_kernel``, ``ar1_kernel``) over the window, per analysis."""
+
+
+def read(run):
+    if run.trace is None or not len(run.trace.spans):
+        return None
+    s = run.trace.device_s("threefry_kernel", "ar1_kernel")
+    return s / len(run.trace.spans) * 1e3 if s > 0 else None
